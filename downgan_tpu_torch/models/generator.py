@@ -1,0 +1,89 @@
+"""ESRGAN-style residual-in-residual dense generator, NCHW (counterpart of
+``downgan_tpu/models/generator.py``).
+
+conv1 -> N x RRDB -> conv2 + global skip -> K x [conv(4F), LeakyReLU,
+PixelShuffle(2)] -> conv, LeakyReLU, conv. Florida: (B, 7, 16, 16) ->
+(B, 2, 128, 128), 1,696,514 params.
+
+Attribute names reproduce the reference state-dict keys (``conv1``,
+``res_blocks.{i}.dense_blocks.{j}.b{k}.0``, ``conv2``, ``upsampling.{0,3,6}``,
+``conv3.{0,2}``), so a file written by the JAX package's ``export-torch``
+loads with ``strict=True``.
+
+Every DenseResidualBlock runs through ``ops/cuda/drb.py::drb_forward``: the
+CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from downgan_tpu_torch.models.layers import GEN_SLOPE, conv3x3
+from downgan_tpu_torch.ops.cuda.drb import drb_forward, pack_drb_weights
+
+
+class DenseResidualBlock(nn.Module):
+    """Five conv stages over growing concatenations; stage k convolves
+    k*filters channels down to ``filters``, LeakyReLU on all but the last,
+    output scaled by 0.2 and added to the input."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        for k in range(1, 6):
+            act = [nn.LeakyReLU(GEN_SLOPE)] if k < 5 else []
+            setattr(self, f"b{k}", nn.Sequential(conv3x3(k * filters, filters), *act))
+        self._packed = None
+        self._packed_key = None
+
+    def stage_params(self):
+        """([w_1..w_5], [b_1..b_5]): the five convs' OIHW weights and biases."""
+        convs = [getattr(self, f"b{k}")[0] for k in range(1, 6)]
+        return [c.weight for c in convs], [c.bias for c in convs]
+
+    def _packed_weights(self, weights, biases) -> torch.Tensor:
+        # Pack once per weight set: repack only when a parameter moved or
+        # was written in place (load_state_dict bumps the version).
+        key = tuple((t.device, t.data_ptr(), t._version) for t in (*weights, *biases))
+        if key != self._packed_key:
+            self._packed = pack_drb_weights(weights, biases)
+            self._packed_key = key
+        return self._packed
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weights, biases = self.stage_params()
+        return drb_forward(x, weights, biases, self._packed_weights(weights, biases))
+
+
+class RRDB(nn.Module):
+    """Three DRBs with an outer skip scaled by 0.2."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        self.dense_blocks = nn.Sequential(*[DenseResidualBlock(filters) for _ in range(3)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dense_blocks(x) * 0.2 + x
+
+
+class Generator(nn.Module):
+    """RRDB super-resolution generator. Input (N, in_channels, h, w), output
+    (N, n_predictands, h * 2**num_upsample, w * 2**num_upsample) fp32."""
+
+    def __init__(self, filters: int = 16, in_channels: int = 7,
+                 n_predictands: int = 2, num_res_blocks: int = 16,
+                 num_upsample: int = 3):
+        super().__init__()
+        self.conv1 = conv3x3(in_channels, filters)
+        self.res_blocks = nn.Sequential(*[RRDB(filters) for _ in range(num_res_blocks)])
+        self.conv2 = conv3x3(filters, filters)
+        up = []
+        for _ in range(num_upsample):
+            up += [conv3x3(filters, 4 * filters), nn.LeakyReLU(GEN_SLOPE), nn.PixelShuffle(2)]
+        self.upsampling = nn.Sequential(*up)
+        self.conv3 = nn.Sequential(conv3x3(filters, filters), nn.LeakyReLU(GEN_SLOPE),
+                                   conv3x3(filters, n_predictands))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out1 = self.conv1(x.float())
+        out = out1 + self.conv2(self.res_blocks(out1))
+        return self.conv3(self.upsampling(out)).float()

@@ -1,0 +1,187 @@
+"""Fused DenseResidualBlock forward: the CUDA kernel's wrapper, its weight
+packing, its build on first use, and its plain PyTorch twin.
+
+Counterpart of ``downgan_tpu/ops/pallas/drb.py`` (the Pallas TPU kernel
+``drb_forward``). The kernel itself is ``drb.cu`` beside this file; its
+header says what it computes, what bounds it on Hopper and how it is laid
+out. Here:
+
+* :func:`pack_drb_weights` packs a block's five OIHW conv weights and
+  biases once per weight set into the flat layout the kernel reads;
+* :func:`drb_forward` is the wrapper. On a CPU tensor it runs the plain
+  twin; on a CUDA tensor it launches the kernel or raises — nothing falls
+  back to the twin on the card;
+* :func:`drb_forward_reference` is the plain twin: the same arithmetic as
+  the kernel (nine shifted channel products per stage), in PyTorch. Tests,
+  CPU runs and ``chip_smoke.py`` hold the kernel against it;
+* :func:`load_library` compiles ``drb.cu`` with ``nvcc`` for ``sm_90a``
+  into ``build/torch_ext/`` at the repository root (once per source
+  content) and loads it with ctypes. A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+SLOPE = 0.01  # torch nn.LeakyReLU() default, as in the generator
+RES_SCALE = 0.2
+SUPPORTED_FILTERS = (8, 16)
+
+SOURCE = Path(__file__).with_name("drb.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_build_lock = threading.Lock()
+_lib = None
+_count_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def library_path() -> Path:
+    """Where the build of the current ``drb.cu`` lives: the file name
+    carries a hash of the source and the flags, so an edit rebuilds."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libdrb_{digest}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build ``drb.cu`` if this source has no build yet, then load it.
+
+    The compiler's report (registers, shared memory, spills from
+    ``-Xptxas -v``) is kept beside the library as ``<name>.log``.
+    """
+    global _lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            so.with_suffix(".log").write_text(
+                " ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}) building {SOURCE}:\n"
+                    f"{res.stderr[-4000:]}")
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        lib = ctypes.CDLL(str(so))
+        lib.drb_forward_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.drb_forward_f32.restype = ctypes.c_int
+        lib.drb_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.drb_scratch_floats.restype = ctypes.c_longlong
+        lib.drb_error_string.argtypes = [ctypes.c_int]
+        lib.drb_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def pack_drb_weights(weights: Sequence[torch.Tensor],
+                     biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Five stages' OIHW weights (F, s*F, 3, 3) and biases (F,) -> one flat
+    fp32 tensor: for each stage ``w[ci, 3*dy + dx, co]`` (co innermost),
+    then the five biases. Call once per weight set."""
+    with torch.no_grad():
+        parts = [w.permute(1, 2, 3, 0).reshape(-1) for w in weights]
+        parts += [b.reshape(-1) for b in biases]
+        return torch.cat(parts).to(torch.float32).contiguous()
+
+
+def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                          biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch DRB forward on (B, F, H, W): per stage, nine shifted
+    (F, s*F) x (s*F, pixels) products over the zero-padded concat — the
+    kernel's arithmetic, not a call to a convolution library."""
+    b, f, h, w = x.shape
+    acts = x
+    for s in range(5):
+        padded = F.pad(acts, (1, 1, 1, 1))
+        acc = biases[s].reshape(1, f, 1, 1).expand(b, f, h, w)
+        for t in range(9):
+            dy, dx = divmod(t, 3)
+            window = padded[:, :, dy:dy + h, dx:dx + w]
+            acc = acc + torch.einsum("oc,bchw->bohw", weights[s][:, :, dy, dx], window)
+        if s < 4:
+            acts = torch.cat([acts, F.leaky_relu(acc, SLOPE)], dim=1)
+        else:
+            return acc * RES_SCALE + x
+
+
+def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                biases: Sequence[torch.Tensor],
+                packed: torch.Tensor | None = None) -> torch.Tensor:
+    """DRB forward on (B, F, H, W) fp32.
+
+    CPU tensor: the plain twin. CUDA tensor: the ``drb.cu`` kernel, with
+    ``packed`` from :func:`pack_drb_weights` (packed here when omitted);
+    ``drb_forward.launches`` counts its launches. The kernel is forward
+    only, so a call that autograd would have to differentiate raises.
+    """
+    if x.device.type == "cpu":
+        return drb_forward_reference(x, weights, biases)
+    if x.device.type != "cuda":
+        raise ValueError(f"drb_forward runs on cpu or cuda tensors, not {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in (*weights, *biases))):
+        raise RuntimeError(
+            "the DRB kernel is forward only: call it under torch.inference_mode() "
+            "or torch.no_grad() (its backward comes with the training slice)")
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(
+            f"drb_forward takes contiguous (B, F, H, W) float32, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    b, f, h, w = x.shape
+    if f not in SUPPORTED_FILTERS:
+        raise ValueError(f"the DRB kernel takes F in {SUPPORTED_FILTERS}, got F={f}")
+    if b < 1 or h < 1 or w < 1:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+    if packed is None:
+        packed = pack_drb_weights(weights, biases)
+    if (packed.device != x.device or packed.dtype != torch.float32
+            or packed.numel() != 9 * f * f * 15 + 5 * f
+            or not packed.is_contiguous() or packed.data_ptr() % 16):
+        raise ValueError("packed weights do not match this input; "
+                         "repack with pack_drb_weights")
+    lib = load_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        n_scratch = lib.drb_scratch_floats(b, f, h, w)
+        if n_scratch < 0:
+            raise RuntimeError("cannot query the device's shared memory limit")
+        scratch = (torch.empty(n_scratch, device=x.device, dtype=torch.float32)
+                   if n_scratch else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.drb_forward_f32(
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            b, f, h, w, stream)
+    if err:
+        raise RuntimeError(
+            f"DRB kernel launch failed: {lib.drb_error_string(err).decode()} "
+            f"(input {tuple(x.shape)})")
+    with _count_lock:
+        drb_forward.launches += 1
+    return out
+
+
+drb_forward.launches = 0

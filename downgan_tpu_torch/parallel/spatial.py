@@ -1,0 +1,112 @@
+"""Overlap-tiled full-domain inference on one device (counterpart of
+``effective_fold``, ``count_tiled_dispatches`` and ``tiled_sr_inference`` in
+``downgan_tpu/parallel/spatial.py``; meshes come with the multi-GPU slice).
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from downgan_tpu_torch.config.config import Config
+from downgan_tpu_torch.models.generator import Generator
+from downgan_tpu_torch.training.state import load_generator
+
+
+def effective_fold(tiles_per_dispatch: int) -> int:
+    """Tiles folded into the batch axis of one generator dispatch."""
+    return max(1, tiles_per_dispatch)
+
+
+def count_tiled_dispatches(b: int, h: int, w: int, tile_rows: int,
+                           tile_cols: int = 0, tiles_per_dispatch: int = 8) -> int:
+    """Generator dispatches :func:`tiled_sr_inference` issues for a
+    (b, h, w) domain: all tiles, ragged edge tiles included, folded
+    :func:`effective_fold` at a time. ``/metrics`` reports it."""
+    n_rows = -(-h // tile_rows)
+    n_cols = -(-w // tile_cols) if tile_cols else 1
+    return -(-(b * n_rows * n_cols) // effective_fold(tiles_per_dispatch))
+
+
+def tiled_sr_inference(config: Config, weights: Mapping[str, torch.Tensor],
+                       coarse: np.ndarray, tile_rows: int = 16, overlap: int = 8,
+                       tile_cols: int = 0, tiles_per_dispatch: int = 8,
+                       device: str | torch.device = "cuda") -> np.ndarray:
+    """Full-domain super-resolution of (B, H, W, C) coarse fields (NHWC, H
+    and W arbitrary) to (B, H*sf, W*sf, P) by overlap tiling, with the
+    generator's ``weights`` (a state dict) on ``device``.
+
+    Each tile of ``tile_rows`` x ``tile_cols`` coarse cells (``tile_cols=0``:
+    full-width row bands) is evaluated with ``overlap`` cells of context per
+    side, the bands sliding inward at the domain edges; only the interior
+    is kept. Tiles fold ``tiles_per_dispatch`` at a time into the batch
+    axis, and each tile is cropped to its kept interior on the device
+    before the copy to the host."""
+    return tiled_generate(load_generator(config, weights, device), config, coarse,
+                          tile_rows=tile_rows, overlap=overlap, tile_cols=tile_cols,
+                          tiles_per_dispatch=tiles_per_dispatch)
+
+
+def tiled_generate(gen: Generator, config: Config, coarse: np.ndarray,
+                   tile_rows: int = 16, overlap: int = 8, tile_cols: int = 0,
+                   tiles_per_dispatch: int = 8) -> np.ndarray:
+    """:func:`tiled_sr_inference` with an already built generator, on the
+    generator's device."""
+    if tile_rows < 1 or overlap < 0 or tile_cols < 0:
+        raise ValueError(
+            f"invalid tiling: tile_rows={tile_rows} (>=1), overlap={overlap} "
+            f"(>=0), tile_cols={tile_cols} (>=0)")
+    # The generator's own output ratio, not the data pipeline's scale_factor.
+    sf = 2 ** config.num_upsample
+    b, h, w, _ = coarse.shape
+    band_h = tile_rows + 2 * overlap
+    band_w = tile_cols + 2 * overlap if tile_cols else w
+    keep_h = min(tile_rows, h) * sf
+    keep_w = (min(tile_cols, w) if tile_cols else w) * sf
+    if h < band_h:
+        raise ValueError(f"domain height {h} smaller than band {band_h}; "
+                         "reduce tile_rows/overlap or run the field whole")
+    if tile_cols and w < band_w:
+        raise ValueError(f"domain width {w} smaller than band {band_w}; "
+                         "reduce tile_cols/overlap or leave tile_cols=0")
+
+    row_starts = range(0, h, tile_rows)
+    col_starts = range(0, w, tile_cols) if tile_cols else [0]
+    # (sample, row start, band row origin, col start, band col origin) per tile
+    places = []
+    for bi in range(b):
+        for rs in row_starts:
+            r_lo = min(max(rs - overlap, 0), h - band_h)
+            for cs in col_starts:
+                c_lo = min(max(cs - overlap, 0), w - band_w) if tile_cols else 0
+                places.append((bi, rs, r_lo, cs, c_lo))
+
+    device = next(gen.parameters()).device
+    out = np.zeros((b, h * sf, w * sf, config.n_predictands), np.float32)
+    k = effective_fold(tiles_per_dispatch)
+    for start in range(0, len(places), k):
+        sel = places[start:start + k]
+        chunk = np.stack([coarse[bi, r_lo:r_lo + band_h, c_lo:c_lo + band_w]
+                          for bi, _, r_lo, _, c_lo in sel]).astype(np.float32, copy=False)
+        pad = k - chunk.shape[0]
+        if pad:  # every dispatch keeps the same batch shape
+            chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), np.float32)])
+        # Each tile's fetch window, clamped inside the band (a ragged last
+        # tile keeps fewer cells), and the tile's offset inside it.
+        kr = [min((rs - r_lo) * sf, band_h * sf - keep_h) for _, rs, r_lo, _, _ in sel]
+        kc = [min((cs - c_lo) * sf, band_w * sf - keep_w) for _, _, _, cs, c_lo in sel]
+        with torch.inference_mode():
+            x = torch.from_numpy(chunk).to(device).permute(0, 3, 1, 2).contiguous()
+            fine = gen(x)  # (k, P, band_h*sf, band_w*sf)
+            kept = torch.stack([fine[j, :, r:r + keep_h, c:c + keep_w]
+                                for j, (r, c) in enumerate(zip(kr, kc))])
+            kept = kept.permute(0, 2, 3, 1).cpu().numpy()
+        for j, (bi, rs, r_lo, cs, c_lo) in enumerate(sel):
+            n_rows = min(tile_rows, h - rs) * sf
+            n_cols = min(tile_cols, w - cs) * sf if tile_cols else w * sf
+            off_r = (rs - r_lo) * sf - kr[j]
+            off_c = (cs - c_lo) * sf - kc[j]
+            out[bi, rs * sf:rs * sf + n_rows, cs * sf:cs * sf + n_cols] = (
+                kept[j, off_r:off_r + n_rows, off_c:off_c + n_cols])
+    return out

@@ -1,0 +1,182 @@
+"""The port's DenseResidualBlock: its plain twin against the JAX package's
+DRB (the XLA reference formulation, the Pallas kernel in interpret mode, and
+the flax module) on the same weights and inputs; its weight packing; and,
+on a CUDA card only, the CUDA kernel against the twin.
+
+The JAX side is imported inside a fixture, so the CUDA legs also run where
+JAX is absent: ``python -m pytest tests/test_torch_drb.py -m cuda --noconftest``.
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
+    drb_forward,
+    drb_forward_reference,
+    pack_drb_weights,
+)
+
+ATOL = 1e-5  # fp32 on both sides; sums of at most 720 products in another order
+CASES = [(f, b, h, w) for f in (8, 16) for b in (1, 3, 4) for (h, w) in ((16, 16), (12, 20))]
+# Interpret-mode Pallas compiles each shape for seconds: every F, B and
+# spatial size once, rather than every combination.
+INTERPRET_CASES = [(f, b, h, w) for f in (8, 16) for b, (h, w) in
+                   ((1, (16, 16)), (3, (12, 20)), (4, (16, 16)))]
+
+
+def case_id(case):
+    return "F{}-B{}-{}x{}".format(*case)
+
+
+@pytest.fixture(scope="module")
+def jax_drb():
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from downgan_tpu.models.generator import DenseResidualBlock
+    from downgan_tpu.ops.pallas import drb as pallas_drb
+    from downgan_tpu_torch.utils.port_weights import conv_from_flax
+
+    def make(f, b, h, w, seed=0):
+        """Input and flax DRB params (torch-default init bounds) from numpy,
+        and the same weights carried into the port's OIHW layout."""
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal((b, h, w, f)).astype(np.float32)
+        tree, ws, bs = {}, [], []
+        for k in range(1, 6):
+            bound = 1.0 / np.sqrt(9 * k * f)
+            leaf = {"kernel": rng.uniform(-bound, bound, (3, 3, k * f, f)).astype(np.float32),
+                    "bias": rng.uniform(-bound, bound, (f,)).astype(np.float32)}
+            tree[f"b{k}"] = {"Conv_0": leaf}
+            sd = conv_from_flax(leaf, "c")
+            ws.append(sd["c.weight"])
+            bs.append(sd["c.bias"])
+        return x, {"params": tree}, ws, bs
+
+    def to_cs(x_nhwc):
+        return jnp.asarray(x_nhwc).transpose(3, 0, 1, 2).reshape(x_nhwc.shape[-1], -1)
+
+    return types.SimpleNamespace(
+        jnp=jnp, pallas=pallas_drb, make=make, to_cs=to_cs,
+        apply=jax.jit(lambda params, x: DenseResidualBlock(x.shape[-1]).apply(params, x)),
+        reference=jax.jit(pallas_drb.drb_forward_reference, static_argnums=(3, 4, 5)))
+
+
+def port_twin(x_nhwc, ws, bs):
+    x = torch.from_numpy(x_nhwc).permute(0, 3, 1, 2).contiguous()
+    return drb_forward_reference(x, ws, bs).permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_twin_matches_flax_block(jax_drb, case):
+    f, b, h, w = case
+    x, params, ws, bs = jax_drb.make(f, b, h, w)
+    want = np.asarray(jax_drb.apply(params, jax_drb.jnp.asarray(x)))
+    np.testing.assert_allclose(port_twin(x, ws, bs), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_twin_matches_jax_reference_formulation(jax_drb, case):
+    f, b, h, w = case
+    x, params, ws, bs = jax_drb.make(f, b, h, w, seed=1)
+    jws, jbs = jax_drb.pallas.pack_drb_weights(params["params"], f)
+    cs = jax_drb.reference(jax_drb.to_cs(x), jws, jbs, f, h, w)
+    want = np.asarray(jax_drb.pallas.cs_to_nhwc(cs, b, h, w))
+    np.testing.assert_allclose(port_twin(x, ws, bs), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", INTERPRET_CASES, ids=case_id)
+def test_twin_matches_pallas_kernel_interpret(jax_drb, case):
+    f, b, h, w = case
+    x, params, ws, bs = jax_drb.make(f, b, h, w, seed=2)
+    jws, jbs = jax_drb.pallas.pack_drb_weights(params["params"], f)
+    cs = jax_drb.pallas.drb_forward(jax_drb.to_cs(x), jws, jbs, f, h, w, interpret=True)
+    want = np.asarray(jax_drb.pallas.cs_to_nhwc(cs, b, h, w))
+    np.testing.assert_allclose(port_twin(x, ws, bs), want, atol=ATOL)
+
+
+def random_block(f, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ws = [torch.rand(f, s * f, 3, 3, generator=g) - 0.5 for s in range(1, 6)]
+    bs = [torch.rand(f, generator=g) - 0.5 for _ in range(5)]
+    return ws, bs
+
+
+def test_wrapper_on_cpu_is_the_twin_and_launches_nothing():
+    ws, bs = random_block(8)
+    x = torch.randn(2, 8, 6, 10, generator=torch.Generator().manual_seed(3))
+    before = drb_forward.launches
+    torch.testing.assert_close(drb_forward(x, ws, bs), drb_forward_reference(x, ws, bs),
+                               rtol=0, atol=0)
+    assert drb_forward.launches == before
+
+
+def test_wrapper_refuses_other_devices():
+    ws, bs = random_block(8)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        drb_forward(torch.empty(1, 8, 4, 4, device="meta"), ws, bs)
+
+
+def test_pack_layout():
+    """Stage s holds w[ci, 3*dy + dx, co] (co innermost), then the biases."""
+    f = 8
+    ws, bs = random_block(f, seed=4)
+    packed = pack_drb_weights(ws, bs)
+    assert packed.dtype == torch.float32 and packed.numel() == 9 * f * f * 15 + 5 * f
+    off = 0
+    for s, wt in enumerate(ws, start=1):
+        stage = packed[off:off + 9 * f * s * f].reshape(s * f, 9, f)
+        for ci, dy, dx, co in [(0, 0, 0, 0), (s * f - 1, 2, 1, 3), (1, 1, 2, f - 1)]:
+            assert stage[ci, 3 * dy + dx, co] == wt[co, ci, dy, dx]
+        off += 9 * f * s * f
+    torch.testing.assert_close(packed[off:], torch.cat(bs), rtol=0, atol=0)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the DRB kernel runs only there")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+CUDA_CASES = [(1, 16, 16, 16), (3, 16, 16, 16), (150, 16, 16, 16), (8, 16, 32, 56),
+              (3, 8, 16, 16), (2, 8, 12, 20), (1, 16, 5, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_CASES, ids=lambda s: "B{}-F{}-{}x{}".format(*s))
+def test_cuda_kernel_matches_twin(cuda_device, shape):
+    b, f, h, w = shape
+    ws, bs = random_block(f, seed=b + h)
+    ws = [t.to(cuda_device) / (9 * t.shape[1]) ** 0.5 for t in ws]
+    bs = [t.to(cuda_device) for t in bs]
+    x = torch.randn(b, f, h, w, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    before = drb_forward.launches
+    with torch.inference_mode():
+        got = drb_forward(x, ws, bs)
+        want = drb_forward_reference(x, ws, bs)
+    torch.cuda.synchronize()
+    assert drb_forward.launches == before + 1
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    ws, bs = random_block(12)
+    ws = [t.to(cuda_device) for t in ws]
+    bs = [t.to(cuda_device) for t in bs]
+    with torch.inference_mode(), pytest.raises(ValueError, match="F in"):
+        drb_forward(torch.zeros(1, 12, 4, 4, device=cuda_device), ws, bs)
+    ws, bs = random_block(8)
+    ws = [t.to(cuda_device).requires_grad_() for t in ws]
+    bs = [t.to(cuda_device) for t in bs]
+    with pytest.raises(RuntimeError, match="forward only"):
+        drb_forward(torch.zeros(1, 8, 4, 4, device=cuda_device), ws, bs)
+    with torch.inference_mode(), pytest.raises(ValueError, match="contiguous"):
+        drb_forward(torch.zeros(1, 4, 4, 8, device=cuda_device).permute(0, 3, 1, 2), ws, bs)
