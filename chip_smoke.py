@@ -10,16 +10,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device   -- the card (``nvidia-smi`` name and power limit on a line of
                its own), torch and CUDA versions;
 2. build    -- builds ``downgan_tpu_torch/ops/cuda/drb.cu`` for sm_90a from
-               the checkout, with the compiler's register report;
+               the checkout, with the compiler's register report (and fails
+               on a spill);
 3. kernel   -- the DRB kernel against its plain PyTorch twin on the card
-               (TF32 off), at the generator's shapes, a domain band and F=8;
-               times the kernel, the twin and the cuDNN five-conv chain at
-               B=150, beside the card's bound for the same work;
+               (TF32 off), at the generator's shapes, domain bands, images of
+               several 16x16 tiles (halo'd on every side, ragged) and F=8;
+               at B=150 and at a domain band it times the kernel, the twin
+               and the cuDNN five-conv chain beside the card's fp32 bound and
+               the 3xTF32 tensor-core floor, with the kernel's launch shape;
 4. generator-- the florida generator at full width (1,696,514 params,
                seeded weights): the kernel path against every DRB on the
                plain twin at B=150, against the CPU at B=2, and its forward
                throughput;
-5. serving  -- the main path: ``serve_model(BatchingSRModel(...))`` answers
+5. profile  -- ``torch.profiler`` over 3 forwards at B=150: device time by
+               kernel name (a report: where the profiler sees no device
+               time it says so and the run goes on);
+6. serving  -- the main path: ``serve_model(BatchingSRModel(...))`` answers
                concurrent /v1/generate requests and a /v1/generate-domain
                request over HTTP; responses are checked against direct
                calls, /metrics against the traffic, and the DRB kernel's
@@ -35,6 +41,7 @@ import contextlib
 import copy
 import functools
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -50,10 +57,10 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-5  # fp32 FMA vs fp32 matmul, sums of <= 720 term
 GEN_ATOL = GEN_RTOL = 1e-4  # the same difference carried through 48 DRBs
 SERVE_ATOL = 1e-6  # same program and batch shape on both sides
 B_MAIN = 150  # Config.chunk_size and the serving batch
-# Dense peaks (NVIDIA data sheets): fp32 outside the tensor cores in TFLOP/s
-# and HBM in TB/s, at the card's full power limit.
-PEAKS = (("H100 PCIe", 51.2, 2.0), ("H100 NVL", 60.0, 3.9), ("H100", 67.0, 3.35),
-         ("H200", 67.0, 4.8))
+# Dense peaks (NVIDIA data sheets, no sparsity), at the card's full power
+# limit: fp32 outside the tensor cores and TF32 on them in TFLOP/s, HBM in TB/s.
+PEAKS = (("H100 PCIe", 51.2, 378.0, 2.0), ("H100 NVL", 60.0, 417.5, 3.9),
+         ("H100", 67.0, 495.0, 3.35), ("H200", 67.0, 495.0, 4.8))
 
 
 def emit(phase: str, **fields) -> None:
@@ -80,9 +87,9 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def card_peaks(name: str):
-    for key, tflops, tbps in PEAKS:
+    for key, *rates in PEAKS:
         if key in name:
-            return tflops, tbps
+            return rates
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
@@ -135,11 +142,19 @@ def phase_build():
     t0 = time.perf_counter()
     drb.load_library()
     seconds = time.perf_counter() - t0
-    log = drb.library_path().with_suffix(".log")
-    usage = [ln.split(":", 1)[1].strip() for ln in log.read_text().splitlines()
-             if "Used" in ln] if log.exists() else []
+    lines = drb.library_path().with_suffix(".log").read_text().splitlines()
+    usage, instance = {}, "?"
+    for ln in lines:  # "Compiling entry function '..drb_kernelILi16ELi18EE..'", then "Used"
+        found = re.search(r"drb_kernelILi(\d+)ELi(\d+)E", ln)
+        if found:
+            instance = "F={} pitch={}".format(*found.groups())
+        elif "Used" in ln:
+            usage[instance] = ln.split(":", 1)[1].strip()
+    spills = [ln.strip() for ln in lines
+              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     emit("build", seconds=seconds, library=str(drb.library_path().relative_to(ROOT)),
-         ptxas=usage)
+         ptxas=usage, spills=spills)
+    check(not spills, f"the DRB kernel spills registers: {spills}")
 
 
 def cudnn_chain(x, ws, bs):
@@ -155,9 +170,10 @@ def cudnn_chain(x, ws, bs):
 
 def time_drb(x, ws, bs, want, peaks):
     """Kernel, plain twin and cuDNN-chain times for one DRB input, beside
-    the card's bound for the same work."""
+    the card's fp32 bound and 3xTF32 tensor-core floor for the same work,
+    with the kernel's launch shape (CTAs, shared memory, CTAs per SM)."""
     from downgan_tpu_torch.ops.cuda.drb import (drb_forward, drb_forward_reference,
-                                                pack_drb_weights)
+                                                launch_config, pack_drb_weights)
 
     check(torch.allclose(cudnn_chain(x, ws, bs), want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
           "the cuDNN five-conv chain disagrees with the plain twin")
@@ -165,16 +181,35 @@ def time_drb(x, ws, bs, want, peaks):
     kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed), iters=50)
     plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs), iters=20)
     library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
+    torch.backends.cudnn.allow_tf32 = True  # for information: not the same precision
+    try:
+        tf32_err = (cudnn_chain(x, ws, bs) - want).abs().max().item()
+        tf32_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     b, f, h, w = x.shape
-    tflops, tbps = peaks
+    fp32_tflops, tf32_tflops, tbps = peaks
     flops = drb_flops(b, f, h, w)
     nbytes = 2 * x.numel() * 4 + packed.numel() * 4
-    ops_ms, bytes_ms = flops / (tflops * 1e12) * 1e3, nbytes / (tbps * 1e12) * 1e3
+    ops_ms, bytes_ms = flops / (fp32_tflops * 1e12) * 1e3, nbytes / (tbps * 1e12) * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    floor_ms = 3 * flops / (tf32_tflops * 1e12) * 1e3
+    launch = launch_config(b, f, h, w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    launch["waves"] = launch["ctas"] / (launch["ctas_per_sm"] * sms)
     timing = dict(shape=[b, f, h, w], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=max(ops_ms, bytes_ms),
-                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                  flops=flops, bytes=nbytes, fp32_tflops_peak=tflops, hbm_tbps_peak=tbps,
-                  achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12)
+                  bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                  tf32_floor_ms=floor_ms, share_of_bound=bound_ms / kernel_ms,
+                  share_of_tf32_floor=floor_ms / kernel_ms, vs_library=library_ms / kernel_ms,
+                  flops=flops, bytes=nbytes, fp32_tflops_peak=fp32_tflops,
+                  tf32_tflops_peak=tf32_tflops, hbm_tbps_peak=tbps,
+                  achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12, launch=launch, sms=sms,
+                  cudnn_tf32_on_ms_not_same_precision=tf32_ms,
+                  cudnn_tf32_on_max_abs_err_vs_twin=tf32_err)
+    if (h, w) == (16, 16):  # the tail of whole-sample units: one and two per SM
+        for n in (sms, 2 * sms):
+            xn = torch.randn(n, f, h, w, device=x.device)
+            timing[f"ms_at_b{n}"] = cuda_ms(lambda: drb_forward(xn, ws, bs, packed), iters=50)
     emit("kernel_timing", **timing)
     return timing
 
@@ -185,7 +220,8 @@ def phase_kernel(rng, peaks):
     from downgan_tpu_torch.ops.cuda.drb import drb_forward, drb_forward_reference
 
     shapes = [(1, 16, 16, 16), (3, 16, 16, 16), (B_MAIN, 16, 16, 16), (8, 16, 32, 56),
-              (8, 16, 32, 112), (3, 8, 16, 16), (2, 8, 12, 20)]
+              (8, 16, 32, 112), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112),
+              (1, 16, 37, 53), (1, 8, 40, 24)]
     timed = {(B_MAIN, 16, 16, 16): None, (8, 16, 32, 112): None}
     errors = {}
     with torch.inference_mode():
@@ -203,8 +239,7 @@ def phase_kernel(rng, peaks):
             check(ok, f"DRB kernel disagrees with its plain twin at {shape}: {abs_err}")
             if shape in timed:
                 timed[shape] = time_drb(x, ws, bs, want, peaks)
-    main = (B_MAIN, 16, 16, 16)
-    return errors[main], timed[main]
+    return max(errors.values()), timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)]
 
 
 def phase_generator(config, rng):
@@ -240,6 +275,66 @@ def phase_generator(config, rng):
          max_abs_err_vs_cpu_b2=cpu_err, atol=GEN_ATOL, rtol=GEN_RTOL,
          forward_ms=fwd_ms, patches_per_s=B_MAIN / (fwd_ms * 1e-3))
     return gen
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "drb_kernel" in low:
+        return "drb_kernel"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit")):
+        return "cudnn_conv"
+    if "pixel" in low or "copy" in low or "permute" in low:
+        return "copy_or_pixel_shuffle"
+    return "elementwise_and_other"
+
+
+def phase_profile(config, gen, rng):
+    """Device time by kernel over 3 generator forwards at B=150, from
+    ``torch.profiler``. A report: if the profiler records no device time,
+    it says so and the run goes on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_fwd = 3
+    try:
+        x = torch.randn(B_MAIN, config.n_covariates, config.coarse_size, config.coarse_size,
+                        generator=rng).cuda()
+        with torch.inference_mode():
+            gen(x)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start.record()
+                for _ in range(n_fwd):
+                    gen(x)
+                end.record()
+                torch.cuda.synchronize()
+        window_ms = start.elapsed_time(end)
+        kernels, classes = [], {}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if us <= 0:
+                continue
+            cls = kernel_class(evt.key)
+            kernels.append({"kernel": evt.key[:110], "class": cls, "ms_per_forward": us / 1e3 / n_fwd,
+                            "calls_per_forward": evt.count / n_fwd})
+            entry = classes.setdefault(cls, {"ms_per_forward": 0.0, "calls_per_forward": 0.0})
+            entry["ms_per_forward"] += us / 1e3 / n_fwd
+            entry["calls_per_forward"] += evt.count / n_fwd
+        if not kernels:
+            emit("profile", note="device time not measured: the profiler recorded no device events")
+            return
+        kernels.sort(key=lambda k: -k["ms_per_forward"])
+        busy = sum(k["ms_per_forward"] for k in kernels)
+        emit("profile", forwards=n_fwd, batch=B_MAIN, forward_ms_events=window_ms / n_fwd,
+             device_busy_ms_per_forward=busy, device_busy_share=busy * n_fwd / window_ms,
+             by_class=classes, kernels=kernels[:15])
+    except Exception as exc:  # noqa: BLE001 -- a report, never a failed run
+        emit("profile", note="device time not measured", error=repr(exc))
 
 
 def phase_serving(config, gen, rng):
@@ -330,9 +425,10 @@ def main() -> int:
     peaks = card_peaks(name)
     phase_build()
     rng = torch.Generator().manual_seed(1234)
-    kernel_err, timing = phase_kernel(rng, peaks)
+    kernel_err, timing, band = phase_kernel(rng, peaks)
     config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     gen = phase_generator(config, rng)
+    phase_profile(config, gen, rng)
     launches = phase_serving(config, gen, rng)
     check(launches > 0, "the main path launched no DRB kernel")
     print(json.dumps({"kernels": [{
@@ -342,7 +438,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-        "shape": timing["shape"], "card": smi}]}), flush=True)
+        "tf32_floor_ms": timing["tf32_floor_ms"], "shape": timing["shape"],
+        "band": {k: band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "tf32_floor_ms",
+                                      "library_ms")},
+        "card": smi}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,34 +1,84 @@
-// Fused DenseResidualBlock (DRB) forward for Hopper (sm_90a), fp32.
+// Fused DenseResidualBlock (DRB) forward for Hopper (sm_90a), fp32 in and out.
 //
 // Replaces the Pallas TPU kernel downgan_tpu/ops/pallas/drb.py::drb_forward
-// (pallas_call at drb.py:120). One DRB is five 3x3 SAME convs over growing
-// channel concatenations:
+// (lines 104-128, pallas_call at :120). One DRB is five 3x3 SAME convs over
+// growing channel concatenations:
 //
 //   stage s (s = 1..5) reads concat(x, out_1 .. out_{s-1})  (s*F channels)
 //   and writes F channels plus bias; stages 1-4 apply LeakyReLU(0.01);
-//   the block output is out_5 * 0.2 + x.
+//   the block output is out_5 * 0.2 + x.    NCHW, F in {8, 16}, any B, H, W.
 //
-// Bound on this card: operations. At F = 16 and 16x16 a sample needs
-// sum_s 2*9*(s*F)*F*H*W = 17.69 MFLOP against 2*F*H*W*4 = 32 KB of
-// activations in and out (plus 138 KB of weights shared by the batch), so
-// fp32 FMA throughput, not HBM, is the limit.
+// What bounds it on this card: operations. A sample of H*W pixels needs
+// sum_s 2*9*(s*F)*F*H*W FLOP (17.69 MFLOP at F = 16, 16x16) against
+// 2*F*H*W*4 B of activations in and out. At B = 150 a launch is 2.654 GFLOP
+// and 5.05 MB: 0.0396 ms at the H100 SXM's 67 TFLOP/s fp32 (non-tensor)
+// peak, 0.0015 ms at 3.35 TB/s. Run as three TF32 products (below) the
+// floor is 3 * 2.654 GFLOP / 495 TFLOP/s = 0.0161 ms.
 //
-// Design (the simple first version):
-//   * one thread block per sample. The block keeps the sample's whole
-//     five-stage concat buffer, 5F channels of (H+2) x (W+2) with a zero
-//     border that realises the SAME padding, so the concat never touches
-//     HBM. A florida patch needs 18*18*80*4 = 103,680 B of shared memory,
-//     which lets two blocks share an SM. When the buffer does not fit in
-//     shared memory (a domain band), it lives in a global scratch buffer
-//     the wrapper allocates; a block's slice stays hot in L1/L2.
-//   * one thread per output pixel (strided over H*W), holding all F output
-//     channels in registers; __syncthreads() between stages.
-//   * weights are packed once per weight set (see drb.py) as
-//     [stage][ci][tap][co] with co innermost, so a thread reads F/4 float4s
-//     per (ci, tap); every thread of a warp reads the same address, which
-//     the read-only path serves as a broadcast.
-//   * fp32 FMA accumulation. Tensor cores (wgmma), TMA and spatial tiling
-//     across blocks are left for later work.
+// Design.
+//  * Implicit GEMM on the tensor cores. Stage s is a product with
+//    M = the stage's output pixels in the tile, N = F, K = 9*s*F. One
+//    k-step is 8 input channels at one tap (dy, dx); its A fragment is read
+//    straight from the zero-bordered, channel-planar concat in shared memory
+//    (pixel offset + tap offset), so the im2col exists only in addresses.
+//  * 3xTF32, for fp32 fidelity. a = a_hi + a_lo and b = b_hi + b_lo, each
+//    part TF32-exact: hi = rna(v) (cvt.rna.tf32.f32 rounding) and, for the
+//    weights, lo = rna(v - hi); for the activations lo = v - hi goes to the
+//    MMA as fp32, which reads it truncated to TF32 (split_tf32 below). The
+//    kernel accumulates a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in fp32 and drops
+//    a_lo*b_lo (~2^-22 of a product). That keeps a block within 1e-5 of the
+//    fp32 twin; plain TF32 (~2^-11 per operand) does not, and the serving
+//    path promises fp32 with TF32 off. The weights are split once, on the
+//    host (drb.py::pack_drb_weights), straight into the fragment order the
+//    MMA reads; activations are split in registers as they are loaded.
+//  * mma.sync.m16n8k8 (tf32) rather than wgmma. wgmma reads B from shared
+//    memory in its canonical layout, so the stage's weights (hi and lo, up to
+//    92 KB at stage 5) would have to be staged there, which breaks the
+//    two-CTAs-per-SM budget below at the serving shape; with N = F = 16 a
+//    wgmma m64n16k8 is also a small instruction, and the 3xTF32 split builds
+//    the A operand in registers either way. wgmma is left to a later design.
+//  * Work units: one CTA per (sample, 16x16 output tile). Stage s is
+//    computed over the tile grown by 5 - s pixels on each side, clipped to
+//    the image (halo recompute): for an interior tile stage 1 covers 24x24,
+//    stage 4 18x18 and stage 5 writes 16x16, so no part of the concat ever
+//    leaves shared memory and one code path serves every shape. An image of
+//    at most 16x16 (florida) is one tile: every rectangle clips to the image,
+//    the SAME border is the zero ring, and nothing is recomputed.
+//  * Shared memory: group j (x for j = 0, out_j for j = 1..4) holds F planes
+//    of rows_j x pitch floats covering (tile grown by 5 - j) clipped to the
+//    image grown by 1, zero outside the image. rows_j = min(16 + 2(5 - j),
+//    H + 2), pitch = min(26, W + 2) for every group, and each plane's stride
+//    is padded to 8 mod 32 floats so the fragment's 4 channels x 8 pixels hit
+//    32 distinct banks.
+//      florida (F=16, 16x16): 5 groups x 16 x 328 floats = 104,960 B;
+//      interior tile of a band: 16 x (680+648+584+520+488) floats = 186,880 B.
+//  * Weights stay out of shared memory: the B fragments (hi and lo of b0, b1
+//    for a lane, one float4) are read with ld.global.nc in the order the
+//    k-steps consume them. The 8 warps of a CTA read the same k-step, so L1
+//    serves them, and the whole packed set (276 KB at F = 16) stays in L2
+//    for every CTA. That is what lets two florida CTAs share an SM
+//    (2 x (104,960 + 1,024 reserved) B <= 228 KB).
+//  * CTAs per SM and waves. (150,16,16,16): 150 units, 2 CTAs per SM, so
+//    264 slots and one wave; 18 SMs hold two samples and 114 hold one. The
+//    tail is left to the pairing: one 8-warp CTA cannot keep an SM's tensor
+//    pipes busy on its own (mma.sync latency over 4 independent accumulators
+//    a warp), so an SM running two units takes less than twice as long as
+//    one (1.76x on the H100, PERF.md). Half-sample tiles would cut the worst
+//    SM from 2 to 1.75 samples of work at 1.17x recompute, and they measured
+//    slower (tools/drb_variants.py); a 2-CTA cluster exchanging rows through
+//    distributed shared memory would cut it to 1.5 without recompute but
+//    with a cluster barrier per stage and half the warps of each CTA idle at
+//    16x16, and is left open.
+//    (8,16,32,112), a domain band: 8 x 2 x 7 = 112 units, one CTA per SM
+//    (186,880 B), one wave on 112 of 132 SMs.
+//  * Warps: 8 per CTA. A warp owns pairs of m-tiles (32 pixels) and the
+//    whole N and K of a stage, so each thread holds 2 x F/8 accumulators of
+//    4 floats and no reduction crosses warps.
+//  * Asynchronous copies: the x tile with its halo is copied to shared
+//    memory with cp.async (4-byte copies: a halo'd tile starts at any
+//    column) while the threads zero the out groups; the next k-step's weight
+//    fragments are loads with no dependence on the MMAs in flight.
+//    __syncthreads() runs only after the copy and at the five stage ends.
 //
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
@@ -36,152 +86,317 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kSlope = 0.01f;     // torch nn.LeakyReLU() default
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileH = 16;  // output tile rows
+constexpr int kTileW = 16;  // output tile columns
+constexpr int kHalo = 5;   // stage s covers the tile grown by kHalo - s
+constexpr float kSlope = 0.01f;  // torch nn.LeakyReLU() default
 constexpr float kResScale = 0.2f;
 
-template <int F, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-drb_kernel(const float* __restrict__ x, const float* __restrict__ wpack,
-           float* __restrict__ out, float* __restrict__ scratch, int H, int W) {
+struct Geometry {
+  int H, W;
+  int tiles_x, tiles_per_sample;
+  int pitch;  // row pitch of every group's planes, min(kTileW + 2 kHalo, W + 2)
+};
+
+// Plane stride for n floats, padded to 8 mod 32 (bank spread, 32-B aligned).
+__host__ __device__ __forceinline__ int plane_stride(int n) {
+  return n + (8 - n % 32 + 32) % 32;
+}
+
+// Rows held for group j (0 = x, 1..4 = out_j).
+__host__ __device__ __forceinline__ int group_rows(int j, int H) {
+  const int grown = kTileH + 2 * (kHalo - j);
+  return grown < H + 2 ? grown : H + 2;
+}
+
+// hi = v rounded to TF32, to nearest with ties away from zero: the result of
+// cvt.rna.tf32.f32 for every finite v, in two integer operations (cvt.rna
+// lowers to a longer sequence that also guards NaN). lo = v - hi is exact in
+// fp32 and goes to the MMA as it is: the tensor core reads its top 19 bits,
+// i.e. truncates it to TF32, an error below 2^-21 |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a * b for one m16n8k8 tf32 tile (PTX fragment layouts).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+// kPitch: the row pitch at compile time (18 for a 16-wide image, 26 for
+// images at least 24 wide), so every tap offset is an immediate; 0 reads it
+// from g.pitch, for other widths, with the register budget of one CTA per SM
+// (at two, the runtime pitch spills).
+template <int F, int kPitch>
+__global__ void __launch_bounds__(kThreads, kPitch ? 2 : 1)
+drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
+           const float* __restrict__ bias, float* __restrict__ out, Geometry g) {
+  constexpr int NT = F / 8;  // n-tiles of 8 output channels = 8-channel chunks per group
   extern __shared__ float4 smem4[];
-  const int b = blockIdx.x;
-  const int Wp = W + 2;
-  const int plane = (H + 2) * Wp;
-  const int HW = H * W;
-  float* acts = kShared ? reinterpret_cast<float*>(smem4)
-                        : scratch + static_cast<size_t>(b) * (5 * F) * plane;
+  float* sm = reinterpret_cast<float*>(smem4);
+
+  const int H = g.H, W = g.W, HW = H * W, P = kPitch ? kPitch : g.pitch;
+  const int b = blockIdx.x / g.tiles_per_sample;
+  const int tile = blockIdx.x - b * g.tiles_per_sample;
+  const int ty0 = (tile / g.tiles_x) * kTileH;
+  const int tx0 = (tile % g.tiles_x) * kTileW;
   const float* xb = x + static_cast<size_t>(b) * F * HW;
   float* ob = out + static_cast<size_t>(b) * F * HW;
+  // The frame: group 0's rectangle starts at (fy0, fx0); every group shares
+  // its pitch and column origin, and group j starts at row oy_j >= fy0.
+  const int fy0 = max(ty0 - kHalo, -1);
+  const int fx0 = max(tx0 - kHalo, -1);
 
-  // Channels [0, F) take x in the interior; the border of every channel is
-  // the zero padding. Interiors of channels [F, 5F) are written by stages.
-  for (int i = threadIdx.x; i < 5 * F * plane; i += blockDim.x) {
-    const int c = i / plane;
-    const int r = i - c * plane;
-    const int py = r / Wp;
-    const int px = r - py * Wp;
-    float v = 0.f;
-    if (c < F && py >= 1 && py <= H && px >= 1 && px <= W) {
-      v = xb[c * HW + (py - 1) * W + (px - 1)];
+  // x with its halo (zero outside the image) by cp.async; out groups zeroed.
+  const int rows0 = group_rows(0, H);
+  const int plane0 = plane_stride(rows0 * P);
+  for (int i = threadIdx.x; i < F * rows0 * P; i += kThreads) {
+    const int c = i / (rows0 * P);
+    const int r = i - c * rows0 * P;
+    const int gy = fy0 + r / P;
+    const int gx = fx0 + r % P;
+    float* dst = sm + c * plane0 + r;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      cp_async4(dst, xb + c * HW + gy * W + gx);
+    } else {
+      *dst = 0.f;
     }
-    acts[i] = v;
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  {
+    int total = F * plane0;
+    for (int j = 1; j < 5; ++j) total += F * plane_stride(group_rows(j, H) * P);
+    for (int i = F * plane0 / 4 + threadIdx.x; i < total / 4; i += kThreads) {
+      smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  const float* wstage = wpack;
-  const float* bias = wpack + 9 * F * F * 15;  // after the five stages
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;  // fragment row group
+  const int tq = lane & 3;   // thread in group
+
+  const float4* wstage = wfrag + lane;
 #pragma unroll 1
-  for (int s = 0; s < 5; ++s) {
-    const int cin = (s + 1) * F;
-    const float4* w4 = reinterpret_cast<const float4*>(wstage);
-    for (int p = threadIdx.x; p < HW; p += blockDim.x) {
-      const int y = p / W;
-      const int xq = p - y * W;
-      float acc[F];
+  for (int s = 1; s <= 5; ++s) {
+    // The stage's output rectangle: tile grown by 5 - s, clipped to the image.
+    const int e = kHalo - s;
+    const int cy0 = max(ty0 - e, 0), cy1 = min(ty0 + kTileH + e, H);
+    const int cx0 = max(tx0 - e, 0), cx1 = min(tx0 + kTileW + e, W);
+    const int wc = cx1 - cx0;
+    const int m_total = (cy1 - cy0) * wc;
+    const int ksteps = 9 * s * NT;
+
+    // Where the stage's output group lives (s < 5).
+    int out_off = 0;
+    for (int j = 0; j < s; ++j) out_off += F * plane_stride(group_rows(j, H) * P);
+    const int out_plane = plane_stride(group_rows(s, H) * P);
+    const int out_shift = (max(ty0 - (kHalo - s), -1) - fy0) * P;
+
+#pragma unroll 1
+    for (int pair = warp; pair * 32 < m_total; pair += kWarps) {
+      // Frame offsets (pix) and image offsets (gpix) of the thread's 4 rows.
+      int pix[2][2], gpix[2][2];
 #pragma unroll
-      for (int co = 0; co < F; ++co) acc[co] = __ldg(bias + s * F + co);
-      const float* a0 = acts + y * Wp + xq;  // window's top-left, padded coords
-#pragma unroll 2
-      for (int ci = 0; ci < cin; ++ci) {
-        const float* a = a0 + ci * plane;
-        const float4* wc = w4 + ci * 9 * (F / 4);
+      for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          const float v = a[(t / 3) * Wp + (t % 3)];
+        for (int h = 0; h < 2; ++h) {
+          int m = pair * 32 + mt * 16 + h * 8 + gq;
+          m = m < m_total ? m : m_total - 1;  // rows past the end compute, never store
+          const int y = cy0 + m / wc;
+          const int xx = cx0 + m % wc;
+          pix[mt][h] = (y - fy0) * P + (xx - fx0);
+          gpix[mt][h] = y * W + xx;
+        }
+      }
+      float acc[2][NT][4];
 #pragma unroll
-          for (int q = 0; q < F / 4; ++q) {
-            const float4 wv = __ldg(wc + t * (F / 4) + q);
-            acc[4 * q + 0] = fmaf(v, wv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(v, wv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(v, wv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(v, wv.w, acc[4 * q + 3]);
+      for (int nt = 0; nt < NT; ++nt) {
+        const float b0 = __ldg(bias + (s - 1) * F + nt * 8 + 2 * tq);
+        const float b1 = __ldg(bias + (s - 1) * F + nt * 8 + 2 * tq + 1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          acc[mt][nt][0] = b0;
+          acc[mt][nt][1] = b1;
+          acc[mt][nt][2] = b0;
+          acc[mt][nt][3] = b1;
+        }
+      }
+
+      const float4* wp = wstage;
+      int goff = 0;
+#pragma unroll 1
+      for (int j = 0; j < s; ++j) {
+        const int plane = plane_stride(group_rows(j, H) * P);
+        const int gbase = goff - (max(ty0 - (kHalo - j), -1) - fy0) * P;
+#pragma unroll
+        for (int cc = 0; cc < NT; ++cc) {
+          const float* ch0 = sm + gbase + (cc * 8 + tq) * plane;  // channel tq of the chunk
+          const float* ch4 = ch0 + 4 * plane;                   // channel tq + 4
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
+            const int toff = (tap / 3 - 1) * P + (tap % 3 - 1);
+            float4 wv[NT];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) wv[nt] = __ldg(wp + nt * 32);
+            wp += NT * 32;
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              split_tf32(ch0[pix[mt][0] + toff], ah[mt][0], al[mt][0]);
+              split_tf32(ch0[pix[mt][1] + toff], ah[mt][1], al[mt][1]);
+              split_tf32(ch4[pix[mt][0] + toff], ah[mt][2], al[mt][2]);
+              split_tf32(ch4[pix[mt][1] + toff], ah[mt][3], al[mt][3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const uint32_t bh0 = __float_as_uint(wv[nt].x);
+              const uint32_t bh1 = __float_as_uint(wv[nt].y);
+              const uint32_t bl0 = __float_as_uint(wv[nt].z);
+              const uint32_t bl1 = __float_as_uint(wv[nt].w);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_tf32(acc[mt][nt], al[mt], bh0, bh1);  // small terms first
+                mma_tf32(acc[mt][nt], ah[mt], bl0, bl1);
+                mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
+              }
+            }
+          }
+        }
+        goff += F * plane;
+      }
+
+      // Epilogue: c0, c1 at (row gq, cols 2tq, 2tq+1); c2, c3 at row gq + 8.
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int h = r >> 1;
+          if (pair * 32 + mt * 16 + h * 8 + gq >= m_total) continue;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int co = nt * 8 + 2 * tq + (r & 1);
+            const float v = acc[mt][nt][r];
+            if (s < 5) {
+              sm[out_off + co * out_plane + pix[mt][h] - out_shift] =
+                  v >= 0.f ? v : kSlope * v;
+            } else {
+              ob[co * HW + gpix[mt][h]] = fmaf(v, kResScale, sm[co * plane0 + pix[mt][h]]);
+            }
           }
         }
       }
-      if (s < 4) {
-        float* o = acts + cin * plane + (y + 1) * Wp + (xq + 1);
-#pragma unroll
-        for (int co = 0; co < F; ++co) {
-          const float r = acc[co];
-          o[co * plane] = r >= 0.f ? r : kSlope * r;
-        }
-      } else {
-#pragma unroll
-        for (int co = 0; co < F; ++co) {
-          ob[co * HW + p] = fmaf(acc[co], kResScale, xb[co * HW + p]);
-        }
-      }
     }
-    wstage += 9 * F * cin;
+    wstage += ksteps * NT * 32;
     __syncthreads();
   }
 }
 
-size_t buffer_bytes(int F, int H, int W) {
-  return static_cast<size_t>(5) * F * (H + 2) * (W + 2) * sizeof(float);
+Geometry make_geometry(int H, int W) {
+  Geometry g;
+  g.H = H;
+  g.W = W;
+  g.tiles_x = (W + kTileW - 1) / kTileW;
+  g.tiles_per_sample = g.tiles_x * ((H + kTileH - 1) / kTileH);
+  g.pitch = kTileW + 2 * kHalo < W + 2 ? kTileW + 2 * kHalo : W + 2;
+  return g;
 }
 
-int shared_limit() {
-  int dev = 0;
-  int limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
-    return -1;
-  }
-  return limit;
+size_t smem_bytes(int F, const Geometry& g) {
+  size_t floats = 0;
+  for (int j = 0; j < 5; ++j) floats += static_cast<size_t>(F) * plane_stride(group_rows(j, g.H) * g.pitch);
+  return floats * sizeof(float);
+}
+
+using KernelFn = void (*)(const float*, const float4*, const float*, float*, Geometry);
+
+// The instantiation for this geometry, with its shared memory allowance set.
+template <int F>
+cudaError_t select(const Geometry& g, size_t smem, KernelFn* fn) {
+  *fn = g.pitch == 18 ? drb_kernel<F, 18> : g.pitch == 26 ? drb_kernel<F, 26> : drb_kernel<F, 0>;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <int F>
-cudaError_t launch(const float* x, const float* w, float* out, float* scratch,
-                   int B, int H, int W, cudaStream_t stream) {
-  if (scratch != nullptr) {
-    drb_kernel<F, false><<<B, kThreads, 0, stream>>>(x, w, out, scratch, H, W);
-    return cudaGetLastError();
-  }
-  const size_t smem = buffer_bytes(F, H, W);
-  const cudaError_t e = cudaFuncSetAttribute(
-      drb_kernel<F, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+cudaError_t launch(const float* x, const float* wpack, float* out, int B, int H, int W,
+                   cudaStream_t stream) {
+  const Geometry g = make_geometry(H, W);
+  const size_t smem = smem_bytes(F, g);
+  const long long units = static_cast<long long>(B) * g.tiles_per_sample;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  KernelFn fn;
+  const cudaError_t e = select<F>(g, smem, &fn);
   if (e != cudaSuccess) return e;
-  drb_kernel<F, true><<<B, kThreads, smem, stream>>>(x, w, out, nullptr, H, W);
+  const float4* wfrag = reinterpret_cast<const float4*>(wpack);
+  const float* bias = wpack + 2 * 9 * F * F * 15;  // after the five stages' fragments
+  fn<<<static_cast<unsigned>(units), kThreads, smem, stream>>>(x, wfrag, bias, out, g);
   return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t config(int B, int H, int W, int* units, int* smem, int* ctas_per_sm) {
+  const Geometry g = make_geometry(H, W);
+  *units = B * g.tiles_per_sample;
+  *smem = static_cast<int>(smem_bytes(F, g));
+  KernelFn fn;
+  const cudaError_t e = select<F>(g, *smem, &fn);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreads, *smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of global scratch the launch needs: 0 when the concat buffer fits
-// in the current device's shared memory, else B * 5F * (H+2) * (W+2).
-// Negative when the device cannot be queried.
-long long drb_scratch_floats(int B, int F, int H, int W) {
-  const int limit = shared_limit();
-  if (limit < 0) return -1;
-  if (buffer_bytes(F, H, W) <= static_cast<size_t>(limit)) return 0;
-  return static_cast<long long>(B) * 5 * F * (H + 2) * (W + 2);
-}
-
 // out = DRB(x). x, out: (B, F, H, W) contiguous fp32 on the current device;
-// wpack: the packed weights of drb.py::pack_drb_weights; scratch: null, or
-// drb_scratch_floats(...) floats. Returns a cudaError_t (0 = launched).
-int drb_forward_f32(const void* x, const void* wpack, void* out, void* scratch,
-                    int B, int F, int H, int W, void* stream) {
+// wpack: the packed weights of drb.py::pack_drb_weights, 16-byte aligned.
+// Returns a cudaError_t (0 = launched).
+int drb_forward_f32(const void* x, const void* wpack, void* out, int B, int F, int H, int W,
+                    void* stream) {
   if (B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(wpack);
   float* of = static_cast<float*>(out);
-  float* sf = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (F) {
     case 8:
-      return launch<8>(xf, wf, of, sf, B, H, W, st);
+      return launch<8>(xf, wf, of, B, H, W, st);
     case 16:
-      return launch<16>(xf, wf, of, sf, B, H, W, st);
+      return launch<16>(xf, wf, of, B, H, W, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The launch drb_forward_f32 makes for this shape: CTAs (work units),
+// dynamic shared memory per CTA, and CTAs that fit on one SM.
+int drb_launch_config(int B, int F, int H, int W, int* units, int* smem, int* ctas_per_sm) {
+  if (B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  switch (F) {
+    case 8:
+      return config<8>(B, H, W, units, smem, ctas_per_sm);
+    case 16:
+      return config<16>(B, H, W, units, smem, ctas_per_sm);
     default:
       return cudaErrorInvalidValue;
   }

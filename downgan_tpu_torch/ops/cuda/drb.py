@@ -4,16 +4,19 @@ packing, its build on first use, and its plain PyTorch twin.
 Counterpart of ``downgan_tpu/ops/pallas/drb.py`` (the Pallas TPU kernel
 ``drb_forward``). The kernel itself is ``drb.cu`` beside this file; its
 header says what it computes, what bounds it on Hopper and how it is laid
-out. Here:
+out (a 3xTF32 tensor-core implicit GEMM over (sample, 16x16 tile) units).
+Here:
 
-* :func:`pack_drb_weights` packs a block's five OIHW conv weights and
-  biases once per weight set into the flat layout the kernel reads;
+* :func:`pack_drb_weights` splits a block's five OIHW conv weights into
+  TF32 hi and lo parts (:func:`tf32_split`) once per weight set and lays
+  them out in the order the kernel's MMA fragments read them, followed by
+  the biases;
 * :func:`drb_forward` is the wrapper. On a CPU tensor it runs the plain
   twin; on a CUDA tensor it launches the kernel or raises — nothing falls
   back to the twin on the card;
-* :func:`drb_forward_reference` is the plain twin: the same arithmetic as
-  the kernel (nine shifted channel products per stage), in PyTorch. Tests,
-  CPU runs and ``chip_smoke.py`` hold the kernel against it;
+* :func:`drb_forward_reference` is the plain twin: the same function as
+  the kernel (nine shifted channel products per stage) in fp32 PyTorch.
+  Tests, CPU runs and ``chip_smoke.py`` hold the kernel against it;
 * :func:`load_library` compiles ``drb.cu`` with ``nvcc`` for ``sm_90a``
   into ``build/torch_ext/`` at the repository root (once per source
   content) and loads it with ctypes. A failed build raises.
@@ -86,32 +89,65 @@ def load_library() -> ctypes.CDLL:
                     f"{res.stderr[-4000:]}")
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
         lib = ctypes.CDLL(str(so))
-        lib.drb_forward_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.drb_forward_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.drb_forward_f32.restype = ctypes.c_int
-        lib.drb_scratch_floats.argtypes = [ctypes.c_int] * 4
-        lib.drb_scratch_floats.restype = ctypes.c_longlong
+        lib.drb_launch_config.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.drb_launch_config.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (ties away from zero, as
+    ``cvt.rna.tf32.f32``), kept as fp32 with its low 13 mantissa bits zero."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both TF32-exact, with hi + lo = t to within 2**-22 |t|:
+    the 3xTF32 split the kernel applies to both operands."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.to(torch.float32) - hi)
+
+
+def packed_size(f: int) -> int:
+    """Floats in :func:`pack_drb_weights`'s output for ``f`` filters."""
+    return 2 * 9 * f * f * 15 + 5 * f
+
+
 def pack_drb_weights(weights: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """Five stages' OIHW weights (F, s*F, 3, 3) and biases (F,) -> one flat
-    fp32 tensor: for each stage ``w[ci, 3*dy + dx, co]`` (co innermost),
-    then the five biases. Call once per weight set."""
+    fp32 tensor of :func:`packed_size` floats. Call once per weight set.
+
+    Stage s (in order) holds its m16n8k8 B fragments, hi and lo: with
+    ci = 8*chunk + 4*half + tq, co = 8*nt + gq, tap = 3*dy + dx and
+    NT = F/8, ``w[co, ci, dy, dx]``'s part p (0 = hi, 1 = lo) lands at
+    ``((((chunk*9 + tap)*NT + nt)*32 + 4*gq + tq)*4 + 2*p + half`` within
+    the stage: each lane reads one float4 (hi b0, hi b1, lo b0, lo b1) per
+    k-step and n-tile. The five biases follow the stages."""
     with torch.no_grad():
-        parts = [w.permute(1, 2, 3, 0).reshape(-1) for w in weights]
-        parts += [b.reshape(-1) for b in biases]
-        return torch.cat(parts).to(torch.float32).contiguous()
+        parts = []
+        for w in weights:
+            f, cin = w.shape[:2]
+            nt = f // 8
+            # (nt, gq, chunk, half, tq, dy, dx) -> (chunk, dy, dx, nt, gq, tq, half)
+            w7 = w.to(torch.float32).reshape(nt, 8, cin // 8, 2, 4, 3, 3)
+            w7 = w7.permute(2, 5, 6, 0, 1, 4, 3)
+            hi, lo = tf32_split(w7)
+            parts.append(torch.stack([hi, lo], dim=-2).reshape(-1))
+        parts += [b.reshape(-1).to(torch.float32) for b in biases]
+        return torch.cat(parts).contiguous()
 
 
 def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
                           biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch DRB forward on (B, F, H, W): per stage, nine shifted
-    (F, s*F) x (s*F, pixels) products over the zero-padded concat — the
-    kernel's arithmetic, not a call to a convolution library."""
+    (F, s*F) x (s*F, pixels) products over the zero-padded concat in fp32 —
+    the kernel's function, not a call to a convolution library."""
     b, f, h, w = x.shape
     acts = x
     for s in range(5):
@@ -158,23 +194,16 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if packed is None:
         packed = pack_drb_weights(weights, biases)
     if (packed.device != x.device or packed.dtype != torch.float32
-            or packed.numel() != 9 * f * f * 15 + 5 * f
+            or packed.numel() != packed_size(f)
             or not packed.is_contiguous() or packed.data_ptr() % 16):
         raise ValueError("packed weights do not match this input; "
                          "repack with pack_drb_weights")
     lib = load_library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        n_scratch = lib.drb_scratch_floats(b, f, h, w)
-        if n_scratch < 0:
-            raise RuntimeError("cannot query the device's shared memory limit")
-        scratch = (torch.empty(n_scratch, device=x.device, dtype=torch.float32)
-                   if n_scratch else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.drb_forward_f32(
-            x.data_ptr(), packed.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            b, f, h, w, stream)
+        err = lib.drb_forward_f32(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                                  b, f, h, w, stream)
     if err:
         raise RuntimeError(
             f"DRB kernel launch failed: {lib.drb_error_string(err).decode()} "
@@ -185,3 +214,17 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 drb_forward.launches = 0
+
+
+def launch_config(b: int, f: int, h: int, w: int, device=None) -> dict:
+    """The launch the kernel makes for a (b, f, h, w) input on the current
+    (or given) card: CTAs (one per sample and 16x16 output tile), dynamic
+    shared memory per CTA, and how many CTAs fit on one SM."""
+    lib = load_library()
+    units, smem, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.drb_launch_config(b, f, h, w, ctypes.byref(units), ctypes.byref(smem),
+                                    ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f"DRB launch query failed: {lib.drb_error_string(err).decode()}")
+    return {"ctas": units.value, "smem_bytes": smem.value, "ctas_per_sm": per_sm.value}

@@ -14,9 +14,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
+    SLOPE,
+    RES_SCALE,
     drb_forward,
     drb_forward_reference,
     pack_drb_weights,
+    packed_size,
+    tf32_split,
 )
 
 ATOL = 1e-5  # fp32 on both sides; sums of at most 720 products in another order
@@ -122,18 +126,83 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_pack_layout():
-    """Stage s holds w[ci, 3*dy + dx, co] (co innermost), then the biases."""
-    f = 8
-    ws, bs = random_block(f, seed=4)
-    packed = pack_drb_weights(ws, bs)
-    assert packed.dtype == torch.float32 and packed.numel() == 9 * f * f * 15 + 5 * f
-    off = 0
-    for s, wt in enumerate(ws, start=1):
-        stage = packed[off:off + 9 * f * s * f].reshape(s * f, 9, f)
-        for ci, dy, dx, co in [(0, 0, 0, 0), (s * f - 1, 2, 1, 3), (1, 1, 2, f - 1)]:
-            assert stage[ci, 3 * dy + dx, co] == wt[co, ci, dy, dx]
-        off += 9 * f * s * f
-    torch.testing.assert_close(packed[off:], torch.cat(bs), rtol=0, atol=0)
+    """Stage s holds its B fragments, hi then lo: w[co, ci, dy, dx] with
+    ci = 8*chunk + 4*half + tq and co = 8*nt + gq lands at
+    ((((chunk*9 + tap)*NT + nt)*32 + 4*gq + tq)*4 + 2*part + half); then the
+    biases. hi is TF32-exact and hi + lo reproduces w to 2**-22 |w|."""
+    for f in (8, 16):
+        nt_count = f // 8
+        ws, bs = random_block(f, seed=4)
+        packed = pack_drb_weights(ws, bs)
+        assert packed.dtype == torch.float32 and packed.numel() == packed_size(f)
+        off = 0
+        for s, wt in enumerate(ws, start=1):
+            n = 2 * 9 * f * s * f
+            stage = packed[off:off + n]
+            idx = torch.empty(f, s * f, 3, 3, 2, dtype=torch.long)
+            for co in range(f):
+                nt, gq = divmod(co, 8)
+                for ci in range(s * f):
+                    chunk, rest = divmod(ci, 8)
+                    half, tq = divmod(rest, 4)
+                    for tap in range(9):
+                        lane4 = (((chunk * 9 + tap) * nt_count + nt) * 32 + 4 * gq + tq) * 4
+                        idx[co, ci, tap // 3, tap % 3, 0] = lane4 + half
+                        idx[co, ci, tap // 3, tap % 3, 1] = lane4 + 2 + half
+            assert sorted(idx.reshape(-1).tolist()) == list(range(n))  # a permutation
+            hi, lo = stage[idx[..., 0]], stage[idx[..., 1]]
+            assert not (hi.view(torch.int32) & 0x1FFF).any()
+            assert not (lo.view(torch.int32) & 0x1FFF).any()
+            err = (hi.double() + lo.double() - wt.double()).abs()
+            assert (err <= 2.0 ** -22 * wt.double().abs()).all()
+            off += n
+        torch.testing.assert_close(packed[off:], torch.cat(bs), rtol=0, atol=0)
+
+
+def tf32_trunc(t):
+    """What the tensor core reads of an fp32 operand: its top 19 bits."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def emulate_3xtf32(x, weights, biases, passes=3):
+    """The kernel's arithmetic on the CPU: each stage's nine tap products
+    with both operands split into TF32 parts (weights as packed: hi and lo
+    rounded; activations: hi rounded, lo = a - hi truncated by the MMA),
+    summing a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in fp32 (lo*lo dropped);
+    passes=1 is plain TF32 (a_hi*b_hi alone)."""
+    b, f, h, w = x.shape
+    acts = x
+    for s in range(5):
+        padded = torch.nn.functional.pad(acts, (1, 1, 1, 1))
+        a_hi = tf32_split(padded)[0]
+        a_lo = tf32_trunc(padded - a_hi)
+        w_hi, w_lo = tf32_split(weights[s])
+        acc = biases[s].reshape(1, f, 1, 1).expand(b, f, h, w)
+        for t in range(9):
+            dy, dx = divmod(t, 3)
+            ah = a_hi[:, :, dy:dy + h, dx:dx + w]
+            al = a_lo[:, :, dy:dy + h, dx:dx + w]
+            wh, wl = w_hi[:, :, dy, dx], w_lo[:, :, dy, dx]
+            if passes == 3:
+                acc = acc + torch.einsum("oc,bchw->bohw", wh, al)
+                acc = acc + torch.einsum("oc,bchw->bohw", wl, ah)
+            acc = acc + torch.einsum("oc,bchw->bohw", wh, ah)
+        if s < 4:
+            acts = torch.cat([acts, torch.nn.functional.leaky_relu(acc, SLOPE)], dim=1)
+        else:
+            return acc * RES_SCALE + x
+
+
+def test_3xtf32_emulation_holds_the_kernel_tolerance():
+    """At the florida DRB shape (F=16, 16x16, B=4) the 3xTF32 arithmetic
+    stays within the kernel's 1e-5 of the fp32 twin; plain TF32 does not."""
+    f = 16
+    ws, bs = random_block(f, seed=6)
+    ws = [t / (9 * t.shape[1]) ** 0.5 for t in ws]  # the generator's init scale
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((4, f, 16, 16)).astype(np.float32))
+    want = drb_forward_reference(x, ws, bs)
+    torch.testing.assert_close(emulate_3xtf32(x, ws, bs), want, atol=ATOL, rtol=ATOL)
+    assert not torch.allclose(emulate_3xtf32(x, ws, bs, passes=1), want, atol=ATOL, rtol=ATOL)
 
 
 @pytest.fixture
@@ -145,8 +214,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Whole-sample tiles, then bands and images of several 16x16 tiles: halo'd on
+# all four sides (56x112), ragged (37x53), the domain band (32x112), F=8.
 CUDA_CASES = [(1, 16, 16, 16), (3, 16, 16, 16), (150, 16, 16, 16), (8, 16, 32, 56),
-              (3, 8, 16, 16), (2, 8, 12, 20), (1, 16, 5, 7)]
+              (3, 8, 16, 16), (2, 8, 12, 20), (1, 16, 5, 7), (2, 16, 56, 112),
+              (1, 16, 37, 53), (8, 16, 32, 112), (1, 8, 40, 24)]
 
 
 @pytest.mark.cuda

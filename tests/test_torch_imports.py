@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``downgan_tpu_torch/``, and not
-``chip_smoke.py``, imports JAX, its libraries or the JAX package."""
+"""The port stands alone: no module of ``downgan_tpu_torch/``, not
+``chip_smoke.py`` and no script of ``tools/`` imports JAX, its libraries or
+the JAX package."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "downgan_tpu")
-FILES = sorted((ROOT / "downgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "downgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py")))
 
 
 def imported_modules(path):
