@@ -8,12 +8,13 @@
 //   and writes F channels plus bias; stages 1-4 apply LeakyReLU(0.01);
 //   the block output is out_5 * 0.2 + x.    NCHW, F in {8, 16}, any B, H, W.
 //
-// What bounds it on this card: operations. A sample of H*W pixels needs
-// sum_s 2*9*(s*F)*F*H*W FLOP (17.69 MFLOP at F = 16, 16x16) against
-// 2*F*H*W*4 B of activations in and out. At B = 150 a launch is 2.654 GFLOP
-// and 5.05 MB: 0.0396 ms at the H100 SXM's 67 TFLOP/s fp32 (non-tensor)
-// peak, 0.0015 ms at 3.35 TB/s. Run as three TF32 products (below) the
-// floor is 3 * 2.654 GFLOP / 495 TFLOP/s = 0.0161 ms.
+// What bounds it on this card: the tensor cores' TF32 rate. A sample of
+// H*W pixels needs sum_s 2*9*(s*F)*F*H*W FLOP (17.69 MFLOP at F = 16,
+// 16x16) against 2*F*H*W*4 B of activations in and out. At B = 150 a launch
+// is 2.654 GFLOP and 5.05 MB (plus 277 KB of packed weights). Run as three
+// TF32 products (below) its floor is 3 * 2.654 GFLOP / 495 TFLOP/s (H100
+// SXM) = 0.0161 ms; the bytes take 0.0016 ms at 3.35 TB/s. (The same FLOP
+// as scalar fp32 FMAs would take 0.0396 ms at 67 TFLOP/s.)
 //
 // Design.
 //  * Implicit GEMM on the tensor cores. Stage s is a product with
@@ -47,9 +48,11 @@
 //  * Shared memory: group j (x for j = 0, out_j for j = 1..4) holds F planes
 //    of rows_j x pitch floats covering (tile grown by 5 - j) clipped to the
 //    image grown by 1, zero outside the image. rows_j = min(16 + 2(5 - j),
-//    H + 2), pitch = min(26, W + 2) for every group, and each plane's stride
-//    is padded to 8 mod 32 floats so the fragment's 4 channels x 8 pixels hit
-//    32 distinct banks.
+//    H + 2); the row pitch is 18 for images at most 16 wide (one tile
+//    across) and 26 otherwise, for every group, a template argument so that
+//    each tap offset is an immediate; columns past the image are zeros. Each
+//    plane's stride is padded to 8 mod 32 floats so the fragment's 4
+//    channels x 8 pixels hit 32 distinct banks.
 //      florida (F=16, 16x16): 5 groups x 16 x 328 floats = 104,960 B;
 //      interior tile of a band: 16 x (680+648+584+520+488) floats = 186,880 B.
 //  * Weights stay out of shared memory: the B fragments (hi and lo of b0, b1
@@ -64,8 +67,8 @@
 //    pipes busy on its own (mma.sync latency over 4 independent accumulators
 //    a warp), so an SM running two units takes less than twice as long as
 //    one (1.76x on the H100, PERF.md). Half-sample tiles would cut the worst
-//    SM from 2 to 1.75 samples of work at 1.17x recompute, and they measured
-//    slower (tools/drb_variants.py); a 2-CTA cluster exchanging rows through
+//    SM from 2 to 1.75 samples of work at 1.17x recompute, and 8-row tiles
+//    measured slower (PERF.md); a 2-CTA cluster exchanging rows through
 //    distributed shared memory would cut it to 1.5 without recompute but
 //    with a cluster barrier per stage and half the warps of each CTA idle at
 //    16x16, and is left open.
@@ -76,9 +79,13 @@
 //    4 floats and no reduction crosses warps.
 //  * Asynchronous copies: the x tile with its halo is copied to shared
 //    memory with cp.async (4-byte copies: a halo'd tile starts at any
-//    column) while the threads zero the out groups; the next k-step's weight
-//    fragments are loads with no dependence on the MMAs in flight.
-//    __syncthreads() runs only after the copy and at the five stage ends.
+//    column) while the threads zero the out groups. The weight fragments
+//    are prefetched one k-step ahead into registers: a k-step's MMAs run
+//    while the loads of the next (the next tap, the next 8-ci chunk, or the
+//    next group's first, across the group loop the compiler does not
+//    unroll) are in flight. Double-buffering them in shared memory would
+//    not fit two florida CTAs per SM. __syncthreads() runs only after the
+//    copy and at the five stage ends.
 //
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
@@ -101,7 +108,7 @@ constexpr float kResScale = 0.2f;
 struct Geometry {
   int H, W;
   int tiles_x, tiles_per_sample;
-  int pitch;  // row pitch of every group's planes, min(kTileW + 2 kHalo, W + 2)
+  int pitch;  // row pitch of every group's planes: 18 (W <= 16) or 26
 };
 
 // Plane stride for n floats, padded to 8 mod 32 (bank spread, 32-B aligned).
@@ -140,19 +147,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-// kPitch: the row pitch at compile time (18 for a 16-wide image, 26 for
-// images at least 24 wide), so every tap offset is an immediate; 0 reads it
-// from g.pitch, for other widths, with the register budget of one CTA per SM
-// (at two, the runtime pitch spills).
+// kPitch = g.pitch at compile time, so every tap offset is an immediate.
 template <int F, int kPitch>
-__global__ void __launch_bounds__(kThreads, kPitch ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, 2)
 drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
            const float* __restrict__ bias, float* __restrict__ out, Geometry g) {
   constexpr int NT = F / 8;  // n-tiles of 8 output channels = 8-channel chunks per group
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
 
-  const int H = g.H, W = g.W, HW = H * W, P = kPitch ? kPitch : g.pitch;
+  const int H = g.H, W = g.W, HW = H * W;
+  constexpr int P = kPitch;
   const int b = blockIdx.x / g.tiles_per_sample;
   const int tile = blockIdx.x - b * g.tiles_per_sample;
   const int ty0 = (tile / g.tiles_x) * kTileH;
@@ -242,7 +247,11 @@ drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
         }
       }
 
+      // The weight stream: wn holds the next k-step's fragments.
       const float4* wp = wstage;
+      float4 wn[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) wn[nt] = __ldg(wp + nt * 32);
       int goff = 0;
 #pragma unroll 1
       for (int j = 0; j < s; ++j) {
@@ -257,8 +266,12 @@ drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
             const int toff = (tap / 3 - 1) * P + (tap % 3 - 1);
             float4 wv[NT];
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) wv[nt] = __ldg(wp + nt * 32);
+            for (int nt = 0; nt < NT; ++nt) wv[nt] = wn[nt];
             wp += NT * 32;
+            if (tap < 8 || cc < NT - 1 || j < s - 1) {
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) wn[nt] = __ldg(wp + nt * 32);
+            }
             uint32_t ah[2][4], al[2][4];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
@@ -317,7 +330,7 @@ Geometry make_geometry(int H, int W) {
   g.W = W;
   g.tiles_x = (W + kTileW - 1) / kTileW;
   g.tiles_per_sample = g.tiles_x * ((H + kTileH - 1) / kTileH);
-  g.pitch = kTileW + 2 * kHalo < W + 2 ? kTileW + 2 * kHalo : W + 2;
+  g.pitch = W <= kTileW ? kTileW + 2 : kTileW + 2 * kHalo;
   return g;
 }
 
@@ -329,14 +342,6 @@ size_t smem_bytes(int F, const Geometry& g) {
 
 using KernelFn = void (*)(const float*, const float4*, const float*, float*, Geometry);
 
-// The instantiation for this geometry, with its shared memory allowance set.
-template <int F>
-cudaError_t select(const Geometry& g, size_t smem, KernelFn* fn) {
-  *fn = g.pitch == 18 ? drb_kernel<F, 18> : g.pitch == 26 ? drb_kernel<F, 26> : drb_kernel<F, 0>;
-  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <int F>
 cudaError_t launch(const float* x, const float* wpack, float* out, int B, int H, int W,
                    cudaStream_t stream) {
@@ -344,24 +349,15 @@ cudaError_t launch(const float* x, const float* wpack, float* out, int B, int H,
   const size_t smem = smem_bytes(F, g);
   const long long units = static_cast<long long>(B) * g.tiles_per_sample;
   if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
-  KernelFn fn;
-  const cudaError_t e = select<F>(g, smem, &fn);
+  const KernelFn fn = g.pitch == kTileW + 2 ? drb_kernel<F, kTileW + 2>
+                                             : drb_kernel<F, kTileW + 2 * kHalo>;
+  const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const float4* wfrag = reinterpret_cast<const float4*>(wpack);
   const float* bias = wpack + 2 * 9 * F * F * 15;  // after the five stages' fragments
   fn<<<static_cast<unsigned>(units), kThreads, smem, stream>>>(x, wfrag, bias, out, g);
   return cudaGetLastError();
-}
-
-template <int F>
-cudaError_t config(int B, int H, int W, int* units, int* smem, int* ctas_per_sm) {
-  const Geometry g = make_geometry(H, W);
-  *units = B * g.tiles_per_sample;
-  *smem = static_cast<int>(smem_bytes(F, g));
-  KernelFn fn;
-  const cudaError_t e = select<F>(g, *smem, &fn);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreads, *smem);
 }
 
 }  // namespace
@@ -383,20 +379,6 @@ int drb_forward_f32(const void* x, const void* wpack, void* out, int B, int F, i
       return launch<8>(xf, wf, of, B, H, W, st);
     case 16:
       return launch<16>(xf, wf, of, B, H, W, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// The launch drb_forward_f32 makes for this shape: CTAs (work units),
-// dynamic shared memory per CTA, and CTAs that fit on one SM.
-int drb_launch_config(int B, int F, int H, int W, int* units, int* smem, int* ctas_per_sm) {
-  if (B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
-  switch (F) {
-    case 8:
-      return config<8>(B, H, W, units, smem, ctas_per_sm);
-    case 16:
-      return config<16>(B, H, W, units, smem, ctas_per_sm);
     default:
       return cudaErrorInvalidValue;
   }

@@ -91,8 +91,6 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         lib.drb_forward_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.drb_forward_f32.restype = ctypes.c_int
-        lib.drb_launch_config.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
-        lib.drb_launch_config.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -215,16 +213,3 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 drb_forward.launches = 0
 
-
-def launch_config(b: int, f: int, h: int, w: int, device=None) -> dict:
-    """The launch the kernel makes for a (b, f, h, w) input on the current
-    (or given) card: CTAs (one per sample and 16x16 output tile), dynamic
-    shared memory per CTA, and how many CTAs fit on one SM."""
-    lib = load_library()
-    units, smem, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        err = lib.drb_launch_config(b, f, h, w, ctypes.byref(units), ctypes.byref(smem),
-                                    ctypes.byref(per_sm))
-    if err:
-        raise RuntimeError(f"DRB launch query failed: {lib.drb_error_string(err).decode()}")
-    return {"ctas": units.value, "smem_bytes": smem.value, "ctas_per_sm": per_sm.value}
