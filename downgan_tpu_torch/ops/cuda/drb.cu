@@ -247,7 +247,7 @@ drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
         }
       }
 
-      // The weight stream: wn holds the next k-step's fragments.
+      // The weight stream; wn holds the first k-step of the next group.
       const float4* wp = wstage;
       float4 wn[NT];
 #pragma unroll
@@ -266,9 +266,9 @@ drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
             const int toff = (tap / 3 - 1) * P + (tap % 3 - 1);
             float4 wv[NT];
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) wv[nt] = wn[nt];
+            for (int nt = 0; nt < NT; ++nt) wv[nt] = cc == 0 && tap == 0 ? wn[nt] : __ldg(wp + nt * 32);
             wp += NT * 32;
-            if (tap < 8 || cc < NT - 1 || j < s - 1) {
+            if (cc == NT - 1 && tap == 8 && j < s - 1) {
 #pragma unroll
               for (int nt = 0; nt < NT; ++nt) wn[nt] = __ldg(wp + nt * 32);
             }
