@@ -79,13 +79,16 @@
 //    4 floats and no reduction crosses warps.
 //  * Asynchronous copies: the x tile with its halo is copied to shared
 //    memory with cp.async (4-byte copies: a halo'd tile starts at any
-//    column) while the threads zero the out groups. The weight fragments
-//    are prefetched one k-step ahead into registers: a k-step's MMAs run
-//    while the loads of the next (the next tap, the next 8-ci chunk, or the
-//    next group's first, across the group loop the compiler does not
-//    unroll) are in flight. Double-buffering them in shared memory would
-//    not fit two florida CTAs per SM. __syncthreads() runs only after the
-//    copy and at the five stage ends.
+//    column) while the threads zero the out groups. __syncthreads() runs
+//    only after the copy and at the five stage ends.
+//  * No explicit weight prefetch. The fragment loads of a group's 9 * F/8
+//    k-steps sit in one unrolled body, and the compiler schedules them
+//    ahead of the MMAs that use them as registers allow (126 of the 128
+//    that two CTAs per SM leave). Loading each k-step's fragments one step
+//    ahead into registers measured 1-5 % slower, and loading only each
+//    group's first k-step ahead (across the loop the compiler does not
+//    unroll) 2-13 % slower (PERF.md). Double-buffering them in shared
+//    memory does not fit two florida CTAs per SM.
 //
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
@@ -247,11 +250,7 @@ drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
         }
       }
 
-      // The weight stream; wn holds the first k-step of the next group.
       const float4* wp = wstage;
-      float4 wn[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) wn[nt] = __ldg(wp + nt * 32);
       int goff = 0;
 #pragma unroll 1
       for (int j = 0; j < s; ++j) {
@@ -266,12 +265,8 @@ drb_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
             const int toff = (tap / 3 - 1) * P + (tap % 3 - 1);
             float4 wv[NT];
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) wv[nt] = cc == 0 && tap == 0 ? wn[nt] : __ldg(wp + nt * 32);
+            for (int nt = 0; nt < NT; ++nt) wv[nt] = __ldg(wp + nt * 32);
             wp += NT * 32;
-            if (cc == NT - 1 && tap == 8 && j < s - 1) {
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) wn[nt] = __ldg(wp + nt * 32);
-            }
             uint32_t ah[2][4], al[2][4];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {

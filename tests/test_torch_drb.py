@@ -205,6 +205,33 @@ def test_3xtf32_emulation_holds_the_kernel_tolerance():
     assert not torch.allclose(emulate_3xtf32(x, ws, bs, passes=1), want, atol=ATOL, rtol=ATOL)
 
 
+def test_3xtf32_emulation_holds_at_f8_and_a_width_of_two_tiles():
+    """The same at F=8 and a 12x20 image (two 16-wide tiles on the card)."""
+    f = 8
+    ws, bs = random_block(f, seed=8)
+    ws = [t / (9 * t.shape[1]) ** 0.5 for t in ws]
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, f, 12, 20)).astype(np.float32))
+    torch.testing.assert_close(emulate_3xtf32(x, ws, bs), drb_forward_reference(x, ws, bs),
+                               atol=ATOL, rtol=ATOL)
+
+
+def test_tf32_round_ties_away_from_zero():
+    """tf32_round is cvt.rna.tf32.f32: nearest TF32 value, ties away from
+    zero; tf32_split's parts are TF32-exact and sum to t within 2**-22 |t|."""
+    ulp = 2.0 ** -10  # TF32 spacing in [1, 2)
+    t = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 1.5 * ulp,
+                      3.0e-30, -7.5e20, 0.0])
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0e-30, -7.5e20, 0.0])
+    got = tf32_split(t)[0]
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+    torch.testing.assert_close(got[:4], want[:4], rtol=0, atol=0)
+    torch.testing.assert_close(got[4:], want[4:], rtol=2.0 ** -11, atol=0)
+    u = torch.from_numpy(np.random.default_rng(10).standard_normal(4096).astype(np.float32)) * 1e3
+    hi, lo = tf32_split(u)
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((hi.double() + lo.double() - u.double()).abs() <= 2.0 ** -22 * u.double().abs()).all()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
