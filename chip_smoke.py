@@ -15,9 +15,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernel   -- the DRB kernel against its plain PyTorch twin on the card
                (TF32 off), at the generator's shapes, domain bands, images of
                several 16x16 tiles (halo'd on every side, ragged) and F=8;
-               at B=150 and at a domain band it times the kernel, the twin
-               and the cuDNN five-conv chain beside the kernel's bound (the
-               3xTF32 tensor-core floor, or the bytes if they take longer);
+               at B=150 (serving), B=128 (training) and a domain band it
+               times the kernel, the twin and the cuDNN five-conv chain
+               beside the kernel's bound (the 3xTF32 tensor-core floor, or
+               the bytes if they take longer);
 4. generator-- the florida generator at full width (1,696,514 params,
                seeded weights): the kernel path against every DRB on the
                plain twin at B=150, against the CPU at B=2, and its forward
@@ -25,11 +26,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 5. profile  -- ``torch.profiler`` over 3 forwards at B=150: device time by
                kernel name (a report: where the profiler sees no device
                time it says so and the run goes on);
-6. serving  -- the main path: ``serve_model(BatchingSRModel(...))`` answers
-               concurrent /v1/generate requests and a /v1/generate-domain
-               request over HTTP; responses are checked against direct
-               calls, /metrics against the traffic, and the DRB kernel's
-               launch count (reset just before) against 48 per dispatch.
+6. serving  -- the serving path: ``serve_model(BatchingSRModel(...))``
+               answers concurrent /v1/generate requests and a
+               /v1/generate-domain request over HTTP; responses are checked
+               against direct calls, /metrics against the traffic, and the
+               DRB kernel's launch count (reset just before) against 48 per
+               dispatch;
+7. drb_grad -- ``DRBFunction`` (the kernel's forward, a cuDNN recompute as
+               its backward) against autograd through the plain twin at the
+               training batch, B=128, and the backward's time beside the
+               kernel's and the cuDNN chain's;
+8. train_parity -- six florida train steps (full width, batch 4) on the card
+               and on the CPU from the same weights and alphas: step-0
+               gradients, per-step losses and metrics, the final parameters,
+               48 DRB launches per generator forward, and the kernel path
+               after a generator update against the plain-twin path (the
+               packed weights were refreshed);
+9. training -- the training path: ``cli train --config examples/florida.json
+               --synthetic --samples 1440 --epochs 2`` in-process at florida
+               batch 128, its epoch means, 48 DRB launches in each of its
+               generator forwards (counted by kind), step times with CUDA
+               events, peak memory, the step's parts timed alone (and, for
+               information, with cuDNN's autotuner on), and a
+               ``torch.profiler`` split of one 5-step round by kernel class.
 
 Then it prints ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -56,15 +75,51 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = KERNEL_RTOL = 1e-5  # 3xTF32 tensor-core products vs fp32, sums of <= 720 terms
 GEN_ATOL = GEN_RTOL = 1e-4  # the same difference carried through 48 DRBs
 SERVE_ATOL = 1e-6  # same program and batch shape on both sides
+# DRB gradients, DRBFunction vs autograd through the twin: the backward never
+# reads the kernel's output, so both sides are fp32 sums of the same products
+# in another order. A weight gradient sums 32,768 pixel terms at B=128, about
+# sqrt(32768 / 720) ~ 7x the forward's longest sum, so ten times the
+# kernel's 1e-5, relative to each gradient's largest entry.
+DRB_GRAD_TOL = 1e-4
+# Step-0 gradient of the generator loss with respect to the fake, card vs
+# CPU, outside the elements where the L1 term's sign flips, relative to its
+# largest entry: the fake differs by up to GEN_ATOL (1e-4); ten times that.
+STEP_GRAD_TOL = 1e-3
+# Step-0 parameter gradients (the critic loss's, GP double backward included;
+# the generator's for one upstream gradient) are held to a float64 CPU
+# backward: they are ill-conditioned in fp32 (a LeakyReLU's slope flips
+# where the forward moves by 1e-6; deep in the generator's trunk the
+# gradients are ~1e-5), so in their worst tensor the CPU's own fp32
+# gradients are up to ~1e-2 off float64, relative to that tensor's largest
+# entry, and a single flip decides which tensor that is (my chip runs).
+# Over the whole gradient as one vector the error is stable: the card's
+# relative L2 error may be at most twice the CPU fp32's. And no tensor may
+# be off by more than 0.1 in relative L2, ten times the worst fp32 error: a
+# wrong formula gives O(1).
+GRAD_VS_CPU_FP32, GRAD_TENSOR_TOL = 2.0, 0.1
+# Per-step losses and metrics, card vs CPU: means of fields that differ by
+# up to GEN_ATOL, and the critic's scores of them.
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+# Parameters after six steps: Adam's normalized step can turn an ulp-level
+# difference in a near-zero gradient into up to 2 * lr in one element, so
+# 2 * lr per update the network took; the bulk (the median element) must
+# agree to 1e-5.
+ADAM_ATOL_PER_UPDATE, ADAM_MEDIAN_ATOL = 2 * 2.5e-4, 1e-5
 B_MAIN = 150  # Config.chunk_size and the serving batch
+B_TRAIN = 128  # hp.batch_size of examples/florida.json
+B_PARITY = 4  # the train_parity phase's batch (the CPU side's cost)
 # Dense peaks (NVIDIA data sheets, no sparsity), at the card's full power
 # limit: fp32 outside the tensor cores and TF32 on them in TFLOP/s, HBM in TB/s.
 PEAKS = (("H100 PCIe", 51.2, 378.0, 2.0), ("H100 NVL", 60.0, 417.5, 3.9),
          ("H100", 67.0, 495.0, 3.35), ("H200", 67.0, 495.0, 4.8))
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the script's time so far."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **fields}), flush=True)
 
 
 def check(ok: bool, message: str) -> None:
@@ -157,24 +212,14 @@ def phase_build():
     check(not spills, f"the DRB kernel spills registers: {spills}")
 
 
-def cudnn_chain(x, ws, bs):
-    """The same DRB as five cuDNN convolutions and concats: the library
-    yardstick (no single PyTorch call computes a DRB)."""
-    acts = x
-    for s in range(5):
-        y = torch.nn.functional.conv2d(acts, ws[s], bs[s], padding=1)
-        if s < 4:
-            acts = torch.cat([acts, torch.nn.functional.leaky_relu(y, 0.01)], 1)
-    return y * 0.2 + x
-
-
 def time_drb(x, ws, bs, want, peaks):
     """Kernel, plain twin and cuDNN-chain times for one DRB input, beside
     the kernel's bound for the same work: the larger of its 3xTF32
     tensor-core floor (three TF32 products per fp32 product) and its bytes
     at the memory rate. The fp32 CUDA-core time of the same FLOP is printed
     for information."""
-    from downgan_tpu_torch.ops.cuda.drb import drb_forward, drb_forward_reference, pack_drb_weights
+    from downgan_tpu_torch.ops.cuda.drb import (cudnn_chain, drb_forward, drb_forward_reference,
+                                                pack_drb_weights)
 
     check(torch.allclose(cudnn_chain(x, ws, bs), want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
           "the cuDNN five-conv chain disagrees with the plain twin")
@@ -206,7 +251,7 @@ def time_drb(x, ws, bs, want, peaks):
                   ctas=b * -(-h // 16) * -(-w // 16), sms=sms,
                   cudnn_tf32_on_ms_not_same_precision=tf32_ms,
                   cudnn_tf32_on_max_abs_err_vs_twin=tf32_err)
-    if (h, w) == (16, 16):  # the tail of whole-sample units: one and two per SM
+    if (b, h, w) == (B_MAIN, 16, 16):  # the tail of whole-sample units: one and two per SM
         for n in (sms, 2 * sms):
             xn = torch.randn(n, f, h, w, device=x.device)
             timing[f"ms_at_b{n}"] = cuda_ms(lambda: drb_forward(xn, ws, bs, packed), iters=50)
@@ -219,10 +264,11 @@ def phase_kernel(rng, peaks):
     shape (B=150, the main path's) and at the domain band."""
     from downgan_tpu_torch.ops.cuda.drb import drb_forward, drb_forward_reference
 
-    shapes = [(1, 16, 16, 16), (3, 16, 16, 16), (B_MAIN, 16, 16, 16), (8, 16, 32, 56),
+    shapes = [(1, 16, 16, 16), (3, 16, 16, 16), (B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16),
+              (8, 16, 32, 56),
               (8, 16, 32, 112), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112),
               (1, 16, 37, 53), (1, 8, 40, 24)]
-    timed = {(B_MAIN, 16, 16, 16): None, (8, 16, 32, 112): None}
+    timed = {(B_MAIN, 16, 16, 16): None, (B_TRAIN, 16, 16, 16): None, (8, 16, 32, 112): None}
     errors = {}
     with torch.inference_mode():
         for shape in shapes:
@@ -239,7 +285,8 @@ def phase_kernel(rng, peaks):
             check(ok, f"DRB kernel disagrees with its plain twin at {shape}: {abs_err}")
             if shape in timed:
                 timed[shape] = time_drb(x, ws, bs, want, peaks)
-    return max(errors.values()), timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)]
+    return (max(errors.values()), timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)],
+            timed[(B_TRAIN, 16, 16, 16)])
 
 
 def phase_generator(config, rng):
@@ -409,6 +456,365 @@ def phase_serving(config, gen, rng):
     return launches
 
 
+def phase_drb_grad(rng, peaks, timing_b128):
+    """DRBFunction at the training batch against autograd through the twin,
+    and the time of its backward (a cuDNN recompute, not a kernel)."""
+    from downgan_tpu_torch.ops.cuda.drb import (DRBFunction, cudnn_chain, drb_backward,
+                                                drb_forward_reference, pack_drb_weights)
+
+    ws, bs = drb_params(16, rng, "cuda")
+    x = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda()
+    weight = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda()  # a random-weighted sum
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
+        return torch.autograd.grad((fn(leaves) * weight).sum(), leaves)
+
+    got = grads(lambda v: DRBFunction.apply(v[0], pack_drb_weights(ws, bs), *v[1:]))
+    want = grads(lambda v: drb_forward_reference(v[0], v[1:6], v[6:]))
+    torch.cuda.synchronize()
+    names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
+    errors = {n: ((g - w).abs().max() / w.abs().max()).item() for n, g, w in zip(names, got, want)}
+    worst = max(errors.values())
+    emit("drb_grad", shape=[B_TRAIN, 16, 16, 16], max_err_relative_to_largest=errors,
+         tolerance=DRB_GRAD_TOL, ok=worst <= DRB_GRAD_TOL)
+    check(worst <= DRB_GRAD_TOL, f"DRBFunction gradients disagree with the twin's: {errors}")
+    backward_ms = cuda_ms(lambda: drb_backward(x, ws, bs, weight), iters=20)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
+    chain_ms = cuda_ms(lambda: torch.autograd.grad(
+        cudnn_chain(leaves[0], leaves[1:6], leaves[6:]), leaves, weight), iters=20)
+    emit("drb_grad_timing", shape=[B_TRAIN, 16, 16, 16], kernel_forward_ms=timing_b128["ms"],
+         backward_ms_cudnn_recompute=backward_ms, cudnn_chain_forward_ms=timing_b128["library_ms"],
+         cudnn_chain_forward_plus_backward_ms=chain_ms, kernel_bound_ms=timing_b128["bound_ms"])
+    return backward_ms
+
+
+def generator_forward_fp64(gen, x):
+    """``Generator.forward`` in the parameters' own dtype (it casts its
+    input and output to float32)."""
+    out1 = gen.conv1(x)
+    return gen.conv3(gen.upsampling(out1 + gen.conv2(gen.res_blocks(out1))))
+
+
+def per_tensor_rel_err(got, want):
+    """The largest, over tensors, of max |got - want| over max |want|."""
+    return max(((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+               for g, w in zip(got, want))
+
+
+def phase_train_parity(config):
+    """Six florida steps (full width, batch 4) on the card and on the CPU
+    from the same weights, data and alphas."""
+    import dataclasses
+
+    from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.ops.losses import content_loss
+    from downgan_tpu_torch.training.state import make_train_state
+    from downgan_tpu_torch.training.wgan import build_train_step, critic_loss
+
+    n_steps = 6
+    cfg = config.replace(hp=dataclasses.replace(config.hp, batch_size=B_PARITY))
+    coarse, fine = synthetic_dataset(n_samples=B_PARITY * n_steps, seed=11)
+    cpu_ds = DeviceDataset.from_numpy(coarse, fine, "cpu")
+    alphas = torch.rand(n_steps, B_PARITY, 1, 1, 1, generator=torch.Generator().manual_seed(12))
+    states = {dev: make_train_state(cfg, dev) for dev in ("cuda", "cpu")}
+    for name, p in states["cuda"].generator.state_dict().items():
+        check(torch.equal(p.cpu(), states["cpu"].generator.state_dict()[name]),
+              f"seeded generators differ at {name}")
+
+    def batch(dev, i):
+        rows = torch.arange(B_PARITY * i, B_PARITY * (i + 1))
+        return [t.to(dev) for t in cpu_ds.gather(rows)]
+
+    def step0_grads(dev, d_fake=None):
+        """Step 0's critic-loss gradients; the generator loss's gradient
+        with respect to its fake; and the generator's parameter gradients
+        for the upstream gradient ``d_fake`` (default: this device's)."""
+        st = states[dev]
+        coarse0, fine0 = batch(dev, 0)
+        with torch.no_grad():
+            fake = st.generator(coarse0)
+        c_grads = torch.autograd.grad(critic_loss(cfg, st.critic, fake, fine0, alphas[0].to(dev))[0],
+                                      list(st.critic.parameters()), allow_unused=True)
+        fake = st.generator(coarse0)
+        g_loss = (-st.critic(fake).mean() * cfg.hp.gamma
+                  + cfg.hp.content_lambda * content_loss(fake, fine0))
+        (own,) = torch.autograd.grad(g_loss, fake, retain_graph=True)
+        g_grads = torch.autograd.grad(fake, list(st.generator.parameters()),
+                                      own if d_fake is None else d_fake.to(dev))
+        return c_grads, own, g_grads, fake.detach(), fine0
+
+    # The L1 term's gradient, sign(fake - fine), flips where the two
+    # devices' fakes (within GEN_ATOL) straddle the target; the generator's
+    # backward is compared for the same upstream gradient (the CPU's).
+    cg_cpu, d_fake_cpu, gg_cpu, fake_cpu, fine0 = step0_grads("cpu")
+    cg_card, d_fake_card, gg_card, fake_card, _ = step0_grads("cuda", d_fake_cpu)
+    flipped = torch.sign(fake_card.cpu() - fine0) != torch.sign(fake_cpu - fine0)
+    check(bool((fake_cpu - fine0)[flipped].abs().le(GEN_ATOL).all()),
+          "the L1 gradient flips sign away from the target")
+    d_fake_err = ((d_fake_card.cpu() - d_fake_cpu)[~flipped].abs().max()
+                  / d_fake_cpu.abs().max()).item()
+    check(d_fake_err <= STEP_GRAD_TOL, f"step-0 d loss / d fake, card vs CPU: {d_fake_err}")
+
+    # float64 yardsticks on the CPU, for the same inputs.
+    with torch.no_grad():
+        fake0_cpu = states["cpu"].generator(batch("cpu", 0)[0])
+    critic64 = copy.deepcopy(states["cpu"].critic).double()
+    cg64 = torch.autograd.grad(
+        critic_loss(cfg, lambda x: critic64.classifier(critic64.features(x).flatten(1)),
+                    fake0_cpu.double(), fine0.double(), alphas[0].double())[0],
+        list(critic64.parameters()), allow_unused=True)
+    gen64 = copy.deepcopy(states["cpu"].generator).double()
+    gg64 = torch.autograd.grad(generator_forward_fp64(gen64, batch("cpu", 0)[0].double()),
+                               list(gen64.parameters()), d_fake_cpu.double())
+    grad_err = {"d_loss_d_fake_outside_flips": d_fake_err, "l1_sign_flips": int(flipped.sum())}
+    for net, card, cpu, f64 in (("critic", cg_card, cg_cpu, cg64),
+                                ("generator", gg_card, gg_cpu, gg64)):
+        # The last critic bias gets no gradient from the loss (C(fake) and
+        # C(real) enter with opposite signs and the GP does not see it).
+        kept = [(a, b, c.float()) for a, b, c in zip(card, cpu, f64) if c is not None]
+        card, cpu, f64 = zip(*kept)
+        flat = lambda gs: torch.cat([g.cpu().reshape(-1) for g in gs])  # noqa: E731
+        l2 = lambda gs: ((flat(gs) - flat(f64)).norm() / flat(f64).norm()).item()  # noqa: E731
+        grad_err[net] = {
+            "card_vs_fp64_l2": l2(card), "cpu_fp32_vs_fp64_l2": l2(cpu),
+            "card_vs_fp64_worst_tensor_l2": max(((a.cpu() - c).norm() / c.norm()).item()
+                                                for a, c in zip(card, f64)),
+            "card_vs_fp64_worst_tensor_max": per_tensor_rel_err(card, f64),
+            "cpu_fp32_vs_fp64_worst_tensor_max": per_tensor_rel_err(cpu, f64)}
+        check(grad_err[net]["card_vs_fp64_l2"]
+              <= GRAD_VS_CPU_FP32 * grad_err[net]["cpu_fp32_vs_fp64_l2"]
+              and grad_err[net]["card_vs_fp64_worst_tensor_l2"] <= GRAD_TENSOR_TOL,
+              f"step-0 {net} gradients: {grad_err}")
+
+    steps = {dev: build_train_step(cfg, st.generator, st.critic) for dev, st in states.items()}
+    metrics = {"cuda": [], "cpu": []}
+    launches, twin_err = [], None
+    for i in range(n_steps):
+        for dev in ("cuda", "cpu"):
+            before = drb_forward.launches
+            m = steps[dev](states[dev], *batch(dev, i), alphas[i].to(dev))
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+            if dev == "cuda":
+                launches.append(drb_forward.launches - before)
+        if i == 0:  # the metric pass's fake after step 0's generator update
+            gen = states["cuda"].generator
+            coarse0, fine0 = batch("cuda", 0)
+            with torch.no_grad():
+                fake = gen(coarse0)
+                with drbs_on_plain_twin(gen):
+                    fake_twin = gen(coarse0)
+            twin_err = (fake - fake_twin).abs().max().item()
+            check(torch.allclose(fake, fake_twin, atol=GEN_ATOL, rtol=GEN_RTOL),
+                  f"after a generator update the kernel path is {twin_err} off the plain twin's")
+            check(abs(float(content_loss(fine0, fake)) - metrics["cuda"][0]["MAE"]) <= 1e-6,
+                  "the step's metric pass did not score this fake")
+    want_launches = [48 * (2 + (i % 5 == 0)) for i in range(n_steps)]
+    check(launches == want_launches, f"DRB launches per step {launches}, not {want_launches}")
+    metric_err = 0.0
+    for i, (mc, mp) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
+        for k in mp:
+            err = abs(mc[k] - mp[k])
+            metric_err = max(metric_err, err / (STEP_ATOL + STEP_RTOL * abs(mp[k])))
+            check(err <= STEP_ATOL + STEP_RTOL * abs(mp[k]),
+                  f"step {i} {k}: card {mc[k]} vs CPU {mp[k]}")
+        check((mc["gen_loss"] != 0.0) == (i % 5 == 0), f"step {i}: generator schedule")
+    param_err = {}
+    updates = {"generator": sum(i % 5 == 0 for i in range(n_steps)), "critic": n_steps}
+    for net in ("generator", "critic"):
+        card, cpu = (getattr(states[d], net).state_dict() for d in ("cuda", "cpu"))
+        diff = torch.cat([(card[k].cpu() - cpu[k]).abs().reshape(-1) for k in cpu])
+        atol = ADAM_ATOL_PER_UPDATE * updates[net]
+        param_err[net] = {"max": diff.max().item(), "median": diff.median().item(), "atol": atol}
+        check(param_err[net]["max"] <= atol and param_err[net]["median"] <= ADAM_MEDIAN_ATOL,
+              f"{net} parameters after {n_steps} steps, card vs CPU: {param_err[net]}")
+    emit("train_parity", batch=B_PARITY, steps=n_steps, step0_grad_err_relative=grad_err,
+         step_grad_tol=STEP_GRAD_TOL, metrics_card=metrics["cuda"],
+         worst_metric_err_over_tolerance=metric_err, metric_rtol=STEP_RTOL, metric_atol=STEP_ATOL,
+         param_err=param_err, adam_median_atol=ADAM_MEDIAN_ATOL,
+         drb_launches_per_step=launches, kernel_vs_twin_after_update=twin_err)
+
+
+def train_kernel_class(name: str) -> str:
+    low = name.lower()
+    if "drb_kernel" in low:
+        return "drb_kernel"
+    if "multi_tensor_apply" in low:  # the foreach Adam updates
+        return "optimizer"
+    if any(k in low for k in ("dgrad", "wgrad", "bprop", "bwd", "backward")):
+        return "conv_backward"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit", "fprop")):
+        return "conv_forward_or_gemm"
+    return "elementwise_and_other"
+
+
+def phase_training():
+    """The training path through its CLI, in-process, then timed and
+    profiled rounds of the same trainer."""
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+    from torch.profiler import ProfilerActivity, profile
+
+    import downgan_tpu_torch.training.trainer as trainer_module
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.models.generator import Generator
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    # Each generator forward's own DRB launches, and every step's metrics.
+    pending, per_forward, step_metrics = [], [], []
+
+    def pre(module, args):
+        if isinstance(module, Generator):
+            pending.append(drb_forward.launches)
+
+    def post(module, args, out):
+        if isinstance(module, Generator):
+            per_forward.append(drb_forward.launches - pending.pop())
+
+    real_build = trainer_module.build_train_step
+
+    def recording_build(*args, **kwargs):
+        inner = real_build(*args, **kwargs)
+
+        def step(*a, **k):
+            step_metrics.append(inner(*a, **k))
+            return step_metrics[-1]
+
+        step.forwards = inner.forwards
+        return step
+
+    hooks = [register_module_forward_pre_hook(pre), register_module_forward_hook(post)]
+    trainer_module.build_train_step = recording_build
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        drb_forward.launches = 0  # the training path's run starts here
+        t0 = time.perf_counter()
+        trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
+                            "--synthetic", "--samples", "1440", "--epochs", "2"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = drb_forward.launches  # the training path's run ends here
+    finally:
+        trainer_module.build_train_step = real_build
+        for h in hooks:
+            h.remove()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    history, forwards = trainer.history, dict(trainer.forwards)
+    check(trainer.config.hp.batch_size == B_TRAIN and trainer.config.filters == 16
+          and trainer.config.num_res_blocks == 16, "not the florida configuration")
+    check(len(trainer.train_ds) == 1296 and len(trainer.test_ds) == 144, "not the 90/10 split")
+    check([r["steps"] for r in history] == [10, 10], f"steps per epoch {history}")
+    for r in history:
+        values = [*r["train"].values(), *r["test"].values()]
+        check(all(np.isfinite(v) for v in values), f"non-finite epoch means {r}")
+    c0 = float(step_metrics[0]["critic_loss"])
+    check(90.0 < c0 < 100.5, f"step 0 critic_loss {c0} is not GP-dominated (~100)")
+    want_forwards = {"critic_fake": 20, "update": 4, "metric": 20, "test": 4}
+    check(forwards == want_forwards, f"generator forwards {forwards}, not {want_forwards}")
+    check(len(per_forward) == sum(forwards.values()) and set(per_forward) == {48},
+          f"DRB launches per generator forward {sorted(set(per_forward))} over "
+          f"{len(per_forward)} forwards")
+    check(launches == 48 * sum(forwards.values()), f"{launches} DRB launches")
+    gen_losses = [float(m["gen_loss"]) for m in step_metrics]
+    for e, r in enumerate(history):
+        window = gen_losses[r["steps"] * e:r["steps"] * (e + 1)]
+        check(abs(r["train"]["gen_loss"] - sum(window) / sum(v != 0.0 for v in window))
+              <= 1e-5 * abs(r["train"]["gen_loss"]), "gen_loss rescale")
+
+    # A timed round: steps 20-24, a generator update (20) and four
+    # critic-only steps; CUDA events around each step. The parts below move
+    # the state on by critic and generator updates, not by a step.
+    step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
+    rows = torch.arange(len(ds) // B_TRAIN * B_TRAIN, device="cuda").reshape(-1, B_TRAIN)
+    update_ms, critic_ms = [], []
+    for s in range(5):
+        coarse, fine = ds.gather(rows[s])
+        is_update = state.step % 5 == 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_fn(state, coarse, fine)
+        end.record()
+        torch.cuda.synchronize()
+        (update_ms if is_update else critic_ms).append(start.elapsed_time(end))
+    round_ms = np.mean(update_ms) + 4 * np.mean(critic_ms)
+
+    # The step's parts, each timed alone on the same modules and batch.
+    from downgan_tpu_torch.ops.msssim import msssim_metric
+    from downgan_tpu_torch.training.wgan import build_eval_metrics, critic_loss, generator_loss
+
+    cfg, gen, critic = trainer.config, state.generator, state.critic
+    coarse, fine = ds.gather(rows[0])
+    alpha = torch.rand(B_TRAIN, 1, 1, 1, device="cuda")
+    with torch.no_grad():
+        fake = gen(coarse)
+
+    def critic_update():
+        state.c_opt.zero_grad(set_to_none=True)
+        critic_loss(cfg, critic, fake, fine, alpha)[0].backward(inputs=list(critic.parameters()))
+        state.c_opt.step()
+
+    def generator_update():
+        state.g_opt.zero_grad(set_to_none=True)
+        generator_loss(cfg, gen, critic, coarse, fine).backward(inputs=list(gen.parameters()))
+        state.g_opt.step()
+
+    eval_metrics = build_eval_metrics(cfg)
+    with torch.no_grad():
+        parts = {"generator_forward": cuda_ms(lambda: gen(coarse), iters=10, warmup=1),
+                 "metric_pass": cuda_ms(lambda: eval_metrics(gen, critic, coarse, fine),
+                                        iters=5, warmup=1),
+                 "msssim_alone": cuda_ms(lambda: msssim_metric(fine, fake), iters=5, warmup=1),
+                 "critic_forward": cuda_ms(lambda: critic(fine), iters=10, warmup=1)}
+    parts["critic_update_with_gp"] = cuda_ms(critic_update, iters=5, warmup=1)
+    parts["generator_update"] = cuda_ms(generator_update, iters=3, warmup=1)
+    # For information: the same two updates with cuDNN choosing its
+    # algorithms by timing them (the port leaves the heuristics in charge).
+    torch.backends.cudnn.benchmark = True
+    try:
+        parts_autotuned = {"critic_update_with_gp": cuda_ms(critic_update, iters=5, warmup=2),
+                           "generator_update": cuda_ms(generator_update, iters=3, warmup=2)}
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+    # One 5-step round (steps 25-29) under the profiler.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for s in range(5):
+            step_fn(state, *ds.gather(rows[s]))
+        torch.cuda.synchronize()
+    classes, kernels = {}, []
+    for evt in prof.key_averages():
+        # Kernels only: a span on the card's timeline that torch annotates
+        # (``Optimizer.step#Adam.step``) would count its kernels twice.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
+        if us > 0:
+            cls = train_kernel_class(evt.key)
+            entry = classes.setdefault(cls, {"device_ms_per_round": 0.0, "launches_per_round": 0})
+            entry["device_ms_per_round"] += us / 1e3
+            entry["launches_per_round"] += evt.count
+            kernels.append({"kernel": evt.key[:120], "class": cls, "device_ms_per_round": us / 1e3,
+                            "launches_per_round": evt.count})
+    kernels.sort(key=lambda k: -k["device_ms_per_round"])
+    emit("training", command="cli train --config examples/florida.json --synthetic --samples 1440 "
+         "--epochs 2", batch=B_TRAIN, epochs=history, wall_s_including_data=wall_s,
+         step0_critic_loss=c0, generator_forwards=forwards, drb_launches=launches,
+         drb_launches_per_forward=48, peak_memory_bytes=peak_bytes,
+         ms_per_update_step=float(np.mean(update_ms)), ms_per_critic_only_step=float(np.mean(critic_ms)),
+         update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
+         steps_per_s_events=5e3 / round_ms, patches_per_s_events=B_TRAIN * 5e3 / round_ms,
+         steps_per_s_epoch1=10 / history[1]["seconds"],
+         patches_per_s_epoch1=B_TRAIN * 10 / history[1]["seconds"],
+         parts_ms=parts, parts_ms_cudnn_benchmark_information=parts_autotuned, profile_round={
+             "steps": 5, "by_kernel_class": classes or "device time not measured: the profiler "
+             "recorded no device events", "kernels": kernels[:15]})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -421,22 +827,31 @@ def main() -> int:
     peaks = card_peaks(name)
     phase_build()
     rng = torch.Generator().manual_seed(1234)
-    kernel_err, timing, band = phase_kernel(rng, peaks)
+    kernel_err, timing, band, timing_b128 = phase_kernel(rng, peaks)
     config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     gen = phase_generator(config, rng)
     phase_profile(config, gen, rng)
-    launches = phase_serving(config, gen, rng)
-    check(launches > 0, "the main path launched no DRB kernel")
+    serving_launches = phase_serving(config, gen, rng)
+    check(serving_launches > 0, "the serving path launched no DRB kernel")
+    backward_ms = phase_drb_grad(rng, peaks, timing_b128)
+    phase_train_parity(config)
+    training_launches = phase_training()
+    check(training_launches > 0, "the training path launched no DRB kernel")
     print(json.dumps({"kernels": [{
         "name": "drb_forward", "route": "cuda", "impl": "cuda",
         "source": "downgan_tpu_torch/ops/cuda/drb.cu",
         "replaces": "downgan_tpu/ops/pallas/drb.py:120",
-        "launches": launches, "max_abs_err": kernel_err,
+        "launches": serving_launches + training_launches,
+        "launches_by_path": {"serving": serving_launches, "training": training_launches},
+        "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
         "tf32_floor_ms": timing["tf32_floor_ms"], "shape": timing["shape"],
         "band": {k: band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "tf32_floor_ms",
                                       "library_ms")},
+        "ms_b128": timing_b128["ms"], "bound_ms_b128": timing_b128["bound_ms"],
+        "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms,
+        "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
         "card": smi}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,9 @@ padding and depth-to-space helpers become stock modules:
 * pixel shuffle is ``nn.PixelShuffle(2)``, whose channel order the JAX
   ``pixel_shuffle`` reproduces in NHWC;
 * initialisation is torch's default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-  weight and bias, drawn here from an explicit ``torch.Generator``.
+  weight and bias of every conv and dense layer (the JAX package's
+  ``torch_conv_kernel_init`` and ``torch_dense_kernel_init``), drawn here
+  from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 GEN_SLOPE = 0.01  # torch nn.LeakyReLU() default, used throughout the generator
+CRITIC_SLOPE = 0.2
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
@@ -27,11 +30,12 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
 
 @torch.no_grad()
 def init_torch_default_(module: nn.Module, rng: torch.Generator) -> None:
-    """Redraw every Conv2d's weight and bias from U(+-1/sqrt(fan_in)) — the
-    distribution of torch's default init — using ``rng``, on the CPU, so a
-    seed gives the same weights whatever the device."""
+    """Redraw every Conv2d's and Linear's weight and bias from
+    U(+-1/sqrt(fan_in)) — the distribution of torch's default init — using
+    ``rng``, on the CPU, so a seed gives the same weights whatever the
+    device."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             for p in (m.weight, m.bias):
                 if p is not None:

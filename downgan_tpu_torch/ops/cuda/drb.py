@@ -17,6 +17,12 @@ Here:
 * :func:`drb_forward_reference` is the plain twin: the same function as
   the kernel (nine shifted channel products per stage) in fp32 PyTorch.
   Tests, CPU runs and ``chip_smoke.py`` hold the kernel against it;
+* :class:`DRBFunction` is the DRB under autograd on the card: its forward
+  is the kernel; its backward (:func:`drb_backward`) recomputes the block
+  from the saved input with :func:`cudnn_chain` (five ``F.conv2d``, cuDNN
+  on the card) and differentiates that. It is first order only. The JAX
+  package's DRB has no backward kernel either: its gradients are XLA
+  convolutions, whose counterpart here is cuDNN;
 * :func:`load_library` compiles ``drb.cu`` with ``nvcc`` for ``sm_90a``
   into ``build/torch_ext/`` at the repository root (once per source
   content) and loads it with ctypes. A failed build raises.
@@ -34,6 +40,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 SLOPE = 0.01  # torch nn.LeakyReLU() default, as in the generator
 RES_SCALE = 0.2
@@ -161,6 +168,60 @@ def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
             return acc * RES_SCALE + x
 
 
+def cudnn_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The same DRB as five convolutions and concats (``F.conv2d``: cuDNN
+    on the card). :func:`drb_backward` differentiates it, and
+    ``chip_smoke.py`` times it as the library yardstick: no single PyTorch
+    call computes a DRB."""
+    acts = x
+    for s in range(5):
+        y = F.conv2d(acts, weights[s], biases[s], padding=1)
+        if s < 4:
+            acts = torch.cat([acts, F.leaky_relu(y, SLOPE)], 1)
+    return y * RES_SCALE + x
+
+
+def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                 biases: Sequence[torch.Tensor], grad_out: torch.Tensor,
+                 needs: Sequence[bool] | None = None) -> list:
+    """Gradients of a DRB's output, weighted by ``grad_out``, with respect
+    to x, the five weights and the five biases (in that order; ``None``
+    where ``needs`` says no): the block is recomputed from x with
+    :func:`cudnn_chain` and differentiated by autograd."""
+    inputs = [x, *weights, *biases]
+    needs = [True] * len(inputs) if needs is None else list(needs)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = cudnn_chain(leaves[0], leaves[1:6], leaves[6:])
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return [next(grads) if n else None for n in needs]
+
+
+class DRBFunction(torch.autograd.Function):
+    """The DRB under autograd on the card: ``apply(x, packed, w1..w5,
+    b1..b5)``. The forward launches the kernel (counted in
+    ``drb_forward.launches``) and saves only x and the ten parameters; the
+    backward is :func:`drb_backward`, a cuDNN recompute, not a kernel.
+    First order only: the gradient penalty differentiates the critic alone
+    and the critic's fake is made without a graph, so no double backward
+    of the DRB is ever taken, and one raises."""
+
+    @staticmethod
+    def forward(ctx, x, packed, *params):
+        ctx.save_for_backward(x, *params)
+        return drb_forward(x, params[:5], params[5:], packed)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x, *params = ctx.saved_tensors
+        needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:]]
+        grads = drb_backward(x, params[:5], params[5:], grad_out, needs)
+        return grads[0], None, *grads[1:]
+
+
 def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 biases: Sequence[torch.Tensor],
                 packed: torch.Tensor | None = None) -> torch.Tensor:
@@ -168,8 +229,9 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
     CPU tensor: the plain twin. CUDA tensor: the ``drb.cu`` kernel, with
     ``packed`` from :func:`pack_drb_weights` (packed here when omitted);
-    ``drb_forward.launches`` counts its launches. The kernel is forward
-    only, so a call that autograd would have to differentiate raises.
+    ``drb_forward.launches`` counts its launches. A call that autograd
+    would have to differentiate raises: the route to a gradient on the card
+    is :class:`DRBFunction`.
     """
     if x.device.type == "cpu":
         return drb_forward_reference(x, weights, biases)
@@ -178,8 +240,8 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if torch.is_grad_enabled() and (
             x.requires_grad or any(t.requires_grad for t in (*weights, *biases))):
         raise RuntimeError(
-            "the DRB kernel is forward only: call it under torch.inference_mode() "
-            "or torch.no_grad() (its backward comes with the training slice)")
+            "drb_forward is forward only: call it under torch.inference_mode() or "
+            "torch.no_grad(), or take gradients through DRBFunction")
     if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(
             f"drb_forward takes contiguous (B, F, H, W) float32, got "

@@ -1,11 +1,12 @@
-"""Weight mapping into the port (counterpart of the generator half of
-``downgan_tpu/utils/port_weights.py``).
+"""Weight mapping into the port (counterpart of the ``export_generator``
+and ``export_critic`` half of ``downgan_tpu/utils/port_weights.py``).
 
-The port's generator uses the reference state-dict keys, which are also
+The port's networks use the reference state-dict keys, which are also
 what the JAX package's ``export-torch`` writes:
 ``conv1.*``, ``res_blocks.{i}.dense_blocks.{j}.b{k}.0.*``, ``conv2.*``,
-``upsampling.{0,3,6}.*``, ``conv3.{0,2}.*``. Flax conv kernels are HWIO;
-torch's are OIHW.
+``upsampling.{0,3,6}.*``, ``conv3.{0,2}.*`` for the generator;
+``features.{0,2,...,14}.*`` (bias only at 0) and ``classifier.{0,2}.*``
+for the critic. Flax conv kernels are HWIO; torch's are OIHW.
 """
 from __future__ import annotations
 
@@ -43,6 +44,37 @@ def generator_state_dict_from_flax(params: Mapping, num_res_blocks: int = 16,
         sd.update(conv_from_flax(p[f"up{u}"]["Conv_0"], f"upsampling.{3 * u}"))
     sd.update(conv_from_flax(p["head1"]["Conv_0"], "conv3.0"))
     sd.update(conv_from_flax(p["head2"]["Conv_0"], "conv3.2"))
+    return sd
+
+
+def _nchw_to_nhwc_flat_perm(c: int, h: int, w: int) -> np.ndarray:
+    """Permutation p with flax_flat[i] = torch_flat[p[i]]: index by
+    (h, w, c) NHWC order into the torch (c, h, w) flat layout (the JAX
+    package's helper of the same name)."""
+    idx = np.arange(c * h * w).reshape(c, h, w)
+    return np.transpose(idx, (1, 2, 0)).reshape(-1)
+
+
+def critic_state_dict_from_flax(params: Mapping, base: int = 16,
+                                fine_size: int = 128) -> Dict[str, torch.Tensor]:
+    """Flax ``Critic`` variables (as numpy arrays) -> the port's state dict;
+    the same mapping as the JAX package's ``export_critic``. The flax fc1
+    kernel's rows follow its NHWC flatten; torch flattens NCHW, so they are
+    put back in torch order before the (in, out) -> (out, in) transpose."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(8):
+        sd.update(conv_from_flax(p[f"conv{i}"]["Conv_0"], f"features.{2 * i}"))
+    spatial = fine_size // 16
+    perm = _nchw_to_nhwc_flat_perm(8 * base, spatial, spatial)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    for name, leaf, rows in (("classifier.0", p["fc1"], inv), ("classifier.2", p["fc2"], None)):
+        kernel = np.asarray(leaf["kernel"], np.float32)
+        if rows is not None:
+            kernel = kernel[rows]
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
     return sd
 
 

@@ -1,7 +1,9 @@
 """The port's DenseResidualBlock: its plain twin against the JAX package's
 DRB (the XLA reference formulation, the Pallas kernel in interpret mode, and
-the flax module) on the same weights and inputs; its weight packing; and,
-on a CUDA card only, the CUDA kernel against the twin.
+the flax module) on the same weights and inputs; its weight packing; its
+gradients (``DRBFunction``'s recompute backward, the packed-weight cache
+after an Adam step); and, on a CUDA card only, the CUDA kernel and
+``DRBFunction`` against the twin.
 
 The JAX side is imported inside a fixture, so the CUDA legs also run where
 JAX is absent: ``python -m pytest tests/test_torch_drb.py -m cuda --noconftest``.
@@ -13,15 +15,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from downgan_tpu_torch.config.config import Config  # noqa: E402
+from downgan_tpu_torch.models.generator import DenseResidualBlock  # noqa: E402
 from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     SLOPE,
     RES_SCALE,
+    DRBFunction,
+    drb_backward,
     drb_forward,
     drb_forward_reference,
     pack_drb_weights,
     packed_size,
     tf32_split,
 )
+from downgan_tpu_torch.training.state import make_optimizer  # noqa: E402
 
 ATOL = 1e-5  # fp32 on both sides; sums of at most 720 products in another order
 CASES = [(f, b, h, w) for f in (8, 16) for b in (1, 3, 4) for (h, w) in ((16, 16), (12, 20))]
@@ -232,6 +239,95 @@ def test_tf32_round_ties_away_from_zero():
     assert ((hi.double() + lo.double() - u.double()).abs() <= 2.0 ** -22 * u.double().abs()).all()
 
 
+def init_scale_block(f, seed, device="cpu", requires_grad=True):
+    """Random DRB weights at the generator's init scale."""
+    ws, bs = random_block(f, seed=seed)
+    ws = [(t / (9 * t.shape[1]) ** 0.5).to(device).requires_grad_(requires_grad) for t in ws]
+    bs = [t.to(device).requires_grad_(requires_grad) for t in bs]
+    return ws, bs
+
+
+def twin_grads(x, ws, bs, weight):
+    """Gradients of sum(weight * DRB(x)) by autograd through the twin."""
+    leaves = [t.detach().requires_grad_() for t in (x, *ws, *bs)]
+    out = drb_forward_reference(leaves[0], leaves[1:6], leaves[6:])
+    return torch.autograd.grad((out * weight).sum(), leaves)
+
+
+def test_module_gradients_on_cpu_are_autograd_through_the_twin():
+    block = DenseResidualBlock(8)
+    ws, bs = block.stage_params()
+    rng = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 8, 12, 20, generator=rng, requires_grad=True)
+    weight = torch.randn(2, 8, 12, 20, generator=rng)
+    got = torch.autograd.grad((block(x) * weight).sum(), [x, *ws, *bs])
+    for g, w in zip(got, twin_grads(x, ws, bs, weight)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f", [8, 16])
+def test_drb_function_recompute_backward_on_cpu_matches_the_twin(f):
+    """DRBFunction on CPU tensors: the forward is the twin, the backward the
+    F.conv2d recompute it runs on the card. Same gradients, fp32 sums in
+    another order (1e-5, as the forward)."""
+    ws, bs = init_scale_block(f, seed=12)
+    rng = torch.Generator().manual_seed(13)
+    x = torch.randn(3, f, 16, 16, generator=rng, requires_grad=True)
+    weight = torch.randn(3, f, 16, 16, generator=rng)
+    before = drb_forward.launches
+    out = DRBFunction.apply(x, pack_drb_weights(ws, bs), *ws, *bs)
+    torch.testing.assert_close(out, drb_forward_reference(x, ws, bs), rtol=0, atol=0)
+    got = torch.autograd.grad((out * weight).sum(), [x, *ws, *bs])
+    assert drb_forward.launches == before
+    for g, w in zip(got, twin_grads(x, ws, bs, weight)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=ATOL)
+
+
+def test_drb_backward_computes_only_what_is_needed():
+    ws, bs = init_scale_block(8, seed=14, requires_grad=False)
+    x = torch.randn(1, 8, 16, 16, generator=torch.Generator().manual_seed(15))
+    grads = drb_backward(x, ws, bs, torch.ones_like(x), needs=[False] + [True] * 5 + [False] * 5)
+    assert grads[0] is None and all(g is None for g in grads[6:])
+    want = twin_grads(x, ws, bs, torch.ones_like(x))
+    for g, w in zip(grads[1:6], want[1:6]):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=ATOL)
+
+
+def test_drb_function_refuses_a_double_backward():
+    ws, bs = init_scale_block(8, seed=16)
+    x = torch.randn(1, 8, 16, 16, generator=torch.Generator().manual_seed(17), requires_grad=True)
+    out = DRBFunction.apply(x, pack_drb_weights(ws, bs), *ws, *bs)
+    (gx,) = torch.autograd.grad(out.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gx.sum().backward()
+
+
+@pytest.mark.parametrize("impl", [dict(foreach=False), dict(foreach=True), None],
+                         ids=["single_tensor", "foreach", "make_optimizer"])
+def test_packed_weights_refresh_after_adam_step(impl):
+    """Adam updates in place. The single-tensor and foreach implementations
+    (torch's default on the card) bump the parameters' versions, so the
+    next forward repacks the new weights; ``make_optimizer`` never picks
+    the fused one, which writes without bumping them."""
+    block = DenseResidualBlock(8)
+    ws, bs = block.stage_params()
+    old = block._packed_weights(ws, bs).clone()
+    old_key = block._packed_key
+    if impl is None:
+        opt = make_optimizer(Config(), block)
+        assert not opt.defaults["fused"]
+    else:
+        opt = torch.optim.Adam(block.parameters(), lr=2.5e-4, betas=(0.9, 0.99), eps=1e-8,
+                               **impl)
+    x = torch.randn(2, 8, 16, 16, generator=torch.Generator().manual_seed(18))
+    block(x).square().sum().backward()
+    opt.step()
+    new = block._packed_weights(ws, bs)
+    assert block._packed_key != old_key
+    assert not torch.equal(new, old)
+    torch.testing.assert_close(new, pack_drb_weights(ws, bs), rtol=0, atol=0)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -275,7 +371,45 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     ws, bs = random_block(8)
     ws = [t.to(cuda_device).requires_grad_() for t in ws]
     bs = [t.to(cuda_device) for t in bs]
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="forward only.*DRBFunction"):
         drb_forward(torch.zeros(1, 8, 4, 4, device=cuda_device), ws, bs)
     with torch.inference_mode(), pytest.raises(ValueError, match="contiguous"):
         drb_forward(torch.zeros(1, 4, 4, 8, device=cuda_device).permute(0, 3, 1, 2), ws, bs)
+
+
+@pytest.mark.cuda
+def test_cuda_drb_function_gradients_match_the_twin_at_b128(cuda_device):
+    """Forward from the kernel, backward from the cuDNN recompute, against
+    autograd through the twin. The backward never reads the kernel's
+    output; weight gradients sum 32,768 pixel terms, about sqrt(32768/720)
+    ~ 7x the forward's longest sum, so 1e-4 of each gradient's largest
+    entry."""
+    ws, bs = init_scale_block(16, seed=19, device=cuda_device)
+    rng = torch.Generator().manual_seed(20)
+    x = torch.randn(128, 16, 16, 16, generator=rng).to(cuda_device).requires_grad_()
+    weight = torch.randn(128, 16, 16, 16, generator=rng).to(cuda_device)
+    before = drb_forward.launches
+    out = DRBFunction.apply(x, pack_drb_weights(ws, bs), *ws, *bs)
+    got = torch.autograd.grad((out * weight).sum(), [x, *ws, *bs])
+    torch.cuda.synchronize()
+    assert drb_forward.launches == before + 1
+    for g, w in zip(got, twin_grads(x, ws, bs, weight)):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_block_runs_new_weights_after_adam_step(cuda_device):
+    """The trap of an in-place update: after Adam's step on the card the
+    kernel path must run the new weights, as the twin does."""
+    block = DenseResidualBlock(16).to(cuda_device)
+    opt = torch.optim.Adam(block.parameters(), lr=2.5e-4, betas=(0.9, 0.99), eps=1e-8)
+    x = torch.randn(4, 16, 16, 16, generator=torch.Generator().manual_seed(21)).to(cuda_device)
+    before = drb_forward.launches
+    block(x.requires_grad_()).square().sum().backward()
+    opt.step()
+    with torch.no_grad():
+        got = block(x)
+        want = drb_forward_reference(x, *block.stage_params())
+    torch.cuda.synchronize()
+    assert drb_forward.launches == before + 2
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
