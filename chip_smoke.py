@@ -46,8 +46,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                --synthetic --samples 1440 --epochs 2`` in-process at florida
                batch 128, its epoch means, 48 DRB launches in each of its
                generator forwards (counted by kind), step times with CUDA
-               events, peak memory, the step's parts timed alone (and, for
-               information, with cuDNN's autotuner on), and a
+               events, peak memory, the step's parts timed alone, and a
                ``torch.profiler`` split of one 5-step round by kernel class.
 
 Then it prints ``{"kernels": [...]}`` and, last,
@@ -738,7 +737,7 @@ def phase_training():
         end.record()
         torch.cuda.synchronize()
         (update_ms if is_update else critic_ms).append(start.elapsed_time(end))
-    round_ms = np.mean(update_ms) + 4 * np.mean(critic_ms)
+    round_ms = sum(update_ms + critic_ms)
 
     # The step's parts, each timed alone on the same modules and batch.
     from downgan_tpu_torch.ops.msssim import msssim_metric
@@ -769,20 +768,21 @@ def phase_training():
                  "critic_forward": cuda_ms(lambda: critic(fine), iters=10, warmup=1)}
     parts["critic_update_with_gp"] = cuda_ms(critic_update, iters=5, warmup=1)
     parts["generator_update"] = cuda_ms(generator_update, iters=3, warmup=1)
-    # For information: the same two updates with cuDNN choosing its
-    # algorithms by timing them (the port leaves the heuristics in charge).
-    torch.backends.cudnn.benchmark = True
-    try:
-        parts_autotuned = {"critic_update_with_gp": cuda_ms(critic_update, iters=5, warmup=2),
-                           "generator_update": cuda_ms(generator_update, iters=3, warmup=2)}
-    finally:
-        torch.backends.cudnn.benchmark = False
 
     # One 5-step round (steps 25-29) under the profiler.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for s in range(5):
             step_fn(state, *ds.gather(rows[s]))
         torch.cuda.synchronize()
+    # The convolution calls by input shapes (input, weight, ...), with the
+    # device time of the kernels each launched.
+    convs = [{"op": evt.key, "input_shapes": str(evt.input_shapes)[:160],
+              "device_ms_per_round": evt.device_time_total / 1e3, "calls_per_round": evt.count}
+             for evt in prof.key_averages(group_by_input_shape=True)
+             if evt.key in ("aten::cudnn_convolution", "aten::convolution_backward")
+             and evt.device_time_total > 0]
+    convs.sort(key=lambda c: -c["device_ms_per_round"])
     classes, kernels = {}, []
     for evt in prof.key_averages():
         # Kernels only: a span on the card's timeline that torch annotates
@@ -809,9 +809,9 @@ def phase_training():
          steps_per_s_events=5e3 / round_ms, patches_per_s_events=B_TRAIN * 5e3 / round_ms,
          steps_per_s_epoch1=10 / history[1]["seconds"],
          patches_per_s_epoch1=B_TRAIN * 10 / history[1]["seconds"],
-         parts_ms=parts, parts_ms_cudnn_benchmark_information=parts_autotuned, profile_round={
+         parts_ms=parts, profile_round={
              "steps": 5, "by_kernel_class": classes or "device time not measured: the profiler "
-             "recorded no device events", "kernels": kernels[:15]})
+             "recorded no device events", "kernels": kernels[:15], "convolutions": convs[:8]})
     return launches
 
 

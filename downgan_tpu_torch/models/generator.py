@@ -10,9 +10,9 @@ Attribute names reproduce the reference state-dict keys (``conv1``,
 ``conv3.{0,2}``), so a file written by the JAX package's ``export-torch``
 loads with ``strict=True``.
 
-Every DenseResidualBlock runs through ``ops/cuda/drb.py``: on a CUDA tensor
-the CUDA kernel (``drb_forward``, or ``DRBFunction`` when autograd needs a
-gradient, whose backward is a cuDNN recompute), on a CPU tensor its plain
+Every DenseResidualBlock runs through ``ops/cuda/drb.py::drb``: on a CUDA
+tensor the CUDA kernel (through ``DRBFunction``, whose backward is a cuDNN
+recompute, when autograd needs a gradient), on a CPU tensor its plain
 twin, under autograd or not.
 """
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from downgan_tpu_torch.models.layers import GEN_SLOPE, conv3x3
-from downgan_tpu_torch.ops.cuda.drb import DRBFunction, drb_forward, pack_drb_weights
+from downgan_tpu_torch.ops.cuda.drb import drb, pack_drb_weights
 
 
 class DenseResidualBlock(nn.Module):
@@ -46,7 +46,7 @@ class DenseResidualBlock(nn.Module):
         # Pack once per weight set: repack only when a parameter moved or
         # was written in place (load_state_dict and torch's single-tensor and
         # foreach Adam bump the version; its fused Adam does not, and
-        # training.state.make_optimizer never picks it).
+        # training.state.make_optimizer takes foreach).
         key = tuple((t.device, t.data_ptr(), t._version) for t in (*weights, *biases))
         if key != self._packed_key:
             self._packed = pack_drb_weights(weights, biases)
@@ -55,11 +55,7 @@ class DenseResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights, biases = self.stage_params()
-        packed = self._packed_weights(weights, biases)
-        if x.device.type == "cuda" and torch.is_grad_enabled() and (
-                x.requires_grad or any(t.requires_grad for t in (*weights, *biases))):
-            return DRBFunction.apply(x, packed, *weights, *biases)
-        return drb_forward(x, weights, biases, packed)
+        return drb(x, weights, biases, self._packed_weights(weights, biases))
 
 
 class RRDB(nn.Module):

@@ -23,6 +23,9 @@ Here:
   on the card) and differentiates that. It is first order only. The JAX
   package's DRB has no backward kernel either: its gradients are XLA
   convolutions, whose counterpart here is cuDNN;
+* :func:`drb` is what the generator's blocks call: ``DRBFunction`` when
+  autograd needs a gradient through a CUDA tensor, ``drb_forward``
+  otherwise;
 * :func:`load_library` compiles ``drb.cu`` with ``nvcc`` for ``sm_90a``
   into ``build/torch_ext/`` at the repository root (once per source
   content) and loads it with ctypes. A failed build raises.
@@ -199,6 +202,22 @@ def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return [next(grads) if n else None for n in needs]
 
 
+def _needs_grad(x, weights, biases) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in (*weights, *biases)))
+
+
+def drb(x: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+        packed: torch.Tensor) -> torch.Tensor:
+    """A DRB on (B, F, H, W) wherever it runs: :class:`DRBFunction` when
+    autograd needs a gradient through a CUDA tensor, :func:`drb_forward`
+    otherwise (the kernel, or the plain twin on a CPU tensor, where autograd
+    differentiates the twin itself)."""
+    if x.device.type == "cuda" and _needs_grad(x, weights, biases):
+        return DRBFunction.apply(x, packed, *weights, *biases)
+    return drb_forward(x, weights, biases, packed)
+
+
 class DRBFunction(torch.autograd.Function):
     """The DRB under autograd on the card: ``apply(x, packed, w1..w5,
     b1..b5)``. The forward launches the kernel (counted in
@@ -237,8 +256,7 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
         return drb_forward_reference(x, weights, biases)
     if x.device.type != "cuda":
         raise ValueError(f"drb_forward runs on cpu or cuda tensors, not {x.device}")
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(t.requires_grad for t in (*weights, *biases))):
+    if _needs_grad(x, weights, biases):
         raise RuntimeError(
             "drb_forward is forward only: call it under torch.inference_mode() or "
             "torch.no_grad(), or take gradients through DRBFunction")

@@ -19,11 +19,15 @@ import torch
 import torch.nn.functional as F
 
 MS_SSIM_WEIGHTS: Tuple[float, ...] = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+WIN_SIZE, WIN_SIGMA = 7, 1.5
+# (K1 * data_range)^2 and (K2 * data_range)^2 with K = (0.01, 0.03) and
+# data_range 1: the fields are min-max normalized to [0, 1] first.
+C1, C2 = 0.01 ** 2, 0.03 ** 2
 
 
-def _gaussian_kernel(win_size: int, sigma: float, device) -> torch.Tensor:
-    coords = torch.arange(win_size, dtype=torch.float32, device=device) - win_size // 2
-    g = torch.exp(-(coords ** 2) / (2.0 * sigma ** 2))
+def _gaussian_kernel(device) -> torch.Tensor:
+    coords = torch.arange(WIN_SIZE, dtype=torch.float32, device=device) - WIN_SIZE // 2
+    g = torch.exp(-(coords ** 2) / (2.0 * WIN_SIGMA ** 2))
     return g / g.sum()
 
 
@@ -34,19 +38,16 @@ def _blur(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, win.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
 
 
-def _ssim_per_channel(x: torch.Tensor, y: torch.Tensor, win: torch.Tensor,
-                      data_range: float, k1: float = 0.01,
-                      k2: float = 0.03) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ssim_per_channel(x: torch.Tensor, y: torch.Tensor,
+                      win: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ssim, cs), each (B, C)."""
-    c1 = (k1 * data_range) ** 2
-    c2 = (k2 * data_range) ** 2
     mu_x, mu_y = _blur(x, win), _blur(y, win)
     mu_xx, mu_yy, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
     sigma_xx = _blur(x * x, win) - mu_xx
     sigma_yy = _blur(y * y, win) - mu_yy
     sigma_xy = _blur(x * y, win) - mu_xy
-    cs_map = (2.0 * sigma_xy + c2) / (sigma_xx + sigma_yy + c2)
-    ssim_map = ((2.0 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs_map
+    cs_map = (2.0 * sigma_xy + C2) / (sigma_xx + sigma_yy + C2)
+    ssim_map = ((2.0 * mu_xy + C1) / (mu_xx + mu_yy + C1)) * cs_map
     return ssim_map.mean(dim=(2, 3)), cs_map.mean(dim=(2, 3))
 
 
@@ -57,20 +58,19 @@ def _downsample(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, kernel_size=2, stride=2)
 
 
-def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
-            win_size: int = 7, win_sigma: float = 1.5,
-            weights: Tuple[float, ...] = MS_SSIM_WEIGHTS) -> torch.Tensor:
-    """Multi-scale SSIM of two (B, C, H, W) fields; the smallest scale must
-    be wider than the window, as in pytorch_msssim."""
+def ms_ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Multi-scale SSIM of two (B, C, H, W) fields in [0, 1]; the smallest
+    scale must be wider than the window, as in pytorch_msssim."""
     x, y = x.float(), y.float()
-    levels = len(weights)
-    if (min(x.shape[2], x.shape[3]) >> (levels - 1)) <= win_size:
-        raise ValueError("image too small for MS-SSIM levels; reduce win_size or levels")
-    win = _gaussian_kernel(win_size, win_sigma, x.device)
-    w = torch.tensor(weights, dtype=torch.float32, device=x.device)
+    levels = len(MS_SSIM_WEIGHTS)
+    if (min(x.shape[2], x.shape[3]) >> (levels - 1)) <= WIN_SIZE:
+        raise ValueError(f"{tuple(x.shape[2:])} is too small for {levels} MS-SSIM levels "
+                         f"with a window of {WIN_SIZE}")
+    win = _gaussian_kernel(x.device)
+    w = torch.tensor(MS_SSIM_WEIGHTS, dtype=torch.float32, device=x.device)
     mcs = []
     for i in range(levels):
-        ssim_val, cs = _ssim_per_channel(x, y, win, data_range)
+        ssim_val, cs = _ssim_per_channel(x, y, win)
         if i < levels - 1:
             mcs.append(torch.relu(cs))
             x, y = _downsample(x), _downsample(y)
@@ -89,5 +89,4 @@ def minmax_normalize_per_channel(x: torch.Tensor) -> torch.Tensor:
 def msssim_metric(hr: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
     """The reference's MSSSIM metric: min-max normalize both fields, then
     MS-SSIM with win_size=7, data_range=1."""
-    return ms_ssim(minmax_normalize_per_channel(hr), minmax_normalize_per_channel(fake),
-                   data_range=1.0, win_size=7)
+    return ms_ssim(minmax_normalize_per_channel(hr), minmax_normalize_per_channel(fake))

@@ -123,14 +123,15 @@ def make_optimizer(config: Config, module: torch.nn.Module) -> torch.optim.Adam:
     ``lr * m / (1 - b1^t) / (sqrt(v) / sqrt(1 - b2^t) + eps)`` in torch is
     ``lr * m_hat / (sqrt(v_hat) + eps)`` in optax.
 
-    Never the fused implementation: it writes the parameters without
+    The foreach implementation, on every device: one launch per update
+    over all tensors. Never the fused one: it writes the parameters without
     bumping their version counters, which the generator's DRB blocks read
-    to know when to repack their weights for the kernel. The single-tensor
-    and foreach ones (torch's default on the card) bump them."""
+    to know when to repack their weights for the kernel. (Pinning only
+    ``fused=False`` would fall back to the single-tensor loop.)"""
     check_training_ported(config)
     hp = config.hp
     return torch.optim.Adam(module.parameters(), lr=hp.lr, betas=(hp.beta1, hp.beta2), eps=1e-8,
-                            fused=False)
+                            foreach=True, fused=False)
 
 
 @dataclass

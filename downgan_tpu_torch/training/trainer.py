@@ -65,8 +65,8 @@ def full_split_metric_pass(ds: DeviceDataset, batch_size: int,
 class Trainer:
     """WGAN-GP trainer over device-resident train and test sets.
 
-    ``train(epochs)`` returns, and with ``verbose`` prints as one JSON line
-    each, the per-epoch records ``{"epoch", "steps", "seconds", "train",
+    ``train(epochs)`` returns, and prints as one JSON line each, the
+    per-epoch records ``{"epoch", "steps", "seconds", "train",
     "test"}`` (``test`` is absent without a test set); ``history`` keeps
     every epoch's record. ``seconds`` is the train part of the epoch, to
     its host sync. ``forwards`` counts the generator forwards by kind: the
@@ -74,8 +74,7 @@ class Trainer:
     pass's ``test``."""
 
     def __init__(self, config: Config, train: DeviceDataset,
-                 test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda",
-                 verbose: bool = True):
+                 test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda"):
         self.config = config
         self.state = make_train_state(config, device)
         self.device = next(self.state.generator.parameters()).device
@@ -86,7 +85,6 @@ class Trainer:
             raise ValueError(f"{len(train)} training samples make no batch of "
                              f"{config.hp.batch_size}")
         self.train_ds, self.test_ds = train, test
-        self.verbose = verbose
         self.epoch = 0
         self.history: List[dict] = []
         self.step_fn = build_train_step(config, self.state.generator, self.state.critic)
@@ -139,8 +137,7 @@ class Trainer:
                     f"non-finite training metrics at epoch {self.epoch}: {bad}")
             if self.test_ds is not None and len(self.test_ds) > 0:
                 record["test"] = self.run_test_pass()
-            if self.verbose:
-                print(json.dumps(record), flush=True)
+            print(json.dumps(record), flush=True)
             self.history.append(record)
             self.epoch += 1
         return self.history[first:]

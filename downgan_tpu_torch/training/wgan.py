@@ -75,11 +75,6 @@ def g_updates_in_window(start_step: int, n_steps: int, critic_iterations: int) -
     return max(0, (last - first) // n + 1)
 
 
-def _critic_means(critic: nn.Module, real: torch.Tensor,
-                  fake: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    return critic(real).mean(), critic(fake).mean()
-
-
 def build_eval_metrics(config: Config) -> Callable[[nn.Module, nn.Module, torch.Tensor,
                                                      torch.Tensor], Metrics]:
     """Test-set metric pass for one batch, ``eval_metrics(gen, critic,
@@ -94,25 +89,23 @@ def build_eval_metrics(config: Config) -> Callable[[nn.Module, nn.Module, torch.
         fake = gen(coarse)
         out = {name: fn(fine, fake) for name, fn in fns.items()}
         if "Wass" in names:
-            out["Wass"] = wass_loss(*_critic_means(critic, fine, fake))
+            out["Wass"] = wass_loss(critic(fine).mean(), critic(fake).mean())
         return out
 
     return eval_metrics
 
 
-def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
-                     with_metrics: bool = True,
-                     alpha_rng: Optional[torch.Generator] = None,
-                     ) -> Callable[..., Metrics]:
+def build_train_step(config: Config, gen: nn.Module,
+                     critic: nn.Module) -> Callable[..., Metrics]:
     """The train step over ``gen`` and ``critic``:
     ``step(state, coarse, fine, alpha=None) -> metrics``, where ``state``
     is the :class:`GANTrainState` holding these two modules; it updates
     both networks and ``state.step`` in place.
 
-    ``alpha`` (B, 1, 1, 1) is drawn from ``alpha_rng`` when omitted
-    (default: a generator on the batch's device seeded with
-    ``config.seed``). ``step.forwards`` counts the generator forwards it
-    runs, by kind: ``critic_fake``, ``update`` and ``metric``.
+    ``alpha`` (B, 1, 1, 1) is drawn, when omitted, from a generator on the
+    batch's device seeded with ``config.seed``. ``step.forwards`` counts
+    the generator forwards it runs, by kind: ``critic_fake``, ``update``
+    and ``metric``.
     """
     check_training_ported(config)
     hp = config.hp
@@ -120,6 +113,7 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
     g_params = [p for p in gen.parameters()]
     c_params = [p for p in critic.parameters()]
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
+    alpha_rng = None
 
     def step(state: GANTrainState, coarse: torch.Tensor, fine: torch.Tensor,
              alpha: Optional[torch.Tensor] = None) -> Metrics:
@@ -155,11 +149,10 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
 
         metrics = {"critic_loss": c_loss.detach(), "gen_loss": g_loss,
                    "Wass": wass_loss(c_real, c_fake).detach()}
-        if with_metrics:
-            # A fresh fake from the post-update generator, scored by the
-            # post-update critic (reference mlflow_epoch.py:53-63).
-            metrics.update(eval_metrics(gen, critic, coarse, fine))
-            forwards["metric"] += 1
+        # A fresh fake from the post-update generator, scored by the
+        # post-update critic (reference mlflow_epoch.py:53-63).
+        metrics.update(eval_metrics(gen, critic, coarse, fine))
+        forwards["metric"] += 1
         return metrics
 
     step.forwards = forwards

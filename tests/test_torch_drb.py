@@ -306,16 +306,16 @@ def test_drb_function_refuses_a_double_backward():
                          ids=["single_tensor", "foreach", "make_optimizer"])
 def test_packed_weights_refresh_after_adam_step(impl):
     """Adam updates in place. The single-tensor and foreach implementations
-    (torch's default on the card) bump the parameters' versions, so the
-    next forward repacks the new weights; ``make_optimizer`` never picks
-    the fused one, which writes without bumping them."""
+    bump the parameters' versions, so the next forward repacks the new
+    weights; ``make_optimizer`` takes foreach and never the fused one,
+    which writes without bumping them."""
     block = DenseResidualBlock(8)
     ws, bs = block.stage_params()
     old = block._packed_weights(ws, bs).clone()
     old_key = block._packed_key
     if impl is None:
         opt = make_optimizer(Config(), block)
-        assert not opt.defaults["fused"]
+        assert opt.defaults["foreach"] and not opt.defaults["fused"]
     else:
         opt = torch.optim.Adam(block.parameters(), lr=2.5e-4, betas=(0.9, 0.99), eps=1e-8,
                                **impl)

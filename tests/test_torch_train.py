@@ -191,7 +191,7 @@ def trained():
     coarse, fine = synthetic_dataset(n_samples=17, seed=5)
     train = DeviceDataset.from_numpy(coarse[:12], fine[:12], "cpu")
     test = DeviceDataset.from_numpy(coarse[12:], fine[12:], "cpu")
-    trainer = Trainer(cfg, train, test, device="cpu", verbose=False)
+    trainer = Trainer(cfg, train, test, device="cpu")
     seen = []
     step_fn = trainer.step_fn
 
