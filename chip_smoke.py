@@ -89,12 +89,13 @@ STEP_GRAD_TOL = 1e-3
 # backward: they are ill-conditioned in fp32 (a LeakyReLU's slope flips
 # where the forward moves by 1e-6; deep in the generator's trunk the
 # gradients are ~1e-5), so in their worst tensor the CPU's own fp32
-# gradients are up to ~1e-2 off float64, relative to that tensor's largest
-# entry, and a single flip decides which tensor that is (my chip runs).
+# gradients are up to ~3e-2 off float64, relative to that tensor's largest
+# entry, and a single flip decides which tensor that is (this phase's
+# report, on the H100).
 # Over the whole gradient as one vector the error is stable: the card's
 # relative L2 error may be at most twice the CPU fp32's. And no tensor may
-# be off by more than 0.1 in relative L2, ten times the worst fp32 error: a
-# wrong formula gives O(1).
+# be off by more than 0.1 in relative L2, over three times the worst fp32
+# error: a wrong formula gives O(1).
 GRAD_VS_CPU_FP32, GRAD_TENSOR_TOL = 2.0, 0.1
 # Per-step losses and metrics, card vs CPU: means of fields that differ by
 # up to GEN_ATOL, and the critic's scores of them.
