@@ -47,7 +47,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                batch 128, its epoch means, 48 DRB launches in each of its
                generator forwards (counted by kind), step times with CUDA
                events, peak memory, the step's parts timed alone, and a
-               ``torch.profiler`` split of one 5-step round by kernel class.
+               ``torch.profiler`` split of one 5-step round by kernel class;
+10. resume  -- the same command, checkpointed, sent SIGTERM after its step 3
+               and run again with ``--resume``, against an uninterrupted run
+               (epoch-1 means, every parameter and Adam moment: bit for bit,
+               cuDNN deterministic), once plain and once with
+               ``hp.ema_decay = 0.999`` and ``--track-best MSSSIM``; the best
+               bundle, restored through ``serve --checkpoint``'s resolution,
+               served over HTTP against the EMA generator's direct forward;
+               48 DRB launches in every generator forward (test passes and
+               EMA scoring included); the kernel path against the twin after
+               EMA updates and after a checkpoint load; checkpoint bytes and
+               save and load times.
 
 Then it prints ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -57,11 +68,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -636,6 +651,60 @@ def phase_train_parity(config):
          drb_launches_per_step=launches, kernel_vs_twin_after_update=twin_err)
 
 
+@contextlib.contextmanager
+def launches_per_generator_forward():
+    """Each generator forward's own DRB kernel launches, in call order, while
+    the block runs (forward hooks on every ``Generator``)."""
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+
+    from downgan_tpu_torch.models.generator import Generator
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    pending, per_forward = [], []
+
+    def pre(module, args):
+        if isinstance(module, Generator):
+            pending.append(drb_forward.launches)
+
+    def post(module, args, out):
+        if isinstance(module, Generator):
+            per_forward.append(drb_forward.launches - pending.pop())
+
+    hooks = [register_module_forward_pre_hook(pre), register_module_forward_hook(post)]
+    try:
+        yield per_forward
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def after_each_train_step(hook):
+    """Call ``hook(state, metrics)`` after every step of the train steps the
+    trainer builds while the block runs."""
+    import downgan_tpu_torch.training.trainer as trainer_module
+
+    real_build = trainer_module.build_train_step
+
+    def build(*args, **kwargs):
+        inner = real_build(*args, **kwargs)
+
+        def step(state, *a, **k):
+            metrics = inner(state, *a, **k)
+            hook(state, metrics)
+            return metrics
+
+        step.forwards = inner.forwards
+        return step
+
+    trainer_module.build_train_step = build
+    try:
+        yield
+    finally:
+        trainer_module.build_train_step = real_build
+
+
 def train_kernel_class(name: str) -> str:
     low = name.lower()
     if "drb_kernel" in low:
@@ -649,56 +718,45 @@ def train_kernel_class(name: str) -> str:
     return "elementwise_and_other"
 
 
-def phase_training():
+def time_round(trainer):
+    """One 5-step round of ``trainer``'s step (a generator update and four
+    critic-only steps when it starts at a multiple of 5), CUDA events around
+    each step: (update-step ms, critic-only-step ms)."""
+    step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
+    rows = torch.arange(len(ds) // B_TRAIN * B_TRAIN, device="cuda").reshape(-1, B_TRAIN)
+    update_ms, critic_ms = [], []
+    for s in range(5):
+        coarse, fine = ds.gather(rows[s])
+        is_update = state.step % 5 == 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_fn(state, coarse, fine)
+        end.record()
+        torch.cuda.synchronize()
+        (update_ms if is_update else critic_ms).append(start.elapsed_time(end))
+    return update_ms, critic_ms
+
+
+def phase_training(tracking_root: Path):
     """The training path through its CLI, in-process, then timed and
     profiled rounds of the same trainer."""
-    from torch.nn.modules.module import (register_module_forward_hook,
-                                         register_module_forward_pre_hook)
     from torch.profiler import ProfilerActivity, profile
 
-    import downgan_tpu_torch.training.trainer as trainer_module
     from downgan_tpu_torch.cli.__main__ import main as cli_main
-    from downgan_tpu_torch.models.generator import Generator
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
 
-    # Each generator forward's own DRB launches, and every step's metrics.
-    pending, per_forward, step_metrics = [], [], []
-
-    def pre(module, args):
-        if isinstance(module, Generator):
-            pending.append(drb_forward.launches)
-
-    def post(module, args, out):
-        if isinstance(module, Generator):
-            per_forward.append(drb_forward.launches - pending.pop())
-
-    real_build = trainer_module.build_train_step
-
-    def recording_build(*args, **kwargs):
-        inner = real_build(*args, **kwargs)
-
-        def step(*a, **k):
-            step_metrics.append(inner(*a, **k))
-            return step_metrics[-1]
-
-        step.forwards = inner.forwards
-        return step
-
-    hooks = [register_module_forward_pre_hook(pre), register_module_forward_hook(post)]
-    trainer_module.build_train_step = recording_build
+    step_metrics = []  # every step's metrics
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with launches_per_generator_forward() as per_forward, \
+            after_each_train_step(lambda state, metrics: step_metrics.append(metrics)):
         drb_forward.launches = 0  # the training path's run starts here
         t0 = time.perf_counter()
         trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
-                            "--synthetic", "--samples", "1440", "--epochs", "2"])
+                            "--synthetic", "--samples", "1440", "--epochs", "2",
+                            "--tracking-root", str(tracking_root)])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = drb_forward.launches  # the training path's run ends here
-    finally:
-        trainer_module.build_train_step = real_build
-        for h in hooks:
-            h.remove()
     peak_bytes = torch.cuda.max_memory_allocated()
 
     history, forwards = trainer.history, dict(trainer.forwards)
@@ -724,20 +782,11 @@ def phase_training():
               <= 1e-5 * abs(r["train"]["gen_loss"]), "gen_loss rescale")
 
     # A timed round: steps 20-24, a generator update (20) and four
-    # critic-only steps; CUDA events around each step. The parts below move
-    # the state on by critic and generator updates, not by a step.
+    # critic-only steps. The parts below move the state on by critic and
+    # generator updates, not by a step.
+    update_ms, critic_ms = time_round(trainer)
     step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
     rows = torch.arange(len(ds) // B_TRAIN * B_TRAIN, device="cuda").reshape(-1, B_TRAIN)
-    update_ms, critic_ms = [], []
-    for s in range(5):
-        coarse, fine = ds.gather(rows[s])
-        is_update = state.step % 5 == 0
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step_fn(state, coarse, fine)
-        end.record()
-        torch.cuda.synchronize()
-        (update_ms if is_update else critic_ms).append(start.elapsed_time(end))
     round_ms = sum(update_ms + critic_ms)
 
     # The step's parts, each timed alone on the same modules and batch.
@@ -816,6 +865,240 @@ def phase_training():
     return launches
 
 
+def flat_state(trainer) -> dict:
+    """Every tensor of ``trainer``'s train state (networks, Adam moments and
+    steps, EMA generator) by name, and the step."""
+    out = {"step": torch.tensor(trainer.state.step)}
+
+    def walk(prefix, obj):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(f"{prefix}.{k}", v)
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(f"{prefix}.{i}", v)
+        elif isinstance(obj, torch.Tensor):
+            out[prefix[1:]] = obj.detach()
+
+    walk("", trainer.state.state_dict())
+    return out
+
+
+def compare_resumed(straight, resumed) -> dict:
+    """The resumed run against the uninterrupted one, bit for bit: epoch 1's
+    means and every tensor of the final state. With cuDNN deterministic the
+    two runs do the same operations on the same inputs."""
+    a, b = flat_state(straight), flat_state(resumed)
+    check(set(a) == set(b), "the two runs' states hold different tensors")
+    unequal = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    max_diff = {}
+    for k in a:
+        if a[k].is_floating_point() and a[k].numel():
+            part = k.split(".")[0]
+            diff = (a[k].double() - b[k].double()).abs().max().item()
+            max_diff[part] = max(max_diff.get(part, 0.0), diff)
+    want, got = straight.history[-1], resumed.history[-1]
+    splits = [k for k in ("train", "test", "test_ema") if k in want]
+    check(splits == [k for k in ("train", "test", "test_ema") if k in got] and want["epoch"] == 1,
+          f"epoch records differ in kind: {want} / {got}")
+    means_unequal = [f"{sp}.{k}" for sp in splits for k in want[sp] if want[sp][k] != got[sp][k]]
+    report = {"held": "bit_identical", "tensors": len(a), "tensors_unequal": len(unequal),
+              "first_unequal": unequal[:5], "means_unequal": means_unequal,
+              "max_abs_diff": max_diff}
+    check(not unequal and not means_unequal, f"resumed vs uninterrupted run: {report}")
+    return report
+
+
+def phase_resume(config, rng, smi: str):
+    """The resume path: ``cli train`` (florida, batch 128, 2 epochs) run
+    uninterrupted, then sent SIGTERM after its step 3 and run again with
+    ``--resume``; plain, and with the EMA and best-epoch tracking; the best
+    bundle served over HTTP; checkpoint bytes and times."""
+    from downgan_tpu_torch.cli.__main__ import _resolve_source, build_parser
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.serving import BatchingSRModel, generate_remote, serve_model
+    from downgan_tpu_torch.training.wgan import ema_update
+    from downgan_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_resume_")
+    root = Path(tmp.name)
+    ema_config = config.replace(hp=dataclasses.replace(config.hp, ema_decay=0.999))
+    (root / "florida_ema.json").write_text(ema_config.to_json())
+    variants = {"plain": (ROOT / "examples" / "florida.json", []),
+                "ema": (root / "florida_ema.json", ["--track-best", "MSSSIM"])}
+    sigterm_after = {"step": None}
+
+    def preempt(state, metrics):
+        if sigterm_after["step"] is not None and state.step == sigterm_after["step"] + 1:
+            sigterm_after["step"] = None
+            os.kill(os.getpid(), signal.SIGTERM)  # a real signal, to the trainer's handler
+
+    def train(cfg_path, extra, ckpt_dir, *more):
+        return cli_main(["train", "--config", str(cfg_path), "--synthetic", "--samples", "1440",
+                         "--epochs", "2", "--checkpoint-dir", str(ckpt_dir),
+                         "--tracking-root", str(root / "exps"), *extra, *more])
+
+    runs, steps_after_stop = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with launches_per_generator_forward() as per_forward, after_each_train_step(preempt):
+            drb_forward.launches = 0  # the resume path's run starts here
+            for name, (cfg_path, extra) in variants.items():
+                straight = train(cfg_path, extra, root / name / "straight")
+                sigterm_after["step"] = 3
+                stopped = train(cfg_path, extra, root / name / "resumed")
+                check(sigterm_after["step"] is None, "no SIGTERM was sent")
+                steps_after_stop[name] = stopped.ckpt.all_steps()
+                resumed = train(cfg_path, extra, root / name / "resumed", "--resume")
+                runs[name] = (straight, stopped, resumed)
+            torch.cuda.synchronize()
+            launches = drb_forward.launches  # the resume path's run ends here
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    report = {}
+    for name, (straight, stopped, resumed) in runs.items():
+        check(stopped.preempted and stopped.epoch == 1 and len(stopped.history) == 1
+              and "test" not in stopped.history[0] and steps_after_stop[name] == [0],
+              f"{name}: the SIGTERM run did not stop after epoch 0 with its checkpoint "
+              f"({stopped.epoch}, {steps_after_stop[name]})")
+        check(not resumed.preempted and resumed.epoch == 2
+              and [r["epoch"] for r in resumed.history] == [1] and resumed.ckpt.latest_step() == 1,
+              f"{name}: --resume did not finish epoch 1")
+        check([r.run.meta["status"] for r in (straight, stopped, resumed)]
+              == ["FINISHED", "KILLED", "FINISHED"], f"{name}: run statuses")
+        want = {"critic_fake": 20, "update": 4, "metric": 20, "test": 4}
+        for trainer, fw in ((straight, want), (stopped, {"critic_fake": 10, "update": 2,
+                                                         "metric": 10, "test": 0}),
+                            (resumed, {"critic_fake": 10, "update": 2, "metric": 10, "test": 2})):
+            if name == "ema":
+                fw = {**fw, "test_ema": fw["test"]}
+            check(trainer.forwards == fw,
+                  f"{name}: generator forwards {trainer.forwards}, not {fw}")
+        report[name] = {
+            "vs_uninterrupted": compare_resumed(straight, resumed),
+            "epoch_s": {"straight": [r["seconds"] for r in straight.history],
+                        "stopped": [r["seconds"] for r in stopped.history],
+                        "resumed": [r["seconds"] for r in resumed.history]},
+            "steps_per_s_resumed_epoch1": 10 / resumed.history[0]["seconds"],
+            "epoch1_means_resumed": {k: resumed.history[0][k] for k in ("train", "test", "test_ema")
+                                     if k in resumed.history[0]}}
+    n_forwards = sum(sum(t.forwards.values()) for r in runs.values() for t in r)
+    check(len(per_forward) == n_forwards and set(per_forward) == {48}
+          and launches == 48 * n_forwards,
+          f"{launches} DRB launches over {len(per_forward)} generator forwards "
+          f"({sorted(set(per_forward))} each), {n_forwards} counted by the trainers")
+
+    # The EMA run's best bundle, restored the way `serve --checkpoint` does.
+    ema_straight, _, ema_resumed = runs["ema"]
+    g_ema = ema_resumed.state.g_ema
+    best_dir = Path(ema_resumed.run.artifact_dir) / "best"
+    best = json.loads((best_dir / "best.json").read_text())
+    check(best["metric"] == "MSSSIM" and best["mode"] == "max" and best["ema"] is True
+          and best["epoch"] == 1, f"best.json {best}")
+    parser = build_parser()
+    bundle_config, weights = _resolve_source(parser.parse_args(
+        ["serve", "--checkpoint", str(best_dir)]), parser)
+    check(bundle_config == ema_config.replace(hp=dataclasses.replace(ema_config.hp, epochs=2)),
+          "the bundle's config is not the run's")
+    check(all(torch.equal(weights[k], v.cpu()) for k, v in g_ema.state_dict().items()),
+          "the best bundle is not the EMA generator of epoch 1")
+    model = BatchingSRModel(bundle_config, weights, batch_size=B_MAIN, max_wait_ms=20.0)
+    server = serve_model(model, host="127.0.0.1", port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    x = torch.randn(B_MAIN, config.coarse_size, config.coarse_size, config.n_covariates,
+                    generator=rng).numpy()
+    try:
+        drb_forward.launches = 0  # the bundle-serving path's run starts here
+        served = generate_remote(url, x)
+        bundle_launches = drb_forward.launches  # ... and ends here
+        dispatches = json.loads(urllib.request.urlopen(f"{url}/metrics").read())["dispatches"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        model.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the bundle server did not stop")
+    with torch.inference_mode():
+        direct = g_ema(torch.from_numpy(x).cuda().permute(0, 3, 1, 2).contiguous())
+        direct = direct.permute(0, 2, 3, 1).cpu().numpy()
+    serve_err = float(np.abs(served - direct).max())
+    check(served.shape == direct.shape and np.isfinite(served).all() and serve_err <= SERVE_ATOL,
+          f"served best bundle vs the EMA generator's direct forward: {serve_err}")
+    check(bundle_launches == 48 * dispatches, f"{bundle_launches} DRB launches for "
+          f"{dispatches} dispatches")
+
+    # Rounds of the resumed trainers (steps 20-24, cuDNN back to its
+    # default), each starting as the runs left them: packed weights current.
+    rounds = {name: dict(zip(("update", "critic_only"), time_round(runs[name][2])))
+              for name in ("plain", "ema")}
+
+    # The kernel path against the twin: the uninterrupted run's EMA generator
+    # (packed at epoch 0's test pass, updated at steps 10 and 15, scored
+    # again), once more after an explicit EMA update, and the resumed plain
+    # generator after a checkpoint load over its packed weights.
+    coarse, _ = ema_straight.train_ds.gather(torch.arange(B_TRAIN, device="cuda"))
+
+    def twin_err(gen):
+        with torch.inference_mode():
+            fast = gen(coarse)
+            with drbs_on_plain_twin(gen):
+                slow = gen(coarse)
+        check(torch.allclose(fast, slow, atol=GEN_ATOL, rtol=GEN_RTOL),
+              "the kernel path is off the plain twin's: stale packed weights")
+        return (fast - slow).abs().max().item()
+
+    twin = {"ema_after_training": twin_err(ema_straight.state.g_ema)}
+    ema_params = list(ema_straight.state.generator.parameters())
+    ema_update_ms = cuda_ms(lambda: ema_update(0.999, ema_straight.state.g_ema, ema_params),
+                            iters=20)
+    ema_update(0.5, ema_straight.state.g_ema, ema_params)
+    twin["ema_after_update"] = twin_err(ema_straight.state.g_ema)
+    plain_resumed = runs["plain"][2]
+    plain_resumed.state.load_state_dict(plain_resumed.ckpt.restore(0))
+    twin["after_checkpoint_load"] = twin_err(plain_resumed.state.generator)
+
+    # Checkpoint bytes and host-clock save and load times of the EMA state.
+    state = ema_resumed.state
+    mngr = CheckpointManager(str(root / "timing"))
+    save_s, read_s, load_s = [], [], []
+    for step in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mngr.save(step, state)
+        save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        restored = mngr.restore(step)
+        read_s.append(time.perf_counter() - t0)
+        state.load_state_dict(restored)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+    values = sum(t.numel() for k, t in flat_state(ema_resumed).items()
+                 if t.is_floating_point() and not k.endswith(".step"))
+    ckpt_bytes = os.path.getsize(os.path.join(mngr.directory, "0.pt"))
+    plain_bytes = os.path.getsize(runs["plain"][0].ckpt.directory + "/1.pt")
+    emit("resume", card=smi,
+         command="cli train --config examples/florida.json --synthetic --samples 1440 "
+         "--epochs 2 --checkpoint-dir D [--track-best MSSSIM on florida at hp.ema_decay=0.999]; "
+         "SIGTERM after step 3; --resume", batch=B_TRAIN, runs=report,
+         drb_launches=launches, generator_forwards=n_forwards, drb_launches_per_forward=48,
+         best=best, bundle_serving={"patches": B_MAIN, "dispatches": dispatches,
+                                    "drb_launches": bundle_launches, "max_abs_err": serve_err,
+                                    "atol": SERVE_ATOL},
+         kernel_vs_twin_max_abs_err=twin, twin_atol=GEN_ATOL, twin_rtol=GEN_RTOL,
+         checkpoint={"bytes_with_ema": ckpt_bytes, "bytes_without_ema": plain_bytes,
+                     "fp32_values_with_ema": values, "save_s": save_s,
+                     "load_s": load_s, "of_which_file_read_s": read_s,
+                     "clock": "host, after torch.cuda.synchronize()"},
+         resumed_round_ms=rounds, ema_update_ms=ema_update_ms)
+    tmp.cleanup()
+    return launches, bundle_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -836,14 +1119,19 @@ def main() -> int:
     check(serving_launches > 0, "the serving path launched no DRB kernel")
     backward_ms = phase_drb_grad(rng, peaks, timing_b128)
     phase_train_parity(config)
-    training_launches = phase_training()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tracking_root:
+        training_launches = phase_training(Path(tracking_root))
     check(training_launches > 0, "the training path launched no DRB kernel")
+    resume_launches, bundle_launches = phase_resume(config, rng, smi)
+    check(resume_launches > 0 and bundle_launches > 0,
+          "the resume or bundle-serving path launched no DRB kernel")
     print(json.dumps({"kernels": [{
         "name": "drb_forward", "route": "cuda", "impl": "cuda",
         "source": "downgan_tpu_torch/ops/cuda/drb.cu",
         "replaces": "downgan_tpu/ops/pallas/drb.py:120",
-        "launches": serving_launches + training_launches,
-        "launches_by_path": {"serving": serving_launches, "training": training_launches},
+        "launches": serving_launches + training_launches + resume_launches + bundle_launches,
+        "launches_by_path": {"serving": serving_launches, "training": training_launches,
+                             "resume": resume_launches, "bundle_serving": bundle_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],

@@ -1,19 +1,28 @@
 """Command line of the port (counterpart of ``downgan_tpu/cli/__main__.py``;
-the port has ``serve`` and ``train``)::
+the port has ``train``, ``serve`` and ``export``)::
 
-    python -m downgan_tpu_torch.cli serve --config examples/florida.json \
-        --weights generator.pt
     python -m downgan_tpu_torch.cli train --config examples/florida.json \
-        --synthetic --samples 1440 --epochs 2
+        --synthetic --samples 1440 --epochs 2 --track-best MSSSIM
+    python -m downgan_tpu_torch.cli train ... --resume      # after a SIGTERM
+    python -m downgan_tpu_torch.cli serve --checkpoint <run artifacts>/best
+    python -m downgan_tpu_torch.cli export --run <run id> --ema --out bundle/
+    python -m downgan_tpu_torch.cli serve --weights generator.pt
 
-``--weights`` is a generator state dict written by the JAX package's
-``python -m downgan_tpu.cli export-torch``. Restoring Orbax checkpoints
-comes with the checkpoint slice. ``train`` runs on the synthetic set only:
-the NetCDF staging tiers come with the data slice.
+``train`` tracks each run under ``--tracking-root`` (the JAX package's
+layout, ``tracking/store.py``) and checkpoints the full train state every
+epoch into ``<run artifacts>/checkpoints``. ``serve`` and ``export`` take
+a bundle or trainer checkpoint directory (``--checkpoint``), a tracked run
+(``--run``) or, for ``serve``, a generator state dict (``--weights``, a
+bundle's ``generator.pt`` or the JAX package's ``export-torch`` file).
+``train`` runs on the synthetic set only: the NetCDF staging tiers come
+with the data slice.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import sys
 
 import torch
 
@@ -35,13 +44,50 @@ def _fp32_without_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _serve(args: argparse.Namespace) -> None:
-    from downgan_tpu_torch.serving import BatchingSRModel, SRModel, serve_model
-    from downgan_tpu_torch.utils.port_weights import load_generator_weights
+def _resolve_source(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """``--weights``/``--checkpoint``/``--run`` -> ``(config, generator
+    weights)``. A bundle brings its own config and ``--run`` the one the run
+    logged; a trainer checkpoint directory inside a run's artifacts picks up
+    the logged ``config.json`` beside it; an explicit ``--config`` wins
+    over all of them. Contradictory flags are usage errors."""
+    from downgan_tpu_torch.inference import (GENERATOR_FILE, RestoreUsageError, is_bundle,
+                                             resolve_run_checkpoint, restore_generator_params)
 
-    config = _load_config(args.config)
+    weights = getattr(args, "weights", None)
+    sources = [s for s in (weights, args.checkpoint, args.run) if s is not None]
+    if len(sources) != 1:
+        flags = "--weights, --checkpoint or --run" if hasattr(args, "weights") else \
+            "--checkpoint or --run"
+        parser.error(f"pass exactly one of {flags}")
+    config_file = None
+    if weights is not None:
+        path, weights_only = weights, True
+    elif is_bundle(args.checkpoint):
+        path, weights_only = os.path.join(args.checkpoint, GENERATOR_FILE), True
+        config_file = os.path.join(args.checkpoint, "config.json")
+    elif args.run is not None:
+        run, path, _ = resolve_run_checkpoint(args.tracking_root, args.run)
+        weights_only, config_file = False, os.path.join(run.artifact_dir, "config.json")
+    else:
+        path, weights_only = args.checkpoint, False
+        config_file = os.path.join(os.path.dirname(os.path.abspath(path)), "config.json")
+    if args.config:
+        config = _load_config(args.config)
+    else:
+        config = _load_config(config_file if config_file and os.path.exists(config_file)
+                              else None)
+    try:
+        return config, restore_generator_params(path, step=args.epoch, weights_only=weights_only,
+                                                use_ema=args.ema)
+    except RestoreUsageError as e:
+        parser.error(str(e))
+
+
+def _serve(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
+    from downgan_tpu_torch.serving import BatchingSRModel, SRModel, serve_model
+
+    config, weights = _resolve_source(args, parser)
     _fp32_without_tf32()
-    weights = load_generator_weights(args.weights)
     # 0 = uncapped; a literal 0-byte cap would refuse every domain request.
     out_cap = (args.max_domain_output_mb << 20) if args.max_domain_output_mb else (1 << 62)
     if args.coalesce:
@@ -64,30 +110,88 @@ def _serve(args: argparse.Namespace) -> None:
             model.close()
 
 
-def _train(args: argparse.Namespace):
-    """Train on the synthetic set, split 90/10 into train and test as the
-    JAX package's ``train --synthetic``; returns the :class:`Trainer`."""
-    import dataclasses
+def _export(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
+    """Write a servable bundle (generator weights + config; no critic, no
+    optimizer state) from a trainer checkpoint; returns its directory."""
+    from downgan_tpu_torch.inference import is_bundle, write_generator_bundle
 
+    if is_bundle(args.checkpoint):
+        parser.error(f"{args.checkpoint} is already an exported bundle")
+    config, weights = _resolve_source(args, parser)
+    out = write_generator_bundle(args.out, config, weights)
+    print(f"exported {'EMA ' if args.ema else ''}generator bundle to {out}", flush=True)
+    return out
+
+
+def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """Train on the synthetic set, split 90/10 into train and test as the
+    JAX package's ``train --synthetic``, as one tracked run; returns the
+    :class:`Trainer`."""
     from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.inference import is_bundle, load_bundle
+    from downgan_tpu_torch.tracking import TrackingStore, define_experiment, log_hyperparams
     from downgan_tpu_torch.training.state import resolve_device
     from downgan_tpu_torch.training.trainer import Trainer
+    from downgan_tpu_torch.utils.checkpoint import CheckpointManager
 
     config = _load_config(args.config)
-    hp = config.hp
-    if args.batch_size is not None:
-        hp = dataclasses.replace(hp, batch_size=args.batch_size)
-    config = config.replace(hp=hp, seed=config.seed if args.seed is None else args.seed)
+    overrides = {k: v for k, v in (("batch_size", args.batch_size), ("epochs", args.epochs))
+                 if v is not None}
+    config = config.replace(hp=dataclasses.replace(config.hp, **overrides),
+                            seed=config.seed if args.seed is None else args.seed)
+    if args.warm_start:
+        # The bundle's weights fix the model's shape; they load after the
+        # resume decision, so a resumed run never reads them.
+        if not is_bundle(args.warm_start):
+            parser.error(f"{args.warm_start} is not a bundle directory (expected "
+                         "generator.pt + config.json, the `export` layout)")
+        bundle_config = _load_config(os.path.join(args.warm_start, "config.json"))
+        config = config.replace(**{k: getattr(bundle_config, k) for k in (
+            "filters", "num_res_blocks", "n_covariates", "n_predictands", "coarse_size",
+            "fine_size")})
     device = resolve_device(args.device)
     _fp32_without_tf32()
     coarse, fine = synthetic_dataset(
         n_samples=args.samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
         n_covariates=config.n_covariates, n_predictands=config.n_predictands, seed=config.seed)
     split = int(0.9 * args.samples)
-    trainer = Trainer(config, DeviceDataset.from_numpy(coarse[:split], fine[:split], device),
-                      DeviceDataset.from_numpy(coarse[split:], fine[split:], device),
-                      device=device)
-    trainer.train(args.epochs)
+    train_ds = DeviceDataset.from_numpy(coarse[:split], fine[:split], device)
+    test_ds = DeviceDataset.from_numpy(coarse[split:], fine[split:], device)
+
+    store = TrackingStore(args.tracking_root)
+    exp_id = define_experiment(store, args.experiment, tag=config.experiment_tag)
+    run = store.create_run(exp_id, run_name=args.run_name).start()
+    log_hyperparams(run, config)
+    with open(run.artifact_path("config.json"), "w") as f:
+        f.write(config.to_json())
+    max_ckpt = config.max_checkpoints if args.max_checkpoints is None else args.max_checkpoints
+    ckpt = CheckpointManager(
+        args.checkpoint_dir or os.path.join(run.artifact_dir, "checkpoints"),
+        max_to_keep=max_ckpt,
+        keep_period=config.keep_checkpoint_every if args.keep_every is None else args.keep_every)
+    try:
+        trainer = Trainer(config, train_ds, test_ds, device=device, run=run,
+                          checkpoint_manager=ckpt, save_every=args.save_every,
+                          print_every=args.print_every, track_best=args.track_best,
+                          best_mode=args.best_mode)
+        resumed = trainer.maybe_resume() if args.resume else False
+        if args.warm_start and not resumed:
+            _, g_weights, c_weights = load_bundle(args.warm_start)
+            trainer.warm_start(g_weights, c_weights)
+        trainer.train()
+        # KILLED is MLflow's status for a run stopped from outside; the full
+        # state is checkpointed either way.
+        run.end("KILLED" if trainer.preempted else "FINISHED")
+    except BaseException:
+        run.end("FAILED")
+        raise
+    finally:
+        ckpt.close()
+    if trainer.preempted:
+        print(f"preempted after epoch {trainer.epoch - 1}: checkpoint saved; re-run with "
+              "--resume to continue the exact trajectory", file=sys.stderr, flush=True)
+    print(f"run {run.run_id} finished; artifacts in {run.artifact_dir}", file=sys.stderr,
+          flush=True)
     return trainer
 
 
@@ -98,16 +202,32 @@ def _non_negative_int(text: str) -> int:
     return value
 
 
+def _add_source_args(sub: argparse.ArgumentParser, what: str) -> None:
+    sub.add_argument("--config", default=None,
+                     help="Config JSON (default: the bundle's or the run's logged config, "
+                     "else the built-in florida Config).")
+    sub.add_argument("-c", "--checkpoint", default=None,
+                     help=f"Bundle directory or trainer checkpoint directory to {what} from.")
+    sub.add_argument("--run", default=None,
+                     help=f"Tracked run id to {what} from (its checkpoints and logged config).")
+    sub.add_argument("--tracking-root", default="experiments")
+    sub.add_argument("-e", "--epoch", type=int, default=None,
+                     help="Checkpoint epoch (default: the latest; trainer checkpoints only).")
+    sub.add_argument("--ema", action="store_true",
+                     help="The EMA generator's weights (trained with hp.ema_decay > 0; "
+                     "trainer checkpoints only).")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m downgan_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
     serve = sub.add_parser(
         "serve", help="Serve super-resolution inference over HTTP (POST .npy "
         "covariates to /v1/generate; GET /healthz, /metrics).")
-    serve.add_argument("--config", default=None,
-                       help="Config JSON (default: the built-in florida Config).")
-    serve.add_argument("--weights", required=True,
-                       help="Generator state dict (.pt) from `downgan_tpu.cli export-torch`.")
+    _add_source_args(serve, "serve")
+    serve.add_argument("--weights", default=None,
+                       help="Generator state dict (.pt): a bundle's generator.pt or the file "
+                       "`downgan_tpu.cli export-torch` writes.")
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("-p", "--port", type=int, default=8080)
     serve.add_argument("--serving-batch", type=int, default=0,
@@ -121,6 +241,13 @@ def build_parser() -> argparse.ArgumentParser:
                        help="413 cap on a domain request's estimated output; 0 = uncapped.")
     serve.add_argument("--device", default="cuda", help="Torch device (default cuda).")
     serve.set_defaults(func=_serve)
+
+    export = sub.add_parser(
+        "export", help="Write a servable generator bundle (generator.pt + config.json) "
+        "from a trainer checkpoint.")
+    _add_source_args(export, "export")
+    export.add_argument("-o", "--out", required=True, help="Output bundle directory (created).")
+    export.set_defaults(func=_export)
 
     train = sub.add_parser(
         "train", help="Train the WGAN-GP (reference schedule) and print the "
@@ -137,18 +264,46 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Override the config's hp.batch_size.")
     train.add_argument("--seed", type=int, default=None, help="Override the config's seed.")
     train.add_argument("--device", default="cuda", help="Torch device (default cuda).")
+    train.add_argument("--experiment", default="downgan-tpu", help="Experiment name.")
+    train.add_argument("--run-name", default=None)
+    train.add_argument("--tracking-root", default="experiments")
+    train.add_argument("--checkpoint-dir", default=None,
+                       help="Checkpoint directory (default: <run artifacts>/checkpoints).")
+    train.add_argument("--resume", action="store_true",
+                       help="Resume from the latest checkpoint in the checkpoint directory.")
+    train.add_argument("--warm-start", default=None,
+                       help="Start the generator (and the critic, if the bundle has one) "
+                       "from a bundle directory, with fresh optimizer state; its model-shape "
+                       "fields override the config. A successful --resume supersedes it.")
+    train.add_argument("--save-every", type=int, default=None,
+                       help="Checkpoint cadence in epochs (default: hp.save_every).")
+    train.add_argument("--max-checkpoints", type=_non_negative_int, default=None,
+                       help="Checkpoints retained (0 = keep every epoch, the reference's "
+                       "behaviour; default: config.max_checkpoints).")
+    train.add_argument("--keep-every", type=int, default=None,
+                       help="Also keep every k-th epoch's checkpoint outside the retention "
+                       "window (default: config.keep_checkpoint_every).")
+    train.add_argument("--print-every", type=int, default=None,
+                       help="Epoch-line cadence in epochs (default: hp.print_every).")
+    train.add_argument("--track-best", default=None, metavar="METRIC",
+                       help="After each test pass that improves this test metric (e.g. "
+                       "MSSSIM, MAE), write the serving weights (EMA when trained with "
+                       "hp.ema_decay, else live) as a bundle under <artifacts>/best.")
+    train.add_argument("--best-mode", choices=("max", "min"), default=None,
+                       help="Improvement direction for --track-best (default: max for "
+                       "MSSSIM, min for error metrics).")
     train.set_defaults(func=_train)
     return parser
 
 
 def main(argv=None):
     """Run one subcommand; returns what it returns (``train``: the
-    Trainer)."""
+    Trainer; ``export``: the bundle directory)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command == "train" and not args.synthetic:
         parser.error("train needs --synthetic: the NetCDF staging tiers are not ported yet")
-    return args.func(args)
+    return args.func(args, parser)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,124 @@
-"""Chunked batch inference (counterpart of ``generate_fields`` in
-``downgan_tpu/inference.py``, deterministic generators only; ensembles,
-NetCDF output and bundles come with later slices)."""
+"""Generator restore, servable bundles and chunked batch inference
+(counterpart of ``downgan_tpu/inference.py``: ``RestoreUsageError``,
+``resolve_run_checkpoint``, ``restore_generator_params``,
+``write_generator_bundle``, ``load_bundle`` and ``generate_fields`` for
+deterministic generators; ensembles and NetCDF output come with later
+slices).
+
+A bundle is a directory ``<dir>/generator.pt`` + ``<dir>/config.json``,
+with an optional ``<dir>/critic.pt``. ``generator.pt`` is the reference-key
+state dict that the JAX package's ``export-torch`` writes, so
+``utils.port_weights.load_generator_weights`` reads both.
+"""
 from __future__ import annotations
 
-from typing import Mapping
+import os
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.training.state import load_generator
+from downgan_tpu_torch.utils.checkpoint import CheckpointManager, load_params, save_params
+from downgan_tpu_torch.utils.port_weights import load_generator_weights
+
+StateDict = Dict[str, torch.Tensor]
+GENERATOR_FILE, CRITIC_FILE, CONFIG_FILE = "generator.pt", "critic.pt", "config.json"
+
+
+class RestoreUsageError(ValueError):
+    """A restore refusal caused by contradictory user flags (``--epoch`` or
+    ``--ema`` against a weights-only bundle, ``--ema`` on a run trained
+    without EMA); the CLI reports these as usage errors."""
+
+
+def _read_config(path: str) -> Config:
+    with open(path) as f:
+        return Config.from_json(f.read())
+
+
+def resolve_run_checkpoint(tracking_root: str, run_id: str
+                           ) -> Tuple[object, str, Optional[Config]]:
+    """A tracked run id -> ``(run, checkpoint_dir, logged_config)``: the
+    trainer's layout ``<run>/artifacts/checkpoints`` and the config the run
+    logged at its start (``<run>/artifacts/config.json``), if any."""
+    from downgan_tpu_torch.tracking.store import TrackingStore
+
+    run = TrackingStore(tracking_root).get_run(run_id)
+    ckpt_dir = os.path.join(run.artifact_dir, "checkpoints")
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"run {run_id} has no checkpoints under {ckpt_dir}; "
+                                "was it trained with a checkpoint manager?")
+    cfg_path = os.path.join(run.artifact_dir, CONFIG_FILE)
+    return run, ckpt_dir, _read_config(cfg_path) if os.path.exists(cfg_path) else None
+
+
+def restore_generator_params(checkpoint: str, step: Optional[int] = None,
+                             weights_only: bool = False, use_ema: bool = False) -> StateDict:
+    """Generator weights (reference-key state dict, on the CPU) from a
+    trainer checkpoint directory (epoch ``step``, default the latest;
+    the EMA generator with ``use_ema``) or, with ``weights_only``, from a
+    weights file (a bundle's ``generator.pt``, an ``export-torch`` file),
+    which holds one set of weights and takes neither ``step`` nor
+    ``use_ema``."""
+    if weights_only:
+        if step is not None:
+            raise RestoreUsageError(
+                "weights-only checkpoints (and exported bundles) hold a single set of params "
+                "— an epoch/step cannot be selected. Use the full Trainer checkpoint "
+                "directory to restore a specific epoch.")
+        if use_ema:
+            raise RestoreUsageError(
+                "weights-only checkpoints (and exported bundles) hold one set of params — if "
+                "the bundle was exported with --ema those already ARE the EMA weights; drop "
+                "--ema (restore EMA from the full Trainer checkpoint directory instead)")
+        return load_generator_weights(checkpoint)
+    state = CheckpointManager(checkpoint).restore(step)
+    if use_ema:
+        if state["g_ema"] is None:
+            raise RestoreUsageError("checkpoint has no EMA weights (hp.ema_decay was 0)")
+        return state["g_ema"]
+    return state["generator"]
+
+
+def write_generator_bundle(out_dir: str, config: Config, g_weights: Mapping[str, torch.Tensor],
+                           c_weights: Optional[Mapping[str, torch.Tensor]] = None) -> str:
+    """Write a servable bundle: ``generator.pt`` (reference keys, CPU
+    tensors), ``config.json`` and, given ``c_weights``, ``critic.pt``,
+    which ``train --warm-start`` picks up. Re-saving replaces the bundle
+    whole: a stale ``critic.pt`` is removed. Returns the directory."""
+    out = os.path.abspath(out_dir)
+    os.makedirs(out, exist_ok=True)
+    host = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    save_params(os.path.join(out, GENERATOR_FILE), host(g_weights))
+    c_path = os.path.join(out, CRITIC_FILE)
+    if c_weights is not None:
+        save_params(c_path, host(c_weights))
+    elif os.path.exists(c_path):
+        os.remove(c_path)
+    with open(os.path.join(out, CONFIG_FILE), "w") as f:
+        f.write(config.to_json())
+    return out
+
+
+def is_bundle(path: Optional[str]) -> bool:
+    """Whether ``path`` is a bundle directory (``generator.pt`` +
+    ``config.json``)."""
+    return bool(path) and all(os.path.isfile(os.path.join(path, name))
+                              for name in (GENERATOR_FILE, CONFIG_FILE))
+
+
+def load_bundle(bundle_dir: str) -> Tuple[Config, StateDict, Optional[StateDict]]:
+    """``(config, generator weights, critic weights or None)`` of a bundle,
+    on the CPU."""
+    if not is_bundle(bundle_dir):
+        raise FileNotFoundError(f"{bundle_dir} is not a bundle directory (expected "
+                                f"{GENERATOR_FILE} + {CONFIG_FILE}, the `export` layout)")
+    c_path = os.path.join(bundle_dir, CRITIC_FILE)
+    return (_read_config(os.path.join(bundle_dir, CONFIG_FILE)),
+            load_generator_weights(os.path.join(bundle_dir, GENERATOR_FILE)),
+            load_params(c_path) if os.path.exists(c_path) else None)
 
 
 def generate_fields(config: Config, weights: Mapping[str, torch.Tensor],

@@ -2,8 +2,9 @@
 ``downgan_tpu/training/state.py``).
 
 The JAX package threads one immutable pytree through a pure step; here the
-state is the two ``nn.Module``s, their two ``torch.optim.Adam``s and the
-step counter, updated in place by the step (``training/wgan.py``).
+state is the two ``nn.Module``s, their two ``torch.optim.Adam``s, the step
+counter and the EMA generator, updated in place by the step
+(``training/wgan.py``), and saved whole by :meth:`GANTrainState.state_dict`.
 """
 from __future__ import annotations
 
@@ -73,7 +74,8 @@ def load_generator(config: Config, weights: Mapping[str, torch.Tensor],
 def check_training_ported(config: Config) -> None:
     """Raise for every training option this slice has not ported: the
     reference schedule with constant-LR Adam, the critic on the fine field
-    alone, and the MAE/MSE/MSSSIM/Wass metric pass are what it runs.
+    alone, the MAE/MSE/MSSSIM/Wass metric pass and the generator EMA
+    (``hp.ema_decay``) are what it runs.
 
     ``hp.fused_epoch`` and ``hp.remat`` only shape the JAX package's XLA
     program (one ``lax.scan`` per epoch; activation rematerialization) and
@@ -83,7 +85,6 @@ def check_training_ported(config: Config) -> None:
     unported = {
         "lr_schedule != 'constant'": hp.lr_schedule != "constant",
         "lr_warmup_steps": bool(hp.lr_warmup_steps),
-        "ema_decay": bool(hp.ema_decay),
         "grad_accum > 1": hp.grad_accum > 1,
         "schedule='fused'": hp.schedule == "fused",
         "freq_sep": hp.freq_sep,
@@ -134,22 +135,68 @@ def make_optimizer(config: Config, module: torch.nn.Module) -> torch.optim.Adam:
                             foreach=True, fused=False)
 
 
+def make_ema_generator(config: Config, gen: Generator) -> Generator:
+    """A copy of ``gen``'s weights on its device, out of autograd: the EMA
+    generator (the JAX package's ``g_ema = tree.map(copy, g_params)``).
+    A fresh module, so its DRB blocks keep their own packed-weight cache."""
+    ema = make_generator(config, next(gen.parameters()).device)
+    ema.load_state_dict(gen.state_dict())
+    return ema.requires_grad_(False)
+
+
 @dataclass
 class GANTrainState:
-    """Both networks, their optimizers and the step counter (the reference's
-    ``num_steps``); the train step advances ``step`` by one."""
+    """Both networks, their optimizers, the step counter (the reference's
+    ``num_steps``) and the EMA generator (``hp.ema_decay > 0``, else None);
+    the train step advances ``step`` by one.
+
+    :meth:`state_dict` is everything a resume needs: the GP's alphas are a
+    function of ``(config.seed, step)`` (``training/wgan.py::gp_alpha``),
+    so the step carries their stream."""
 
     step: int
     generator: Generator
     critic: Critic
     g_opt: torch.optim.Adam
     c_opt: torch.optim.Adam
+    g_ema: Optional[Generator] = None
+
+    def state_dict(self) -> dict:
+        """Tensors, numbers and nested dicts and lists only (no module), so
+        ``torch.load(weights_only=True)`` reads it back. The DRB blocks'
+        packed weights are derived and not in it."""
+        return {"step": self.step,
+                "generator": self.generator.state_dict(),
+                "critic": self.critic.state_dict(),
+                "g_opt": self.g_opt.state_dict(),
+                "c_opt": self.c_opt.state_dict(),
+                "g_ema": None if self.g_ema is None else self.g_ema.state_dict()}
+
+    def load_state_dict(self, sd: Mapping) -> None:
+        """Copy ``sd`` (from :meth:`state_dict`, on any device) into this
+        state in place. Parameters are written with ``copy_``, which bumps
+        their version counters, so the DRB blocks repack their weights; the
+        optimizers keep the saved ``foreach``/``fused`` choice and Adam's
+        ``step`` stays a CPU tensor, as foreach Adam keeps it."""
+        if (sd["g_ema"] is None) != (self.g_ema is None):
+            have = "has" if sd["g_ema"] is not None else "has no"
+            raise ValueError(f"the checkpoint {have} EMA generator, this state's "
+                             "hp.ema_decay says otherwise")
+        self.generator.load_state_dict(sd["generator"])
+        self.critic.load_state_dict(sd["critic"])
+        self.g_opt.load_state_dict(sd["g_opt"])
+        self.c_opt.load_state_dict(sd["c_opt"])
+        if self.g_ema is not None:
+            self.g_ema.load_state_dict(sd["g_ema"])
+        self.step = int(sd["step"])
 
 
 def make_train_state(config: Config, device: str | torch.device = "cuda") -> GANTrainState:
     """Seeded generator and critic on ``device``, each with its Adam, at
-    step 0. Both modules are left in train mode."""
+    step 0, and the EMA copy of the generator when ``hp.ema_decay > 0``.
+    Both networks are left in train mode."""
     gen = make_generator(config, device).train()
     critic = make_critic(config, device).train()
     return GANTrainState(step=0, generator=gen, critic=critic,
-                         g_opt=make_optimizer(config, gen), c_opt=make_optimizer(config, critic))
+                         g_opt=make_optimizer(config, gen), c_opt=make_optimizer(config, critic),
+                         g_ema=make_ema_generator(config, gen) if config.hp.ema_decay else None)

@@ -5,28 +5,40 @@ Per epoch: the batch order from ``epoch_permutation`` of
 ``np.random.default_rng((seed, epoch))``, every batch gathered on the
 device, the train step's metrics summed on the device, one host sync at
 the end of the epoch, ``gen_loss`` rescaled to its mean over the generator
-updates actually run, ``NonFiniteLossError`` on a non-finite mean, then a
-test pass over every test sample (:func:`full_split_metric_pass`).
-Checkpoints, tracking, plots, EMA, best-metric bundles and preemption come
-with later slices of the port.
+updates actually run; the means logged to the tracked run, and a
+``NonFiniteLossError`` on a non-finite mean before anything is
+checkpointed; then a test pass over every test sample
+(:func:`full_split_metric_pass`), which also scores the EMA generator when
+it selects a best epoch; the best bundle on an improvement; a checkpoint
+every ``save_every`` epochs. SIGTERM stops the loop at the next epoch
+boundary with the full state checkpointed, and :meth:`Trainer.maybe_resume`
+continues the exact trajectory. The host-fed and multi-host branches, grid
+plots and TensorBoard are not ported yet.
 """
 from __future__ import annotations
 
 import json
+import os
+import signal
+import sys
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.data.dataset import DeviceDataset
+from downgan_tpu_torch.inference import write_generator_bundle
 from downgan_tpu_torch.training.state import make_train_state
 from downgan_tpu_torch.training.wgan import (
     build_eval_metrics,
     build_train_step,
     g_updates_in_window,
 )
+
+EMA_SUFFIX = "__ema"
 
 
 class NonFiniteLossError(RuntimeError):
@@ -65,16 +77,31 @@ def full_split_metric_pass(ds: DeviceDataset, batch_size: int,
 class Trainer:
     """WGAN-GP trainer over device-resident train and test sets.
 
-    ``train(epochs)`` returns, and prints as one JSON line each, the
-    per-epoch records ``{"epoch", "steps", "seconds", "train",
-    "test"}`` (``test`` is absent without a test set); ``history`` keeps
-    every epoch's record. ``seconds`` is the train part of the epoch, to
-    its host sync. ``forwards`` counts the generator forwards by kind: the
-    train step's ``critic_fake``, ``update`` and ``metric``, and the test
-    pass's ``test``."""
+    ``train(epochs)`` returns the per-epoch records ``{"epoch", "steps",
+    "seconds", "train", "test"}`` (``test`` is absent without a test set or
+    after a preemption; ``test_ema`` holds the EMA generator's test means
+    when it is scored) and prints them as one JSON line each, every
+    ``print_every`` epochs; ``history`` keeps every epoch's record.
+    ``seconds`` is the train part of the epoch, to its host sync.
+    ``forwards`` counts the generator forwards by kind: the train step's
+    ``critic_fake``, ``update`` and ``metric``, the test pass's ``test``
+    and, when the EMA generator is scored, ``test_ema``.
+
+    ``run`` is an optional :class:`downgan_tpu_torch.tracking.Run`,
+    ``checkpoint_manager`` an optional
+    :class:`downgan_tpu_torch.utils.checkpoint.CheckpointManager`.
+    ``track_best`` names a test metric: after each test pass that improves
+    it (``best_mode`` "max" or "min", default "max" for MS-SSIM), the
+    serving weights (the EMA generator when ``hp.ema_decay > 0``, which is
+    then also what is scored) are written as a bundle to ``best_dir``
+    (default ``<run artifacts>/best``) beside a ``best.json``."""
 
     def __init__(self, config: Config, train: DeviceDataset,
-                 test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda"):
+                 test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda",
+                 run=None, checkpoint_manager=None, save_every: Optional[int] = None,
+                 print_every: Optional[int] = None, halt_on_nonfinite: bool = True,
+                 track_best: Optional[str] = None, best_mode: Optional[str] = None,
+                 best_dir: Optional[str] = None):
         self.config = config
         self.state = make_train_state(config, device)
         self.device = next(self.state.generator.parameters()).device
@@ -85,13 +112,93 @@ class Trainer:
             raise ValueError(f"{len(train)} training samples make no batch of "
                              f"{config.hp.batch_size}")
         self.train_ds, self.test_ds = train, test
+        self.run, self.ckpt = run, checkpoint_manager
+        self.save_every = config.hp.save_every if save_every is None else save_every
+        self.print_every = config.hp.print_every if print_every is None else print_every
+        if self.save_every < 1 or self.print_every < 1:
+            raise ValueError("save_every/print_every are epoch cadences and must be >= 1 "
+                             "(use a huge value to effectively disable)")
+        # No reference equivalent (the reference trains on through NaNs):
+        # stop on the first non-finite epoch, before it is checkpointed, so
+        # the latest checkpoint stays a good restore point.
+        self.halt_on_nonfinite = halt_on_nonfinite
+        self.preempted = False
+
+        self.track_best = track_best
+        self.best_value: Optional[float] = None
+        self.best_epoch: Optional[int] = None
+        if track_best:
+            if test is None:
+                raise ValueError("track_best selects on a TEST metric and needs a test dataset")
+            # The test pass emits exactly the configured metrics; any other
+            # name would never match and no bundle would be written.
+            known = set(config.hp.metrics_to_calculate)
+            if track_best not in known:
+                raise ValueError(f"track_best metric {track_best!r} is not produced by this "
+                                 f"run's test pass; available: {sorted(known)}")
+            if best_mode is None:
+                best_mode = "max" if track_best.upper().startswith("MSSSIM") else "min"
+            if best_mode not in ("max", "min"):
+                raise ValueError(f"best_mode must be 'max' or 'min', got {best_mode!r}")
+            if best_dir is None and run is not None:
+                best_dir = os.path.join(run.artifact_dir, "best")
+            if best_dir is None:
+                raise ValueError("track_best needs best_dir (or a tracked run whose "
+                                 "artifact dir provides the default <artifacts>/best)")
+        self.best_mode, self.best_dir = best_mode, best_dir
+
         self.epoch = 0
         self.history: List[dict] = []
         self.step_fn = build_train_step(config, self.state.generator, self.state.critic)
         self._eval = build_eval_metrics(config)
         self.forwards = self.step_fn.forwards
         self.forwards["test"] = 0
+        # The bundle holds the EMA weights, so selection scores them.
+        self._score_ema = bool(track_best) and self.state.g_ema is not None
+        if self._score_ema:
+            self.forwards["test_ema"] = 0
 
+    # -- resume and warm start -------------------------------------------
+    def maybe_resume(self) -> bool:
+        """Restore the latest checkpoint, if there is one, and continue at
+        the epoch after it (checkpoints are written after an epoch ends).
+        The best-epoch record is read back from ``best.json`` when it
+        tracks the same metric and mode, so the first test pass after a
+        resume does not overwrite a better bundle. Returns whether it
+        resumed."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return False
+        last = self.ckpt.latest_step()
+        self.state.load_state_dict(self.ckpt.restore(last))
+        self.epoch = last + 1
+        if self.track_best:
+            best_json = os.path.join(self.best_dir, "best.json")
+            if os.path.exists(best_json):
+                with open(best_json) as f:
+                    rec = json.load(f)
+                if rec.get("metric") == self.track_best and rec.get("mode") == self.best_mode:
+                    self.best_value = float(rec["value"])
+                    self.best_epoch = int(rec.get("epoch", -1))
+        print(f"resumed from checkpoint of epoch {last}; continuing at epoch {self.epoch}",
+              file=sys.stderr, flush=True)
+        return True
+
+    def warm_start(self, g_weights: Mapping[str, torch.Tensor],
+                   c_weights: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+        """Start from pretrained weights (a bundle's): the generator's, the
+        EMA reset to them, and optionally the critic's. Optimizer states and
+        the step stay fresh. Call before training, after
+        :meth:`maybe_resume` (a resume supersedes a warm start)."""
+        self.state.generator.load_state_dict(g_weights)
+        if self.state.g_ema is not None:
+            self.state.g_ema.load_state_dict(g_weights)
+        if c_weights is not None:
+            self.state.critic.load_state_dict(c_weights)
+        what = "generator+critic" if c_weights is not None else "generator"
+        print(f"warm start: {what} params loaded; optimizer state and step counter start fresh",
+              file=sys.stderr, flush=True)
+
+    # -- epoch internals ---------------------------------------------------
     def _epoch_rng(self) -> np.random.Generator:
         """Permutations are a pure function of (seed, epoch), as in the JAX
         package's trainer."""
@@ -115,29 +222,127 @@ class Trainer:
         return n, means
 
     def run_test_pass(self) -> Dict[str, float]:
-        gen, critic = self.state.generator, self.state.critic
+        """Test means of the live generator and, when the EMA generator is
+        scored, of it too under ``<name>__ema`` keys, from the same batches
+        in one pass (the JAX package's ``build_eval_metrics_pair``)."""
+        gen, critic, ema = self.state.generator, self.state.critic, self.state.g_ema
 
         def eval_batch(coarse, fine):
             self.forwards["test"] += 1
-            return self._eval(gen, critic, coarse, fine)
+            out = self._eval(gen, critic, coarse, fine)
+            if self._score_ema:
+                self.forwards["test_ema"] += 1
+                out.update({k + EMA_SUFFIX: v for k, v in self._eval(ema, critic, coarse,
+                                                                     fine).items()})
+            return out
 
         return full_split_metric_pass(self.test_ds, self.config.hp.batch_size, eval_batch)
 
+    def _update_best(self, means: Dict[str, float]) -> None:
+        """On an improvement of the tracked metric in ``means`` (the test
+        means of the serving weights), write those weights as a bundle and
+        ``best.json`` (``metric``, ``mode``, ``value``, ``epoch``, ``ema``)."""
+        use_ema = self.state.g_ema is not None
+        if use_ema and self.run is not None and self.track_best in means:
+            self.run.log_metrics({f"{self.track_best}_ema_test": float(means[self.track_best])},
+                                 step=self.epoch)
+        val = means.get(self.track_best)
+        if val is None or not np.isfinite(val):
+            return
+        if self.best_value is not None and not (
+                val > self.best_value if self.best_mode == "max" else val < self.best_value):
+            return
+        self.best_value, self.best_epoch = float(val), self.epoch
+        serving = self.state.g_ema if use_ema else self.state.generator
+        write_generator_bundle(self.best_dir, self.config, serving.state_dict())
+        with open(os.path.join(self.best_dir, "best.json"), "w") as f:
+            json.dump({"metric": self.track_best, "mode": self.best_mode,
+                       "value": self.best_value, "epoch": self.epoch, "ema": use_ema}, f, indent=2)
+        if self.run is not None:
+            self.run.log_metrics({f"best_{self.track_best}_test": self.best_value}, step=self.epoch)
+
+    def _log_epoch(self, split: str, means: Dict[str, float]) -> None:
+        if self.run is None:
+            return
+        self.run.log_metrics({f"{k}_{split}": v for k, v in means.items()}, step=self.epoch)
+        self.run.append_csv_row(f"{split}_metrics.csv", {"epoch": self.epoch, **means})
+
+    def _install_preemption_handler(self):
+        """SIGTERM -> a clean stop at the next epoch boundary with the full
+        state checkpointed (spot reclaims, maintenance, evictions send
+        SIGTERM; its default action would lose everything since the last
+        checkpoint). The handler only sets a flag. Returns ``(installed,
+        previous_handler)``; off the main thread nothing is installed."""
+        if threading.current_thread() is not threading.main_thread():
+            return False, None
+
+        def on_term(signum, frame):
+            self.preempted = True
+
+        try:
+            return True, signal.signal(signal.SIGTERM, on_term)
+        except ValueError:  # an embedded interpreter that refuses handlers
+            return False, None
+
+    # -- main loop ---------------------------------------------------------
     def train(self, epochs: Optional[int] = None) -> List[dict]:
         epochs = self.config.hp.epochs if epochs is None else epochs
         first = len(self.history)
+        installed, previous = self._install_preemption_handler()
+        try:
+            self._train_loop(epochs)
+            # Saved while the handler is still installed, so a second
+            # SIGTERM during the save sets the flag instead of killing the
+            # process mid-write. An epochs=0 run trained nothing and writes
+            # no checkpoint a later resume would pick up.
+            if self.ckpt is not None and self.epoch > 0:
+                self.ckpt.save(self.epoch - 1, self.state)
+                self.ckpt.wait()
+        finally:
+            if installed:
+                # None: the previous handler was set outside Python and
+                # cannot be restored; the default action is.
+                signal.signal(signal.SIGTERM, previous if previous is not None else signal.SIG_DFL)
+        return self.history[first:]
+
+    def _train_loop(self, epochs: int) -> None:
         while self.epoch < epochs:
             t0 = time.perf_counter()
             n, train_means = self.run_train_epoch()  # ends in a host sync
             record = {"epoch": self.epoch, "steps": n, "seconds": time.perf_counter() - t0,
                       "train": train_means}
+            self._log_epoch("train", train_means)
             bad = sorted(k for k, v in train_means.items() if not np.isfinite(v))
-            if bad:
+            if bad and self.halt_on_nonfinite:
                 raise NonFiniteLossError(
-                    f"non-finite training metrics at epoch {self.epoch}: {bad}")
-            if self.test_ds is not None and len(self.test_ds) > 0:
-                record["test"] = self.run_test_pass()
-            print(json.dumps(record), flush=True)
+                    f"non-finite training metrics at epoch {self.epoch}: {bad} — state not "
+                    "checkpointed; restore the last checkpoint and lower lr / inspect data "
+                    "(set halt_on_nonfinite=False to train through)")
+            # Checked straight after the train epoch: within a preemption's
+            # grace period the test pass and the best bundle would take the
+            # time the checkpoint needs.
+            stopping = self.preempted
+            if not stopping and self.test_ds is not None and len(self.test_ds) > 0:
+                means = self.run_test_pass()
+                record["test"] = {k: v for k, v in means.items() if not k.endswith(EMA_SUFFIX)}
+                self._log_epoch("test", record["test"])
+                if self._score_ema:
+                    record["test_ema"] = {k[:-len(EMA_SUFFIX)]: v for k, v in means.items()
+                                          if k.endswith(EMA_SUFFIX)}
+                if self.track_best:
+                    self._update_best(record.get("test_ema", record["test"]))
+            if self.ckpt is not None and self.epoch % self.save_every == 0:
+                self.ckpt.save(self.epoch, self.state)
+            if self.epoch % self.print_every == 0:
+                print(json.dumps(record), flush=True)
             self.history.append(record)
             self.epoch += 1
-        return self.history[first:]
+            # Checked again, so a SIGTERM that lands during the test pass or
+            # the save stops here rather than after one more train epoch.
+            if stopping or self.preempted:
+                tail = ("full state checkpointed; resume continues the exact trajectory"
+                        if self.ckpt is not None else
+                        "no checkpoint manager configured; state NOT saved")
+                print(f"preempted (SIGTERM): stopping after epoch {self.epoch - 1}; {tail}",
+                      file=sys.stderr, flush=True)
+                break

@@ -1,7 +1,7 @@
 """WGAN-GP train step, reference schedule (counterpart of
 ``downgan_tpu/training/wgan.py``: ``gradient_penalty``, the reference
 branch of ``make_loss_fns``, ``g_updates_in_window``, ``build_train_step``
-and ``build_eval_metrics``).
+and ``build_eval_metrics``, and ``_ema_update``).
 
 Per batch, as ``wgan.py:313-440``:
   1. a critic update on every step, on a fake made without a graph (the
@@ -12,16 +12,18 @@ Per batch, as ``wgan.py:313-440``:
   3. a metric pass (MAE/MSE/MSSSIM/Wass) on a fresh fake from the
      post-update generator and the post-update critic: the test pass's
      :func:`build_eval_metrics` on the training batch.
+After a generator update the EMA generator, when there is one, moves
+toward the new weights (:func:`ema_update`, ``wgan.py:290-295,397``).
 Metrics come back as device scalars; nothing in the step waits for the
-card. The GP's per-sample alpha is drawn from a device ``torch.Generator``
-seeded with ``config.seed``, or passed in: the JAX package draws it from
-``fold_in(rng, step)``, a stream torch cannot reproduce, so parity tests
-inject it.
+card. The GP's per-sample alpha is :func:`gp_alpha` of ``(config.seed,
+step)``, or passed in: the JAX package draws it from ``fold_in(rng,
+step)``, a stream torch cannot reproduce, so parity tests inject it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -63,6 +65,27 @@ def generator_loss(config: Config, gen: nn.Module, critic: nn.Module, coarse: to
     return -critic(fake).mean() * hp.gamma + hp.content_lambda * content_loss(fake, fine)
 
 
+def gp_alpha(seed: int, step: int, batch: int, device: torch.device) -> torch.Tensor:
+    """The GP's per-sample alpha (batch, 1, 1, 1), U[0, 1), at ``step``:
+    drawn from a generator on ``device`` seeded from ``(seed, step)``, so
+    it is a pure function of the two, like the JAX package's
+    ``fold_in(rng, step)``, and a resumed run draws what an uninterrupted
+    one would have."""
+    step_seed = int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
+    rng = torch.Generator(device=device).manual_seed(step_seed)
+    return torch.rand((batch, 1, 1, 1), generator=rng, device=device)
+
+
+@torch.no_grad()
+def ema_update(decay: float, ema: nn.Module, params: Sequence[torch.Tensor]) -> None:
+    """``e = decay * e + (1 - decay) * p`` over ``ema``'s parameters, in
+    place, as two foreach passes: in-place writes bump the version
+    counters, so the EMA generator's DRB blocks repack their weights."""
+    ema_params = list(ema.parameters())
+    torch._foreach_mul_(ema_params, decay)
+    torch._foreach_add_(ema_params, list(params), alpha=1.0 - decay)
+
+
 def g_updates_in_window(start_step: int, n_steps: int, critic_iterations: int) -> int:
     """Generator updates the reference schedule performs over steps
     ``[start_step, start_step + n_steps)``: the steps where
@@ -102,8 +125,8 @@ def build_train_step(config: Config, gen: nn.Module,
     is the :class:`GANTrainState` holding these two modules; it updates
     both networks and ``state.step`` in place.
 
-    ``alpha`` (B, 1, 1, 1) is drawn, when omitted, from a generator on the
-    batch's device seeded with ``config.seed``. ``step.forwards`` counts
+    ``alpha`` (B, 1, 1, 1) is, when omitted, :func:`gp_alpha` of
+    ``(config.seed, state.step)``. ``step.forwards`` counts
     the generator forwards it runs, by kind: ``critic_fake``, ``update``
     and ``metric``.
     """
@@ -113,18 +136,13 @@ def build_train_step(config: Config, gen: nn.Module,
     g_params = [p for p in gen.parameters()]
     c_params = [p for p in critic.parameters()]
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
-    alpha_rng = None
 
     def step(state: GANTrainState, coarse: torch.Tensor, fine: torch.Tensor,
              alpha: Optional[torch.Tensor] = None) -> Metrics:
-        nonlocal alpha_rng
         if state.generator is not gen or state.critic is not critic:
             raise ValueError("this step was built for other modules than the state's")
         if alpha is None:
-            if alpha_rng is None:
-                alpha_rng = torch.Generator(device=fine.device).manual_seed(config.seed)
-            alpha = torch.rand((fine.shape[0], 1, 1, 1), generator=alpha_rng,
-                               device=fine.device)
+            alpha = gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
 
         # ---- critic update; no gradient reaches the generator
         with torch.no_grad():
@@ -142,6 +160,8 @@ def build_train_step(config: Config, gen: nn.Module,
             forwards["update"] += 1
             g_loss.backward(inputs=g_params)
             state.g_opt.step()
+            if state.g_ema is not None:
+                ema_update(hp.ema_decay, state.g_ema, g_params)
             g_loss = g_loss.detach()
         else:
             g_loss = torch.zeros((), device=fine.device)

@@ -15,6 +15,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from downgan_tpu_torch.utils.checkpoint import load_params
+
 
 def conv_from_flax(leaf: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     """One flax conv leaf ``{'kernel': HWIO, 'bias'}`` -> ``{prefix.weight:
@@ -79,9 +81,10 @@ def critic_state_dict_from_flax(params: Mapping, base: int = 16,
 
 
 def load_generator_weights(path: str) -> Dict[str, torch.Tensor]:
-    """Read a generator state dict written by ``downgan_tpu.cli
-    export-torch`` (a ``torch.save``d dict of tensors) onto the CPU."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    """Read a generator state dict onto the CPU: a bundle's
+    ``generator.pt`` or the file ``downgan_tpu.cli export-torch`` writes
+    (both a ``torch.save``d dict of tensors under the reference keys)."""
+    sd = load_params(path)
     if not isinstance(sd, dict) or "conv1.weight" not in sd:
         raise ValueError(f"{path} is not a DoWnGAN generator state_dict "
                          "(no conv1.weight)")

@@ -1,6 +1,6 @@
 """The port's training slice against the JAX package's: six train steps on
 the same weights, batches and alphas (losses, metrics, the generator-update
-schedule, parameters after steps 0 and 5); the synthetic set and the batch
+schedule, parameters and the EMA generator after steps 0 and 5); the synthetic set and the batch
 order, bit for bit; the Trainer's epoch loop, ``gen_loss`` rescale and test
 pass; the ``train`` CLI; and every refusal of an unported option."""
 import copy
@@ -65,6 +65,10 @@ STEP0_ATOL = 1e-5
 # +-1 for any nonzero gradient of stable sign): every element within
 # 2 * lr, and the bulk (the median) within 1e-6.
 ADAM_ATOL = 2 * 2.5e-4
+# The EMA generator on both sides: 0.5 moves it half way to the live
+# weights at each generator update, so after step 5 it differs from both
+# the initial and the live weights.
+EMA_DECAY = 0.5
 
 
 def nchw(a):
@@ -80,15 +84,16 @@ def port_weights_of(jax_g_params, jax_c_params):
 @pytest.fixture(scope="module")
 def six_steps():
     """Six steps of both packages from the same weights, on the same
-    batches, the JAX alphas passed to the port. One compile of the JAX
-    step for the module."""
-    jcfg = JaxConfig(hp=JaxHyperParams(batch_size=B), **KW)
-    cfg = Config(hp=HyperParams(batch_size=B), **KW)
+    batches, the JAX alphas passed to the port, the generator EMA on. One
+    compile of the JAX step for the module."""
+    jcfg = JaxConfig(hp=JaxHyperParams(batch_size=B, ema_decay=EMA_DECAY), **KW)
+    cfg = Config(hp=HyperParams(batch_size=B, ema_decay=EMA_DECAY), **KW)
     jgen, g_params = flax_generator(jcfg, cfg, seed=0)
     jcritic, c_params, _ = flax_critic(jcfg, seed=1)
     tx = jax_make_optimizer(jcfg)
     jstate = JaxState(step=jnp.zeros((), jnp.int32), g_params=g_params, c_params=c_params,
-                      g_opt_state=tx.init(g_params), c_opt_state=tx.init(c_params))
+                      g_opt_state=tx.init(g_params), c_opt_state=tx.init(c_params),
+                      g_ema=jax.tree.map(jnp.copy, g_params))
     jstep = jax.jit(jax_build_train_step(jcfg, jgen, jcritic))
     coarse, fine = synthetic_dataset(n_samples=B * N_STEPS, seed=3)
     rng = jax.random.PRNGKey(7)
@@ -96,10 +101,12 @@ def six_steps():
     state = make_train_state(cfg, "cpu")
     gen_sd, critic_sd = port_weights_of(g_params, c_params)
     state.generator.load_state_dict(gen_sd)
+    state.g_ema.load_state_dict(gen_sd)
     state.critic.load_state_dict(critic_sd)
     step = build_train_step(cfg, state.generator, state.critic)
 
-    out = {"jax": [], "port": [], "jax_params": [], "port_params": []}
+    out = {"jax": [], "port": [], "jax_params": [], "port_params": [], "jax_ema": [],
+           "port_ema": []}
     for i in range(N_STEPS):
         rows = slice(B * i, B * (i + 1))
         jstate, jm = jstep(jstate, jnp.asarray(coarse[rows]), jnp.asarray(fine[rows]), rng)
@@ -110,6 +117,8 @@ def six_steps():
         out["jax_params"].append(port_weights_of(jstate.g_params, jstate.c_params))
         out["port_params"].append((copy.deepcopy(state.generator.state_dict()),
                                    copy.deepcopy(state.critic.state_dict())))
+        out["jax_ema"].append(port_weights_of(jstate.g_ema, jstate.c_params)[0])
+        out["port_ema"].append(copy.deepcopy(state.g_ema.state_dict()))
     out["state"], out["forwards"] = state, dict(step.forwards)
     return out
 
@@ -148,6 +157,21 @@ def test_parameters_match_jax(six_steps, net, i):
     else:
         assert diff.max() <= ADAM_ATOL and np.median(diff) <= 1e-6
         assert np.median(moved) > 100 * 1e-6  # the bulk check has teeth: the weights moved
+
+
+@pytest.mark.parametrize("i", [0, 5], ids=["after_step0", "after_step5"])
+def test_ema_generator_matches_jax(six_steps, i):
+    """The port's ``g_ema`` against the JAX ``g_ema`` (``e = d*e + (1-d)*p``
+    after each generator update), at the bound the parameters use."""
+    ref, got = six_steps["jax_ema"][i], six_steps["port_ema"][i]
+    live = six_steps["port_params"][i][0]
+    assert set(ref) == set(got)
+    diff = np.concatenate([(got[k] - ref[k]).abs().numpy().ravel() for k in ref])
+    assert diff.max() <= (STEP0_ATOL if i == 0 else ADAM_ATOL) and np.median(diff) <= 1e-6
+    # it is neither the live weights nor (after step 5) the step-0 EMA
+    assert max((got[k] - live[k]).abs().max().item() for k in ref) > 100 * 1e-6
+    if i:
+        assert max((got[k] - six_steps["port_ema"][0][k]).abs().max().item() for k in ref) > 1e-4
 
 
 @pytest.mark.parametrize("kw", [dict(n_samples=6), dict(n_samples=5, coarse_size=8, fine_size=64,
@@ -280,7 +304,8 @@ def tiny_config_file(tmp_path, **hp):
 
 def test_cli_train_runs_on_cpu(tmp_path, capsys):
     trainer = main(["train", "--config", tiny_config_file(tmp_path), "--synthetic",
-                    "--samples", "14", "--epochs", "2", "--device", "cpu", "--seed", "3"])
+                    "--samples", "14", "--epochs", "2", "--device", "cpu", "--seed", "3",
+                    "--tracking-root", str(tmp_path / "exps")])
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["epoch"] for ln in lines] == [0, 1]
     assert [ln["steps"] for ln in lines] == [6, 6]  # int(0.9 * 14) = 12 training samples
@@ -299,13 +324,12 @@ def test_cli_train_refuses_without_synthetic_and_without_a_card(tmp_path, capsys
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["train", "--config", tiny_config_file(tmp_path), "--synthetic", "--samples", "14",
-              "--epochs", "1"])
+              "--epochs", "1", "--tracking-root", str(tmp_path / "exps")])
 
 
 UNPORTED = {
     "lr_schedule": dict(lr_schedule="cosine", lr_decay_steps=10),
     "lr_warmup_steps": dict(lr_warmup_steps=5),
-    "ema_decay": dict(ema_decay=0.999),
     "grad_accum": dict(grad_accum=2),
     "schedule_fused": dict(schedule="fused"),
     "freq_sep": dict(freq_sep=True),
