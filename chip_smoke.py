@@ -9,56 +9,74 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device   -- the card (``nvidia-smi`` name and power limit on a line of
                its own), torch and CUDA versions;
-2. build    -- builds ``downgan_tpu_torch/ops/cuda/drb.cu`` for sm_90a from
-               the checkout, with the compiler's register report (and fails
-               on a spill);
-3. kernel   -- the DRB kernel against its plain PyTorch twin on the card
+2. build    -- builds ``downgan_tpu_torch/ops/cuda/drb.cu`` (the fp32 and the
+               bf16 DRB kernel) for sm_90a from the checkout, with the
+               compiler's register report (and fails on a spill);
+3. kernel   -- the fp32 DRB kernel against its plain PyTorch twin on the card
                (TF32 off), at the generator's shapes, domain bands, images of
                several 16x16 tiles (halo'd on every side, ragged) and F=8;
                at B=150 (serving), B=128 (training) and a domain band it
                times the kernel, the twin and the cuDNN five-conv chain
                beside the kernel's bound (the 3xTF32 tensor-core floor, or
                the bytes if they take longer);
-4. generator-- the florida generator at full width (1,696,514 params,
+4. kernel_bf16 -- the bf16 DRB kernel and its bf16 twin, both held to a
+               float64 evaluation of the same function, at B=150, B=128, the
+               band, a ragged image and F=8; times at the first three beside
+               the twin, the bf16 cuDNN chain and the bound (the bf16
+               tensor-core rate, or the bytes);
+5. generator-- the florida generator at full width (1,696,514 params,
                seeded weights): the kernel path against every DRB on the
                plain twin at B=150, against the CPU at B=2, and its forward
-               throughput;
-5. profile  -- ``torch.profiler`` over 3 forwards at B=150: device time by
+               throughput; generator_bf16 the same in bf16 (48 bf16 launches
+               a forward) beside the fp32 forward's time;
+6. profile  -- ``torch.profiler`` over 3 forwards at B=150: device time by
                kernel name (a report: where the profiler sees no device
                time it says so and the run goes on);
-6. serving  -- the serving path: ``serve_model(BatchingSRModel(...))``
+7. serving  -- the serving path: ``serve_model(BatchingSRModel(...))``
                answers concurrent /v1/generate requests and a
                /v1/generate-domain request over HTTP; responses are checked
                against direct calls, /metrics against the traffic, and the
                DRB kernel's launch count (reset just before) against 48 per
                dispatch;
-7. drb_grad -- ``DRBFunction`` (the kernel's forward, a cuDNN recompute as
+8. drb_grad -- ``DRBFunction`` (the kernel's forward, a cuDNN recompute as
                its backward) against autograd through the plain twin at the
                training batch, B=128, and the backward's time beside the
-               kernel's and the cuDNN chain's;
-8. train_parity -- six florida train steps (full width, batch 4) on the card
+               kernel's and the cuDNN chain's; drb_grad_bf16 in bf16 against
+               the float64 gradient;
+9. train_parity -- six florida train steps (full width, batch 4) on the card
                and on the CPU from the same weights and alphas: step-0
                gradients, per-step losses and metrics, the final parameters,
                48 DRB launches per generator forward, and the kernel path
                after a generator update against the plain-twin path (the
-               packed weights were refreshed);
-9. training -- the training path: ``cli train --config examples/florida.json
+               packed weights were refreshed); fused_parity one fused round
+               of examples/production_tuned.json at batch 4, card against
+               CPU, in fp32 (the same tolerances) and in bf16 (loose ones);
+10. training -- the training path: ``cli train --config examples/florida.json
                --synthetic --samples 1440 --epochs 2`` in-process at florida
                batch 128, its epoch means, 48 DRB launches in each of its
                generator forwards (counted by kind), step times with CUDA
                events, peak memory, the step's parts timed alone, and a
                ``torch.profiler`` split of one 5-step round by kernel class;
-10. resume  -- the same command, checkpointed, sent SIGTERM after its step 3
-               and run again with ``--resume``, against an uninterrupted run
-               (epoch-1 means, every parameter and Adam moment: bit for bit,
-               cuDNN deterministic), once plain and once with
-               ``hp.ema_decay = 0.999`` and ``--track-best MSSSIM``; the best
-               bundle, restored through ``serve --checkpoint``'s resolution,
-               served over HTTP against the EMA generator's direct forward;
-               48 DRB launches in every generator forward (test passes and
-               EMA scoring included); the kernel path against the twin after
-               EMA updates and after a checkpoint load; checkpoint bytes and
-               save and load times.
+11. training_tuned -- the tuned path: ``cli train --config
+               examples/production_tuned.json --synthetic --samples 1440
+               --epochs 2`` (bf16, fused 5-critic rounds, the metric pass on
+               the reused fake): 2 rounds an epoch, 28 generator forwards,
+               1,344 bf16 DRB launches, round times, peak memory, the parts
+               and a profiler split of the bf16 critic update and a round;
+12. serving_bf16 -- that run restored as ``serve --checkpoint`` restores it
+               (a bf16 model) and served over HTTP, patches and a domain
+               request against the bf16 model's direct forward;
+13. resume  -- the same command as 10, checkpointed, sent SIGTERM after its
+               step 3 and run again with ``--resume``, against an
+               uninterrupted run (epoch-1 means, every parameter and Adam
+               moment: bit for bit, cuDNN deterministic), once plain and once
+               with ``hp.ema_decay = 0.999`` and ``--track-best MSSSIM``; the
+               best bundle, restored through ``serve --checkpoint``'s
+               resolution, served over HTTP against the EMA generator's direct
+               forward; 48 DRB launches in every generator forward (test
+               passes and EMA scoring included); the kernel path against the
+               twin after EMA updates and after a checkpoint load; checkpoint
+               bytes and save and load times.
 
 Then it prints ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -71,6 +89,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import signal
@@ -121,12 +140,42 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 # agree to 1e-5.
 ADAM_ATOL_PER_UPDATE, ADAM_MEDIAN_ATOL = 2 * 2.5e-4, 1e-5
 B_MAIN = 150  # Config.chunk_size and the serving batch
-B_TRAIN = 128  # hp.batch_size of examples/florida.json
-B_PARITY = 4  # the train_parity phase's batch (the CPU side's cost)
+B_TRAIN = 128  # hp.batch_size of examples/florida.json and production_tuned.json
+B_PARITY = 4  # the train_parity and fused_parity phases' batch (the CPU side's cost)
+BF16 = torch.bfloat16
+# The bf16 kernel against the bf16 twin (tests/test_torch_drb.py): both are
+# held to a float64 evaluation of the same function (same bf16 inputs, same
+# three rounding points); the kernel's largest error may be at most 1.25x
+# the twin's, or one bf16 ulp of the output's largest magnitude if that is
+# larger (an element whose fp32 sum lands next to a rounding boundary flips
+# by its own ulp); kernel and twin at most 2 such ulps apart.
+BF16_VS_FP64_TWIN_FACTOR, BF16_KERNEL_VS_TWIN_ULPS = 1.25, 2
+# The bf16 florida generator, kernel path against every DRB on the bf16
+# twin, relative to the output's largest magnitude: the two paths' DRBs
+# are each one rounding flip apart in a few elements (one bf16 ulp is 2**-8
+# of a value), carried through 48 blocks and the upsampling convs
+# (measured on the H100: 8.0e-3).
+GEN_BF16_REL = 2e-2
+# A bf16 fused round at batch 4, card against CPU (tests/test_torch_fused.py
+# holds the CPU port to JAX's bf16 round the same way): losses and metrics
+# to 2e-2 relative or 1e-3 absolute; every parameter within 2 * lr per
+# update (Adam's first steps are lr * sign(g), and a small gradient's sign
+# can differ between cuDNN's bf16 convolutions and the CPU's; one such
+# element of the generator measured 2 * lr apart on the H100), the median
+# element within 1e-4 (measured: 1.4e-5).
+BF16_STEP_RTOL, BF16_STEP_ATOL, BF16_MEDIAN_ATOL = 2e-2, 1e-3, 1e-4
+# DRBFunction in bf16 at B=128 against the float64 gradient of the same
+# block, relative to each gradient's largest entry: a bf16 backward rounds
+# every conv's output gradient (tests/test_torch_drb.py; measured on the
+# H100: 3.9e-2 at worst, a bias gradient).
+BF16_GRAD_TOL = 6e-2
 # Dense peaks (NVIDIA data sheets, no sparsity), at the card's full power
-# limit: fp32 outside the tensor cores and TF32 on them in TFLOP/s, HBM in TB/s.
-PEAKS = (("H100 PCIe", 51.2, 378.0, 2.0), ("H100 NVL", 60.0, 417.5, 3.9),
-         ("H100", 67.0, 495.0, 3.35), ("H200", 67.0, 495.0, 4.8))
+# limit, in TFLOP/s: fp32 outside the tensor cores, TF32 and bf16 on them;
+# HBM in TB/s.
+PEAKS = (("H100 PCIe", dict(fp32=51.2, tf32=378.0, bf16=756.0, hbm=2.0)),
+         ("H100 NVL", dict(fp32=60.0, tf32=417.5, bf16=835.5, hbm=3.9)),
+         ("H100", dict(fp32=67.0, tf32=495.0, bf16=989.0, hbm=3.35)),
+         ("H200", dict(fp32=67.0, tf32=495.0, bf16=989.0, hbm=4.8)))
 
 
 T0 = time.perf_counter()
@@ -143,11 +192,16 @@ def check(ok: bool, message: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls. The
+    card first spins for ~2 ms (``torch.cuda._sleep``), so the host queues
+    the calls ahead of it and a kernel shorter than its launch's host work
+    (the bf16 DRB kernel: ~0.03 ms) is timed on the device, not at the
+    host's launch rate."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -156,11 +210,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def card_peaks(name: str):
-    for key, *rates in PEAKS:
+def card_peaks(name: str) -> dict:
+    for key, rates in PEAKS:
         if key in name:
             return rates
     raise RuntimeError(f"no peak rates known for {name!r}")
+
+
+def bf16_ulp(magnitude: float) -> float:
+    """The spacing of bf16 values at ``magnitude`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(magnitude)) - 7)
+
+
+def reset_launch_counts() -> None:
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    drb_forward.launches = drb_forward.launches_bf16 = 0
 
 
 def drb_params(f: int, rng: torch.Generator, device):
@@ -202,8 +267,23 @@ def phase_device():
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, torch_name=name, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
+         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
+         packages=package_versions(("h5py", "netCDF4", "xarray", "scipy", "yaml", "click")))
     return smi, name
+
+
+def package_versions(names) -> dict:
+    """Each package's version, or null where it does not import (what later
+    slices, e.g. the NetCDF data tiers on h5py, can count on here)."""
+    import importlib
+
+    out = {}
+    for pkg in names:
+        try:
+            out[pkg] = getattr(importlib.import_module(pkg), "__version__", "present")
+        except ImportError:
+            out[pkg] = None
+    return out
 
 
 def phase_build():
@@ -214,10 +294,11 @@ def phase_build():
     seconds = time.perf_counter() - t0
     lines = drb.library_path().with_suffix(".log").read_text().splitlines()
     usage, instance = {}, "?"
-    for ln in lines:  # "Compiling entry function '..drb_kernelILi16ELi18EE..'", then "Used"
-        found = re.search(r"drb_kernelILi(\d+)ELi(\d+)E", ln)
+    for ln in lines:  # "Compiling entry function '..drb_kernel_bf16ILi16ELi18EE..'", then "Used"
+        found = re.search(r"drb_kernel(_bf16)?ILi(\d+)ELi(\d+)E", ln)
         if found:
-            instance = "F={} pitch={}".format(*found.groups())
+            instance = "{} F={} pitch={}".format("bf16" if found.group(1) else "fp32",
+                                                 *found.groups()[1:])
         elif "Used" in ln:
             usage[instance] = ln.split(":", 1)[1].strip()
     spills = [ln.strip() for ln in lines
@@ -225,6 +306,8 @@ def phase_build():
     emit("build", seconds=seconds, library=str(drb.library_path().relative_to(ROOT)),
          ptxas=usage, spills=spills)
     check(not spills, f"the DRB kernel spills registers: {spills}")
+    check(len(usage) == 8, f"expected 8 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
+          f"2 pitches), the compiler reports {sorted(usage)}")
 
 
 def time_drb(x, ws, bs, want, peaks):
@@ -249,7 +332,7 @@ def time_drb(x, ws, bs, want, peaks):
     finally:
         torch.backends.cudnn.allow_tf32 = False
     b, f, h, w = x.shape
-    fp32_tflops, tf32_tflops, tbps = peaks
+    fp32_tflops, tf32_tflops, tbps = peaks["fp32"], peaks["tf32"], peaks["hbm"]
     flops = drb_flops(b, f, h, w)
     nbytes = 2 * x.numel() * 4 + packed.numel() * 4
     floor_ms = 3 * flops / (tf32_tflops * 1e12) * 1e3
@@ -504,9 +587,161 @@ def phase_drb_grad(rng, peaks, timing_b128):
     return backward_ms
 
 
+def phase_drb_grad_bf16(rng, timing_b128):
+    """DRBFunction in bf16 (the bf16 kernel's forward, the bf16 cuDNN
+    recompute as its backward) at B=128 against the float64 gradient of
+    the same block (tests/test_torch_drb.py's criterion), and the bf16
+    backward's time."""
+    from downgan_tpu_torch.ops.cuda.drb import (DRBFunction, cudnn_chain, drb_backward,
+                                                drb_forward, pack_drb_weights)
+
+    ws, bs = drb_params(16, rng, "cuda")
+    x = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda().to(BF16)
+    weight = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda().to(BF16)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
+    before = drb_forward.launches_bf16
+    out = DRBFunction.apply(leaves[0], pack_drb_weights(ws, bs, BF16), *leaves[1:])
+    got = torch.autograd.grad((out.float() * weight.float()).sum(), leaves)
+    launched = drb_forward.launches_bf16 - before
+    exact = [t.detach().to(BF16).double().requires_grad_() for t in (x, *ws, *bs)]
+    want = torch.autograd.grad((cudnn_chain(exact[0], exact[1:6], exact[6:])
+                                * weight.double()).sum(), exact)
+    torch.cuda.synchronize()
+    names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
+    errors = {n: ((g.double() - w).abs().max() / w.abs().max()).item()
+              for n, g, w in zip(names, got, want)}
+    worst = max(errors.values())
+    check(launched == 1 and worst <= BF16_GRAD_TOL,
+          f"bf16 DRBFunction gradients vs float64: {errors} ({launched} bf16 launches)")
+    backward_ms = cuda_ms(lambda: drb_backward(x, ws, bs, weight), iters=20)
+    emit("drb_grad_bf16", shape=[B_TRAIN, 16, 16, 16], max_err_relative_to_largest_vs_fp64=errors,
+         tolerance=BF16_GRAD_TOL, kernel_forward_ms=timing_b128["ms"],
+         backward_ms_cudnn_recompute=backward_ms, cudnn_chain_forward_ms=timing_b128["library_ms"])
+    return backward_ms
+
+
+def time_drb_bf16(x, ws, bs, peaks):
+    """The bf16 kernel's, its twin's and the bf16 cuDNN chain's times for
+    one DRB input, beside the kernel's bound: the larger of its FLOP at the
+    bf16 tensor-core rate and its bytes (x and out in bf16, the packed
+    weights) at the memory rate."""
+    from downgan_tpu_torch.ops.cuda.drb import (cudnn_chain, drb_forward, drb_forward_reference,
+                                                pack_drb_weights)
+
+    packed = pack_drb_weights(ws, bs, BF16)
+    kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed), iters=50)
+    plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs), iters=20)
+    library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
+    b, f, h, w = x.shape
+    flops = drb_flops(b, f, h, w)
+    nbytes = 2 * x.numel() * 2 + packed.numel() * 4
+    flop_ms = flops / (peaks["bf16"] * 1e12) * 1e3
+    bytes_ms = nbytes / (peaks["hbm"] * 1e12) * 1e3
+    bound_ms = max(flop_ms, bytes_ms)
+    timing = dict(shape=[b, f, h, w], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by="operations" if flop_ms >= bytes_ms else "bytes",
+                  bf16_floor_ms=flop_ms, bytes_ms=bytes_ms, share_of_bound=bound_ms / kernel_ms,
+                  vs_library=library_ms / kernel_ms, flops=flops, bytes=nbytes,
+                  bf16_tflops_peak=peaks["bf16"], hbm_tbps_peak=peaks["hbm"],
+                  achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12,
+                  ctas=b * -(-h // 16) * -(-w // 16))
+    emit("kernel_bf16_timing", **timing)
+    return timing
+
+
+def phase_kernel_bf16(rng, peaks):
+    """The bf16 kernel against its bf16 twin, both held to a float64
+    evaluation of the same function, at the generator's shapes (B=150, the
+    serving batch; B=128, the tuned training batch), the domain band, a
+    ragged image and F=8; times at the first three."""
+    from downgan_tpu_torch.ops.cuda.drb import cudnn_chain, drb_forward, drb_forward_reference
+
+    shapes = [(B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16), (8, 16, 32, 112), (1, 16, 37, 53),
+              (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112)]
+    timed = {}
+    worst = 0.0
+    with torch.inference_mode():
+        for shape in shapes:
+            ws, bs = drb_params(shape[1], rng, "cuda")
+            x = torch.randn(*shape, generator=rng).cuda().to(BF16)
+            before = drb_forward.launches_bf16
+            got = drb_forward(x, ws, bs).double()
+            launched = drb_forward.launches_bf16 - before
+            twin = drb_forward_reference(x, ws, bs).double()
+            want = drb_forward_reference(x, ws, bs, sum_dtype=torch.float64).double()
+            chain = cudnn_chain(x, ws, bs).double()
+            torch.cuda.synchronize()
+            kernel_err = (got - want).abs().max().item()
+            twin_err = (twin - want).abs().max().item()
+            vs_twin = (got - twin).abs().max().item()
+            ulp = bf16_ulp(want.abs().max().item())
+            ok = (launched == 1 and kernel_err <= max(BF16_VS_FP64_TWIN_FACTOR * twin_err, ulp)
+                  and vs_twin <= BF16_KERNEL_VS_TWIN_ULPS * ulp)
+            emit("kernel_bf16", shape=list(shape), kernel_max_abs_err_vs_fp64=kernel_err,
+                 twin_max_abs_err_vs_fp64=twin_err, kernel_vs_twin_max_abs=vs_twin,
+                 kernel_vs_twin_ulps=vs_twin / ulp, bf16_ulp_of_largest_output=ulp,
+                 elements_differing_from_twin=int((got != twin).sum()),
+                 cudnn_chain_max_abs_err_vs_fp64=(chain - want).abs().max().item(),
+                 criterion=f"kernel vs fp64 <= max({BF16_VS_FP64_TWIN_FACTOR} x twin's, 1 ulp); "
+                 f"kernel vs twin <= {BF16_KERNEL_VS_TWIN_ULPS} ulps", ok=ok)
+            check(ok, f"bf16 DRB kernel fails its criterion at {shape}: kernel {kernel_err}, "
+                  f"twin {twin_err}, apart {vs_twin}, ulp {ulp}, launches {launched}")
+            worst = max(worst, vs_twin)
+            if shape[0] in (B_MAIN, B_TRAIN) or shape == (8, 16, 32, 112):
+                timed[shape] = time_drb_bf16(x, ws, bs, peaks)
+    return worst, timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)], timed[(B_TRAIN, 16, 16, 16)]
+
+
+def phase_generator_bf16(config, rng):
+    """The florida generator computing in bf16 at B=150: every DRB through
+    the bf16 kernel (48 launches), against every DRB on the bf16 twin, and
+    its forward throughput beside the fp32 one's."""
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.training.state import make_generator
+
+    cfg = config.replace(hp=dataclasses.replace(config.hp, compute_dtype="bfloat16"))
+    gen = make_generator(cfg, "cuda", rng=torch.Generator().manual_seed(0))
+    fp32 = make_generator(config, "cuda", rng=torch.Generator().manual_seed(0))
+    x = torch.randn(B_MAIN, config.n_covariates, config.coarse_size, config.coarse_size,
+                    generator=rng).cuda()
+    with torch.inference_mode():
+        before = (drb_forward.launches, drb_forward.launches_bf16)
+        out = gen(x)
+        torch.cuda.synchronize()
+        per_forward = (drb_forward.launches - before[0], drb_forward.launches_bf16 - before[1])
+        with drbs_on_plain_twin(gen) as n_drb:
+            ref = gen(x)
+        want32 = fp32(x)
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        vs_fp32 = (out - want32).abs().max().item()
+        check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+              "bf16 generator output is not finite fp32")
+        check(per_forward == (48, 48) and n_drb == 48,
+              f"{per_forward} (all, bf16) kernel launches for {n_drb} DRBs")
+        check(err <= GEN_BF16_REL * scale, f"bf16 generator: kernel path vs plain twin {err}")
+        fwd_ms = cuda_ms(lambda: gen(x), iters=10)
+        fp32_ms = cuda_ms(lambda: fp32(x), iters=10)
+    emit("generator_bf16", batch=B_MAIN, drb_launches_per_forward=per_forward[1],
+         max_abs_err_vs_plain_twin=err, relative_to_largest=err / scale, tolerance=GEN_BF16_REL,
+         max_abs_diff_vs_fp32_generator=vs_fp32, fp32_relative=vs_fp32 / scale,
+         forward_ms=fwd_ms, patches_per_s=B_MAIN / (fwd_ms * 1e-3),
+         fp32_forward_ms_same_call=fp32_ms, fp32_patches_per_s=B_MAIN / (fp32_ms * 1e-3))
+
+
+def float64_copy(module):
+    """A float64 copy of ``module`` whose layers compute in float64 (their
+    ``compute_dtype`` would cast activations back to fp32)."""
+    copied = copy.deepcopy(module).double()
+    for m in copied.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return copied
+
+
 def generator_forward_fp64(gen, x):
-    """``Generator.forward`` in the parameters' own dtype (it casts its
-    input and output to float32)."""
+    """``Generator.forward`` without its casts (to its compute dtype in, to
+    float32 out), for a :func:`float64_copy`."""
     out1 = gen.conv1(x)
     return gen.conv3(gen.upsampling(out1 + gen.conv2(gen.res_blocks(out1))))
 
@@ -575,12 +810,12 @@ def phase_train_parity(config):
     # float64 yardsticks on the CPU, for the same inputs.
     with torch.no_grad():
         fake0_cpu = states["cpu"].generator(batch("cpu", 0)[0])
-    critic64 = copy.deepcopy(states["cpu"].critic).double()
+    critic64 = float64_copy(states["cpu"].critic)
     cg64 = torch.autograd.grad(
         critic_loss(cfg, lambda x: critic64.classifier(critic64.features(x).flatten(1)),
                     fake0_cpu.double(), fine0.double(), alphas[0].double())[0],
         list(critic64.parameters()), allow_unused=True)
-    gen64 = copy.deepcopy(states["cpu"].generator).double()
+    gen64 = float64_copy(states["cpu"].generator)
     gg64 = torch.autograd.grad(generator_forward_fp64(gen64, batch("cpu", 0)[0].double()),
                                list(gen64.parameters()), d_fake_cpu.double())
     grad_err = {"d_loss_d_fake_outside_flips": d_fake_err, "l1_sign_flips": int(flipped.sum())}
@@ -681,28 +916,34 @@ def launches_per_generator_forward():
 
 @contextlib.contextmanager
 def after_each_train_step(hook):
-    """Call ``hook(state, metrics)`` after every step of the train steps the
-    trainer builds while the block runs."""
+    """Call ``hook(state, metrics)`` after every step (or fused round) of the
+    train steps the trainer builds while the block runs."""
     import downgan_tpu_torch.training.trainer as trainer_module
 
-    real_build = trainer_module.build_train_step
+    real = {name: getattr(trainer_module, name) for name in ("build_train_step",
+                                                             "build_fused_round")}
 
-    def build(*args, **kwargs):
-        inner = real_build(*args, **kwargs)
+    def wrapping(real_build):
+        def build(*args, **kwargs):
+            inner = real_build(*args, **kwargs)
 
-        def step(state, *a, **k):
-            metrics = inner(state, *a, **k)
-            hook(state, metrics)
-            return metrics
+            def step(state, *a, **k):
+                metrics = inner(state, *a, **k)
+                hook(state, metrics)
+                return metrics
 
-        step.forwards = inner.forwards
-        return step
+            step.forwards = inner.forwards
+            return step
 
-    trainer_module.build_train_step = build
+        return build
+
+    for name, real_build in real.items():
+        setattr(trainer_module, name, wrapping(real_build))
     try:
         yield
     finally:
-        trainer_module.build_train_step = real_build
+        for name, real_build in real.items():
+            setattr(trainer_module, name, real_build)
 
 
 def train_kernel_class(name: str) -> str:
@@ -863,6 +1104,302 @@ def phase_training(tracking_root: Path):
              "steps": 5, "by_kernel_class": classes or "device time not measured: the profiler "
              "recorded no device events", "kernels": kernels[:15], "convolutions": convs[:8]})
     return launches
+
+
+def tuned_config(batch: int, compute_dtype: str):
+    """examples/production_tuned.json (bf16, fused rounds, the metric pass
+    on the reused fake) at ``batch`` and ``compute_dtype``."""
+    from downgan_tpu_torch.config.config import Config
+
+    tuned = Config.from_json((ROOT / "examples" / "production_tuned.json").read_text())
+    return tuned.replace(hp=dataclasses.replace(tuned.hp, batch_size=batch,
+                                                compute_dtype=compute_dtype))
+
+
+def phase_fused_parity():
+    """One fused round of the tuned configuration (florida width and depth,
+    batch 4: the CPU side's cost) on the card and on the CPU from the same
+    weights, data and alphas: in fp32 with train_parity's tolerances, in
+    bf16 with the loose ones stated at the top."""
+    from downgan_tpu_torch.data.dataset import synthetic_dataset
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.training.state import make_train_state
+    from downgan_tpu_torch.training.wgan import build_fused_round
+
+    report = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = tuned_config(B_PARITY, dtype)
+        n = cfg.hp.critic_iterations
+        coarse, fine = synthetic_dataset(n_samples=B_PARITY * n, seed=13)
+        coarse_n = torch.from_numpy(coarse).permute(0, 3, 1, 2).reshape(n, B_PARITY, 7, 16, 16)
+        fine_n = torch.from_numpy(fine).permute(0, 3, 1, 2).reshape(n, B_PARITY, 2, 128, 128)
+        alphas = torch.rand(n, B_PARITY, 1, 1, 1, generator=torch.Generator().manual_seed(14))
+        metrics, states = {}, {}
+        for dev in ("cuda", "cpu"):
+            st = states[dev] = make_train_state(cfg, dev)
+            fused_round = build_fused_round(cfg, st.generator, st.critic)
+            before = (drb_forward.launches, drb_forward.launches_bf16)
+            m = fused_round(st, coarse_n.to(dev).contiguous(), fine_n.to(dev).contiguous(),
+                            alphas.to(dev))
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+            if dev == "cuda":
+                launched = (drb_forward.launches - before[0], drb_forward.launches_bf16 - before[1])
+                check(fused_round.forwards == {"critic_fake": n, "update": 1, "metric": 0},
+                      f"{dtype} fused round forwards {fused_round.forwards}")
+        want = 48 * (n + 1)
+        check(launched == ((want, want) if dtype == "bfloat16" else (want, 0)),
+              f"{dtype} fused round: {launched} (all, bf16) DRB launches, not {want}")
+        rtol, atol = (BF16_STEP_RTOL, BF16_STEP_ATOL) if dtype == "bfloat16" else (STEP_RTOL,
+                                                                                   STEP_ATOL)
+        metric_err = {}
+        for k, want_v in metrics["cpu"].items():
+            err = abs(metrics["cuda"][k] - want_v)
+            metric_err[k] = err / (atol + rtol * abs(want_v))
+            check(err <= atol + rtol * abs(want_v),
+                  f"{dtype} fused round {k}: card {metrics['cuda'][k]} vs CPU {want_v}")
+        lr = cfg.hp.lr
+        param_err = {}
+        for net, updates in (("generator", 1), ("critic", n)):
+            card, cpu = (getattr(states[d], net).state_dict() for d in ("cuda", "cpu"))
+            diff = torch.cat([(card[k].cpu() - cpu[k]).abs().reshape(-1) for k in cpu])
+            # 2 * lr per update (opposite first steps, lr * sign(g)), plus
+            # 2**-20 for the fp32 rounding of the parameters themselves.
+            atol_p = 2 * lr * updates + 2.0 ** -20
+            median_atol = BF16_MEDIAN_ATOL if dtype == "bfloat16" else ADAM_MEDIAN_ATOL
+            param_err[net] = {"max": diff.max().item(), "median": diff.median().item(),
+                              "atol": atol_p, "median_atol": median_atol}
+            check(param_err[net]["max"] <= atol_p and param_err[net]["median"] <= median_atol,
+                  f"{dtype} fused round {net} parameters, card vs CPU: {param_err[net]}")
+        report[dtype] = {"metrics_card": metrics["cuda"], "metrics_cpu": metrics["cpu"],
+                         "metric_err_over_tolerance": metric_err, "param_err": param_err,
+                         "drb_launches": launched[0], "rtol": rtol, "atol": atol}
+    emit("fused_parity", batch=B_PARITY, rounds=1, critic_updates=n, report=report)
+
+
+def time_fused_rounds(trainer, n_rounds: int):
+    """``n_rounds`` fused rounds of ``trainer``'s step on its training set,
+    CUDA events around each: their ms."""
+    step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
+    n = trainer.config.hp.critic_iterations
+    rows = torch.arange(len(ds) // (n * B_TRAIN) * n * B_TRAIN, device="cuda")
+    rows = rows.reshape(-1, n * B_TRAIN)
+    times = []
+    for r in range(n_rounds):
+        coarse, fine = ds.gather(rows[r % len(rows)])
+        coarse, fine = (t.reshape(n, B_TRAIN, *t.shape[1:]) for t in (coarse, fine))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_fn(state, coarse, fine)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def profile_by_class(fn):
+    """Device time of ``fn()`` by kernel class (``train_kernel_class``) from
+    ``torch.profiler``, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    classes, kernels = {}, []
+    for evt in prof.key_averages():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
+        if us > 0:
+            cls = train_kernel_class(evt.key)
+            entry = classes.setdefault(cls, {"device_ms": 0.0, "launches": 0})
+            entry["device_ms"] += us / 1e3
+            entry["launches"] += evt.count
+            kernels.append({"kernel": evt.key[:120], "class": cls, "device_ms": us / 1e3,
+                            "launches": evt.count})
+    kernels.sort(key=lambda k: -k["device_ms"])
+    return (classes or "device time not measured: the profiler recorded no device events",
+            kernels[:15])
+
+
+def phase_training_tuned(tracking_root: Path):
+    """The tuned training path through its CLI, in-process: ``cli train
+    --config examples/production_tuned.json --synthetic --samples 1440
+    --epochs 2`` (bf16 compute, fused 5-critic rounds, the metric pass on
+    the reused fake) at batch 128, then timed and profiled rounds and the
+    round's parts of the same trainer."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.ops.msssim import msssim_metric
+    from downgan_tpu_torch.training.wgan import critic_loss, generator_loss
+
+    round_metrics = []
+    torch.cuda.reset_peak_memory_stats()
+    with launches_per_generator_forward() as per_forward, \
+            after_each_train_step(lambda state, metrics: round_metrics.append(metrics)):
+        reset_launch_counts()  # the tuned training path's run starts here
+        t0 = time.perf_counter()
+        trainer = cli_main(["train", "--config", str(ROOT / "examples" / "production_tuned.json"),
+                            "--synthetic", "--samples", "1440", "--epochs", "2",
+                            "--tracking-root", str(tracking_root)])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # What the run ended with, for serving_bf16 (the timed rounds below move it on).
+    trained = {k: v.detach().cpu().clone() for k, v in trainer.state.generator.state_dict().items()}
+
+    cfg, history, forwards = trainer.config, trainer.history, dict(trainer.forwards)
+    check((cfg.hp.compute_dtype, cfg.hp.schedule, cfg.hp.metrics_reuse_fake, cfg.hp.batch_size,
+           cfg.filters, cfg.num_res_blocks) == ("bfloat16", "fused", True, B_TRAIN, 16, 16),
+          "not the tuned florida configuration")
+    check(trainer.state.generator.compute_dtype == BF16 and trainer.state.critic.compute_dtype == BF16,
+          "the tuned run's networks do not compute in bf16")
+    check(len(trainer.train_ds) == 1296 and len(trainer.test_ds) == 144, "not the 90/10 split")
+    check([r["steps"] for r in history] == [2, 2] and trainer.state.step == 20,
+          f"rounds per epoch {[r['steps'] for r in history]}, step {trainer.state.step}")
+    for r in history:
+        values = [*r["train"].values(), *r["test"].values()]
+        check(all(np.isfinite(v) for v in values), f"non-finite epoch means {r}")
+    c0 = float(round_metrics[0]["critic_loss"])
+    check(90.0 < c0 < 100.5, f"round 0 critic_loss {c0} is not GP-dominated (~100)")
+    want_forwards = {"critic_fake": 20, "update": 4, "metric": 0, "test": 4}
+    check(forwards == want_forwards, f"generator forwards {forwards}, not {want_forwards}")
+    check(len(per_forward) == 28 and set(per_forward) == {48},
+          f"DRB launches per generator forward {sorted(set(per_forward))} over "
+          f"{len(per_forward)} forwards")
+    check(launches == (1344, 1344), f"{launches} (all, bf16) DRB launches, not 1,344 bf16")
+    gen_losses = [float(m["gen_loss"]) for m in round_metrics]
+    for e, r in enumerate(history):  # the rounds' own gen_loss, not rescaled
+        check(abs(r["train"]["gen_loss"] - sum(gen_losses[2 * e:2 * e + 2]) / 2)
+              <= 1e-5 * abs(r["train"]["gen_loss"]), "gen_loss of the fused schedule")
+
+    # Timed rounds (CUDA events), then the round's parts alone on the same
+    # modules and batch (the parts move the state on by updates, not steps).
+    round_ms = time_fused_rounds(trainer, 4)
+    state, ds = trainer.state, trainer.train_ds
+    gen, critic = state.generator, state.critic
+    coarse, fine = ds.gather(torch.arange(B_TRAIN, device="cuda"))
+    alpha = torch.rand(B_TRAIN, 1, 1, 1, device="cuda")
+    with torch.no_grad():
+        fake = gen(coarse)
+
+    def critic_update():
+        state.c_opt.zero_grad(set_to_none=True)
+        critic_loss(cfg, critic, fake, fine, alpha)[0].backward(inputs=list(critic.parameters()))
+        state.c_opt.step()
+
+    def generator_update():
+        state.g_opt.zero_grad(set_to_none=True)
+        generator_loss(cfg, gen, critic, coarse, fine).backward(inputs=list(gen.parameters()))
+        state.g_opt.step()
+
+    with torch.no_grad():
+        parts = {"generator_forward": cuda_ms(lambda: gen(coarse), iters=10, warmup=1),
+                 "critic_forward": cuda_ms(lambda: critic(fine), iters=10, warmup=1),
+                 "msssim_alone": cuda_ms(lambda: msssim_metric(fine, fake), iters=5, warmup=1)}
+    parts["critic_update_with_gp"] = cuda_ms(critic_update, iters=5, warmup=1)
+    parts["generator_update"] = cuda_ms(generator_update, iters=3, warmup=1)
+    gp_classes, gp_kernels = profile_by_class(critic_update)
+    round_classes, round_kernels = profile_by_class(lambda: time_fused_rounds(trainer, 1))
+    emit("training_tuned", command="cli train --config examples/production_tuned.json "
+         "--synthetic --samples 1440 --epochs 2", batch=B_TRAIN, epochs=history,
+         wall_s_including_data=wall_s, round0_critic_loss=c0, generator_forwards=forwards,
+         drb_launches=launches[0], drb_launches_bf16=launches[1], drb_launches_per_forward=48,
+         peak_memory_bytes=peak_bytes, round_ms_samples=round_ms,
+         ms_per_round=float(np.median(round_ms)),
+         patches_per_s_events=5 * B_TRAIN * 1e3 / float(np.median(round_ms)),
+         patches_per_s_epoch1=5 * B_TRAIN * 2 / history[1]["seconds"], parts_ms=parts,
+         profile_critic_update_with_gp={"by_kernel_class": gp_classes, "kernels": gp_kernels},
+         profile_round={"rounds": 1, "by_kernel_class": round_classes,
+                        "kernels": round_kernels})
+    return launches[1], trainer, trained
+
+
+def phase_serving_bf16(trainer, trained, rng):
+    """The tuned run's generator restored from its checkpoint directory the
+    way ``serve --checkpoint`` restores it (a bf16 model, from the run's
+    logged config) and served over HTTP: concurrent /v1/generate requests
+    and a /v1/generate-domain request through the 32x112 bands, against
+    the same bf16 model's direct forward."""
+    from downgan_tpu_torch.cli.__main__ import _resolve_source, build_parser
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.serving import (BatchingSRModel, SRModel, generate_domain_remote,
+                                           generate_remote, serve_model)
+
+    parser = build_parser()
+    config, weights = _resolve_source(parser.parse_args(
+        ["serve", "--checkpoint", trainer.ckpt.directory]), parser)
+    check(config.hp.compute_dtype == "bfloat16", "the run's logged config is not bf16")
+    check(set(weights) == set(trained) and all(torch.equal(weights[k], v)
+                                               for k, v in trained.items()),
+          "the restored weights are not the generator the run ended with")
+    model = BatchingSRModel(config, weights, batch_size=B_MAIN, max_wait_ms=20.0)
+    direct = SRModel(config, weights, batch_size=B_MAIN)
+    check(model._gen.compute_dtype == BF16 and direct._gen.compute_dtype == BF16,
+          "the served generator does not compute in bf16")
+    server = serve_model(model, host="127.0.0.1", port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    cs, c = config.coarse_size, config.n_covariates
+    n_clients, n_requests, n_patches = 4, 2, 8
+    inputs = [[torch.randn(n_patches, cs, cs, c, generator=rng).numpy()
+               for _ in range(n_requests)] for _ in range(n_clients)]
+    domain = torch.randn(2, 56, 112, c, generator=rng).numpy()
+    results = [[None] * n_requests for _ in range(n_clients)]
+    errors = []
+
+    def client(i):
+        try:
+            for r in range(n_requests):
+                results[i][r] = generate_remote(url, inputs[i][r])
+        except Exception as exc:  # noqa: BLE001 -- reported and failed below
+            errors.append((i, repr(exc)))
+
+    try:
+        reset_launch_counts()  # the bf16 serving path's run starts here
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        patch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fields = generate_domain_remote(url, domain, tile_rows=16, overlap=8)
+        domain_s = time.perf_counter() - t0
+        launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
+        metrics = json.loads(urllib.request.urlopen(f"{url}/metrics").read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        model.close()
+        thread.join(timeout=60)
+    check(not errors and not any(t.is_alive() for t in clients), f"client errors {errors}")
+    check(launches == (48 * metrics["dispatches"],) * 2,
+          f"{launches} (all, bf16) DRB launches for {metrics['dispatches']} dispatches")
+    patch_err = 0.0
+    for i in range(n_clients):
+        for r in range(n_requests):
+            got = results[i][r]
+            check(got.shape == (n_patches, config.fine_size, config.fine_size,
+                                config.n_predictands) and np.isfinite(got).all(),
+                  f"client {i} request {r}: bad response {got.shape}")
+            patch_err = max(patch_err, float(np.abs(got - direct.generate(inputs[i][r])).max()))
+    want = direct.generate_domain(domain, tile_rows=16, overlap=8)
+    check(fields.shape == (2, 56 * 8, 112 * 8, config.n_predictands) and np.isfinite(fields).all(),
+          f"domain response {fields.shape}")
+    domain_err = float(np.abs(fields - want).max())
+    check(patch_err <= SERVE_ATOL and domain_err <= SERVE_ATOL,
+          f"served vs direct bf16: patches {patch_err}, domain {domain_err}")
+    emit("serving_bf16", source="serve --checkpoint <the tuned run's checkpoints>",
+         requests=n_clients * n_requests + 1, patches=n_clients * n_requests * n_patches,
+         patch_phase_s=patch_s, domain_request_s=domain_s, domain_shape=list(domain.shape),
+         metrics=metrics, drb_launches=launches[0], drb_launches_bf16=launches[1],
+         max_abs_err_patches=patch_err, max_abs_err_domain=domain_err, atol=SERVE_ATOL)
+    return launches[1]
 
 
 def flat_state(trainer) -> dict:
@@ -1112,23 +1649,33 @@ def main() -> int:
     phase_build()
     rng = torch.Generator().manual_seed(1234)
     kernel_err, timing, band, timing_b128 = phase_kernel(rng, peaks)
+    bf16_err, bf16_timing, bf16_band, bf16_b128 = phase_kernel_bf16(rng, peaks)
     config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     gen = phase_generator(config, rng)
+    phase_generator_bf16(config, rng)
     phase_profile(config, gen, rng)
     serving_launches = phase_serving(config, gen, rng)
     check(serving_launches > 0, "the serving path launched no DRB kernel")
     backward_ms = phase_drb_grad(rng, peaks, timing_b128)
+    bf16_backward_ms = phase_drb_grad_bf16(rng, bf16_b128)
     phase_train_parity(config)
+    phase_fused_parity()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tracking_root:
         training_launches = phase_training(Path(tracking_root))
-    check(training_launches > 0, "the training path launched no DRB kernel")
+        check(training_launches > 0, "the training path launched no DRB kernel")
+        tuned_launches, tuned, trained = phase_training_tuned(Path(tracking_root))
+        bf16_serving_launches = phase_serving_bf16(tuned, trained, rng)
+    check(tuned_launches > 0 and bf16_serving_launches > 0,
+          "the tuned training or bf16 serving path launched no bf16 DRB kernel")
     resume_launches, bundle_launches = phase_resume(config, rng, smi)
     check(resume_launches > 0 and bundle_launches > 0,
           "the resume or bundle-serving path launched no DRB kernel")
+    common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
+              "replaces": "downgan_tpu/ops/pallas/drb.py:120",
+              "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
+              "card": smi}
     print(json.dumps({"kernels": [{
-        "name": "drb_forward", "route": "cuda", "impl": "cuda",
-        "source": "downgan_tpu_torch/ops/cuda/drb.cu",
-        "replaces": "downgan_tpu/ops/pallas/drb.py:120",
+        "name": "drb_forward", "dtype": "float32", **common,
         "launches": serving_launches + training_launches + resume_launches + bundle_launches,
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches},
@@ -1139,9 +1686,20 @@ def main() -> int:
         "band": {k: band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "tf32_floor_ms",
                                       "library_ms")},
         "ms_b128": timing_b128["ms"], "bound_ms_b128": timing_b128["bound_ms"],
-        "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms,
-        "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
-        "card": smi}]}), flush=True)
+        "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms}, {
+        "name": "drb_forward_bf16", "dtype": "bfloat16", **common,
+        "launches": tuned_launches + bf16_serving_launches,
+        "launches_by_path": {"training_tuned": tuned_launches,
+                             "serving_bf16": bf16_serving_launches},
+        "max_abs_err": bf16_err,
+        "max_abs_err_is": "kernel vs its bf16 twin, largest over the kernel_bf16 shapes",
+        "ms": bf16_timing["ms"], "plain_ms": bf16_timing["plain_ms"],
+        "bound_ms": bf16_timing["bound_ms"], "bound_by": bf16_timing["bound_by"],
+        "library_ms": bf16_timing["library_ms"], "shape": bf16_timing["shape"],
+        "band": {k: bf16_band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "ms_b128": bf16_b128["ms"], "bound_ms_b128": bf16_b128["bound_ms"],
+        "library_ms_b128": bf16_b128["library_ms"], "backward_ms_b128": bf16_backward_ms}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

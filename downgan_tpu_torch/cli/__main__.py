@@ -3,6 +3,8 @@ the port has ``train``, ``serve`` and ``export``)::
 
     python -m downgan_tpu_torch.cli train --config examples/florida.json \
         --synthetic --samples 1440 --epochs 2 --track-best MSSSIM
+    python -m downgan_tpu_torch.cli train --config examples/production_tuned.json \
+        --synthetic --samples 1440 --epochs 2    # bf16, fused rounds
     python -m downgan_tpu_torch.cli train ... --resume      # after a SIGTERM
     python -m downgan_tpu_torch.cli serve --checkpoint <run artifacts>/best
     python -m downgan_tpu_torch.cli export --run <run id> --ema --out bundle/
@@ -37,9 +39,10 @@ def _load_config(path):
 
 
 def _fp32_without_tf32() -> None:
-    # The port's models are fp32 (compute_dtype "float32"): keep cuDNN's
-    # convs and the matmuls out of TF32, which PyTorch otherwise allows on
-    # this card for convolutions.
+    # A model computing in fp32 (compute_dtype "float32") computes in fp32:
+    # keep cuDNN's convs and the matmuls out of TF32, which PyTorch
+    # otherwise allows on this card for convolutions. (bf16 compute does
+    # not read these flags.)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -135,8 +138,9 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
     from downgan_tpu_torch.utils.checkpoint import CheckpointManager
 
     config = _load_config(args.config)
-    overrides = {k: v for k, v in (("batch_size", args.batch_size), ("epochs", args.epochs))
-                 if v is not None}
+    overrides = {k: v for k, v in (("batch_size", args.batch_size), ("epochs", args.epochs),
+                                   ("compute_dtype", args.compute_dtype),
+                                   ("schedule", args.schedule)) if v is not None}
     config = config.replace(hp=dataclasses.replace(config.hp, **overrides),
                             seed=config.seed if args.seed is None else args.seed)
     if args.warm_start:
@@ -250,8 +254,8 @@ def build_parser() -> argparse.ArgumentParser:
     export.set_defaults(func=_export)
 
     train = sub.add_parser(
-        "train", help="Train the WGAN-GP (reference schedule) and print the "
-        "per-epoch train and test metric means, one JSON line each.")
+        "train", help="Train the WGAN-GP and print the per-epoch train and test "
+        "metric means, one JSON line each.")
     train.add_argument("--config", default=None,
                        help="Config JSON (default: the built-in florida Config).")
     train.add_argument("--synthetic", action="store_true",
@@ -263,6 +267,11 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--batch-size", type=int, default=None,
                        help="Override the config's hp.batch_size.")
     train.add_argument("--seed", type=int, default=None, help="Override the config's seed.")
+    train.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None,
+                       help="Override the config's hp.compute_dtype (parameters stay fp32).")
+    train.add_argument("--schedule", choices=("reference", "fused"), default=None,
+                       help="Generator-update schedule: reference parity (step %% n_critic) "
+                       "or the fused n_critic round (overrides hp.schedule).")
     train.add_argument("--device", default="cuda", help="Torch device (default cuda).")
     train.add_argument("--experiment", default="downgan-tpu", help="Experiment name.")
     train.add_argument("--run-name", default=None)

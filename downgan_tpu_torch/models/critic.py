@@ -12,13 +12,17 @@ JAX package's ``export_critic`` loads with ``strict=True``. The flatten
 before the classifier is torch's NCHW order; the JAX critic flattens NHWC,
 and ``utils.port_weights.critic_state_dict_from_flax`` permutes the fc1
 rows between the two.
+
+``compute_dtype`` is the JAX ``Critic``'s ``dtype``: the input is cast to
+it, every conv, activation and dense layer computes in it, the parameters
+stay fp32 and the scores come back fp32.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from downgan_tpu_torch.models.layers import CRITIC_SLOPE
+from downgan_tpu_torch.models.layers import CRITIC_SLOPE, Conv2d, Linear
 
 
 class Critic(nn.Module):
@@ -26,19 +30,23 @@ class Critic(nn.Module):
     ``coarse_dim`` (the config's ``filters``); the classifier input width
     is ``8 * base * (fine_size / 16) ** 2``."""
 
-    def __init__(self, base: int = 16, fine_size: int = 128, in_channels: int = 2):
+    def __init__(self, base: int = 16, fine_size: int = 128, in_channels: int = 2,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         specs = [(base, 1, True), (base, 2, False), (2 * base, 1, False), (2 * base, 2, False),
                  (4 * base, 1, False), (4 * base, 2, False), (8 * base, 1, False),
                  (8 * base, 2, False)]
         layers, cin = [], in_channels
         for feat, stride, bias in specs:
-            layers += [nn.Conv2d(cin, feat, kernel_size=3, stride=stride, padding=1, bias=bias),
-                       nn.LeakyReLU(CRITIC_SLOPE)]
+            layers += [Conv2d(cin, feat, kernel_size=3, stride=stride, padding=1, bias=bias,
+                              compute_dtype=compute_dtype), nn.LeakyReLU(CRITIC_SLOPE)]
             cin = feat
         self.features = nn.Sequential(*layers)
-        self.classifier = nn.Sequential(nn.Linear(8 * base * (fine_size // 16) ** 2, 100),
-                                        nn.LeakyReLU(CRITIC_SLOPE), nn.Linear(100, 1))
+        self.classifier = nn.Sequential(
+            Linear(8 * base * (fine_size // 16) ** 2, 100, compute_dtype=compute_dtype),
+            nn.LeakyReLU(CRITIC_SLOPE), Linear(100, 1, compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.features(x.float()).flatten(1))
+        x = x.to(self.compute_dtype)
+        return self.classifier(self.features(x).flatten(1)).float()

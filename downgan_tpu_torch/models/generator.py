@@ -14,8 +14,15 @@ Every DenseResidualBlock runs through ``ops/cuda/drb.py::drb``: on a CUDA
 tensor the CUDA kernel (through ``DRBFunction``, whose backward is a cuDNN
 recompute, when autograd needs a gradient), on a CPU tensor its plain
 twin, under autograd or not.
+
+``compute_dtype`` (``hp.compute_dtype``) is the JAX ``Generator``'s
+``dtype``: the input is cast to it, every conv, activation, residual add,
+DRB and pixel shuffle computes in it, the parameters stay fp32 and the
+output is fp32. In bf16 the DRBs take the bf16 kernel.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -42,20 +49,22 @@ class DenseResidualBlock(nn.Module):
         convs = [getattr(self, f"b{k}")[0] for k in range(1, 6)]
         return [c.weight for c in convs], [c.bias for c in convs]
 
-    def _packed_weights(self, weights, biases) -> torch.Tensor:
-        # Pack once per weight set: repack only when a parameter moved or
-        # was written in place (load_state_dict and torch's single-tensor and
-        # foreach Adam bump the version; its fused Adam does not, and
-        # training.state.make_optimizer takes foreach).
-        key = tuple((t.device, t.data_ptr(), t._version) for t in (*weights, *biases))
+    def _packed_weights(self, weights, biases, dtype=torch.float32) -> torch.Tensor:
+        # Pack once per weight set and dtype: repack only when a parameter
+        # moved or was written in place (load_state_dict and torch's
+        # single-tensor and foreach Adam bump the version; its fused Adam
+        # does not, and training.state.make_optimizer takes foreach), or
+        # when the block runs in another dtype (an fp32 and a bf16 pack of
+        # the same parameters differ).
+        key = (dtype, *((t.device, t.data_ptr(), t._version) for t in (*weights, *biases)))
         if key != self._packed_key:
-            self._packed = pack_drb_weights(weights, biases)
+            self._packed = pack_drb_weights(weights, biases, dtype)
             self._packed_key = key
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights, biases = self.stage_params()
-        return drb(x, weights, biases, self._packed_weights(weights, biases))
+        return drb(x, weights, biases, self._packed_weights(weights, biases, x.dtype))
 
 
 class RRDB(nn.Module):
@@ -71,23 +80,26 @@ class RRDB(nn.Module):
 
 class Generator(nn.Module):
     """RRDB super-resolution generator. Input (N, in_channels, h, w), output
-    (N, n_predictands, h * 2**num_upsample, w * 2**num_upsample) fp32."""
+    (N, n_predictands, h * 2**num_upsample, w * 2**num_upsample) fp32,
+    computed in ``compute_dtype``."""
 
     def __init__(self, filters: int = 16, in_channels: int = 7,
                  n_predictands: int = 2, num_res_blocks: int = 16,
-                 num_upsample: int = 3):
+                 num_upsample: int = 3, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv3x3(in_channels, filters)
+        self.compute_dtype = compute_dtype
+        conv = functools.partial(conv3x3, compute_dtype=compute_dtype)
+        self.conv1 = conv(in_channels, filters)
         self.res_blocks = nn.Sequential(*[RRDB(filters) for _ in range(num_res_blocks)])
-        self.conv2 = conv3x3(filters, filters)
+        self.conv2 = conv(filters, filters)
         up = []
         for _ in range(num_upsample):
-            up += [conv3x3(filters, 4 * filters), nn.LeakyReLU(GEN_SLOPE), nn.PixelShuffle(2)]
+            up += [conv(filters, 4 * filters), nn.LeakyReLU(GEN_SLOPE), nn.PixelShuffle(2)]
         self.upsampling = nn.Sequential(*up)
-        self.conv3 = nn.Sequential(conv3x3(filters, filters), nn.LeakyReLU(GEN_SLOPE),
-                                   conv3x3(filters, n_predictands))
+        self.conv3 = nn.Sequential(conv(filters, filters), nn.LeakyReLU(GEN_SLOPE),
+                                   conv(filters, n_predictands))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out1 = self.conv1(x.float())
+        out1 = self.conv1(x.to(self.compute_dtype))
         out = out1 + self.conv2(self.res_blocks(out1))
         return self.conv3(self.upsampling(out)).float()

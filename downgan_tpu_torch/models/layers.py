@@ -8,6 +8,16 @@ padding and depth-to-space helpers become stock modules:
   like the JAX ``Conv3x3``;
 * pixel shuffle is ``nn.PixelShuffle(2)``, whose channel order the JAX
   ``pixel_shuffle`` reproduces in NHWC;
+* a layer that computes in a dtype is :class:`Conv2d` or :class:`Linear`
+  with a ``compute_dtype``: flax's ``nn.Conv(dtype=bf16,
+  param_dtype=f32)`` (``Conv3x3``) and ``nn.Dense(dtype=bf16)`` keep fp32
+  parameters and, at each call, cast the input, kernel and bias to bf16,
+  compute with fp32 accumulation and return bf16. These do the same with
+  explicit casts, so the parameters (and Adam, the EMA and checkpoints)
+  stay fp32 and the state-dict keys stay the reference's. Not
+  ``torch.autocast``: its per-op lists keep reductions and some pointwise
+  ops in fp32 and cast others, a different mixture from flax's, where every
+  op of the model runs in the compute dtype;
 * initialisation is torch's default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
   weight and bias of every conv and dense layer (the JAX package's
   ``torch_conv_kernel_init`` and ``torch_dense_kernel_init``), drawn here
@@ -18,14 +28,57 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 GEN_SLOPE = 0.01  # torch nn.LeakyReLU() default, used throughout the generator
 CRITIC_SLOPE = 0.2
 
 
-def conv3x3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel_size=3, padding=1)
+def torch_dtype(name: str) -> torch.dtype:
+    """``hp.compute_dtype`` ("float32" or "bfloat16") -> the torch dtype."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``: input, weight and bias
+    are cast to it at each call (a no-op in fp32), the parameters stay as
+    they are."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x, weight = x.to(dt), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        if dt == torch.bfloat16 and x.device.type == "cpu":
+            # PyTorch's CPU bf16 convolution gets its double backward (the
+            # GP's) wrong for stride 1 at 64x64 and larger: its weight term
+            # comes out ~100 % off float64. The same function (bf16
+            # operands, fp32 sums, one rounding to bf16) as an fp32
+            # convolution of the bf16 values; its backward rounds its
+            # gradients to bf16 at the same casts.
+            bias = None if bias is None else bias.float()
+            return self._conv_forward(x.float(), weight.float(), bias).to(dt)
+        return self._conv_forward(x, weight, bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype``, as :class:`Conv2d`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def conv3x3(cin: int, cout: int, compute_dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size=3, padding=1, compute_dtype=compute_dtype)
 
 
 @torch.no_grad()

@@ -1,4 +1,5 @@
-// Fused DenseResidualBlock (DRB) forward for Hopper (sm_90a), fp32 in and out.
+// Fused DenseResidualBlock (DRB) forward for Hopper (sm_90a): fp32 in and out
+// (drb_kernel, below) and bf16 in and out (drb_kernel_bf16, further down).
 //
 // Replaces the Pallas TPU kernel downgan_tpu/ops/pallas/drb.py::drb_forward
 // (lines 104-128, pallas_call at :120). One DRB is five 3x3 SAME convs over
@@ -90,9 +91,43 @@
 //    unroll) 2-13 % slower (PERF.md). Double-buffering them in shared
 //    memory does not fit two florida CTAs per SM.
 //
+// The bf16 variant (drb_kernel_bf16, entry drb_forward_bf16) computes the
+// block of the generator's bf16 compute path (hp.compute_dtype "bfloat16"):
+// x, weights and biases bf16; each stage sums its 9 taps x s*F channels and
+// the bias in fp32 and rounds the stage output to bf16 once; LeakyReLU is
+// applied to that bf16 value in fp32 and rounded to bf16 (the value kept in
+// the concat); the block output is out_5 * 0.2 + x in fp32 (multiply, then
+// add: no FMA contraction) from the bf16 out_5 and x, rounded to bf16 once.
+// drb.py::drb_forward_reference computes the same function, so the two
+// differ only by fp32 summation order.
+//  * Bound: the tensor cores' bf16 rate. 2.654 GFLOP at B = 150 over the
+//    H100 SXM's dense 989 TFLOP/s is 0.0027 ms; x and out in bf16 (2.46 MB)
+//    plus 69 KB of packed weights take 0.0007 ms at 3.35 TB/s. B = 128 and
+//    a band (8,16,32,112) give ~0.0023 and ~0.0020 ms.
+//  * One mma.sync.m16n8k16 (bf16 in, fp32 accumulators) per k-step of 16
+//    channels where the fp32 kernel issues three m16n8k8 TF32 products per
+//    8 channels. At F = 8 a group has only 8 channels, so that instance
+//    takes m16n8k8 (bf16) k-steps of 8 channels instead of padding K.
+//  * The A fragment holds two adjacent channels per 32-bit register, so the
+//    concat is stored channel-pair-planar: each group is F/2 planes of
+//    bf16x2 words (channels 2p and 2p+1 of one pixel in one word, the lower
+//    channel in the low half), and one ld.shared.b32 fills a register. The
+//    plane stride is padded to 8 mod 32 words, so a fragment's 4 pairs x 8
+//    pixels hit 32 distinct banks, as in the fp32 kernel. Half the fp32
+//    kernel's bytes: florida 5 x 8 x 328 words = 52,480 B a CTA; an interior
+//    band tile 93,440 B.
+//  * The stage epilogue writes a thread's two adjacent output channels as
+//    one bf16x2 word. x is loaded with plain loads (its two channels of a
+//    word lie in two NCHW planes, so cp.async cannot pair them).
+//  * Units, halo recompute, warps and the frame geometry are the fp32
+//    kernel's. Weights (bf16, packed once per weight set by
+//    drb.py::pack_drb_weights_bf16 in the order the B fragments are read)
+//    stay in global memory and L1/L2: 69,120 B at F = 16.
+//
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -355,6 +390,255 @@ cudaError_t launch(const float* x, const float* wpack, float* out, int B, int H,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16
+
+// d += a * b, m16n8k16 (KC = 16: a[0..3], b[0..1]) or m16n8k8 (KC = 8: a[0..1],
+// b[0]), bf16 operands, fp32 accumulators (PTX fragment layouts).
+template <int KC>
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a, const uint32_t* b);
+
+template <>
+__device__ __forceinline__ void mma_bf16<16>(float (&d)[4], const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16<8>(float (&d)[4], const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b[0]));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
+  return __bfloat1622float2(v);
+}
+
+// The fragment words of one k-step for one lane: WPL = 4 (F = 16) as one
+// 16-byte load, WPL = 1 (F = 8) as one 4-byte load.
+template <int WPL>
+__device__ __forceinline__ void load_bfrag(uint32_t (&w)[WPL], const uint32_t* p) {
+  if constexpr (WPL == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+    static_assert(WPL == 1, "F = 8 or 16");
+    w[0] = __ldg(p);
+  }
+}
+
+// kPitch = g.pitch at compile time, as in drb_kernel. Shared memory holds
+// 32-bit words: group j is F/2 pair planes of plane_stride(rows_j * kPitch).
+template <int F, int kPitch>
+__global__ void __launch_bounds__(kThreads, 2)
+drb_kernel_bf16(const unsigned short* __restrict__ x, const uint32_t* __restrict__ wfrag,
+                const float* __restrict__ bias, unsigned short* __restrict__ out, Geometry g) {
+  constexpr int KC = F >= 16 ? 16 : 8;  // channels per k-step
+  constexpr int CPG = F / KC;           // k-steps per group and tap
+  constexpr int NT = F / 8;             // n-tiles of 8 output channels
+  constexpr int WPL = NT * KC / 8;      // fragment words per lane and k-step
+  constexpr int PAIRS = F / 2;          // pair planes per group
+  constexpr int AREGS = KC / 4;         // A registers per m-tile
+  extern __shared__ uint4 smem_bf16[];
+  uint32_t* sm = reinterpret_cast<uint32_t*>(smem_bf16);
+
+  const int H = g.H, W = g.W, HW = H * W;
+  constexpr int P = kPitch;
+  const int b = blockIdx.x / g.tiles_per_sample;
+  const int tile = blockIdx.x - b * g.tiles_per_sample;
+  const int ty0 = (tile / g.tiles_x) * kTileH;
+  const int tx0 = (tile % g.tiles_x) * kTileW;
+  const unsigned short* xb = x + static_cast<size_t>(b) * F * HW;
+  unsigned short* ob = out + static_cast<size_t>(b) * F * HW;
+  const int fy0 = max(ty0 - kHalo, -1);
+  const int fx0 = max(tx0 - kHalo, -1);
+
+  // x with its halo as bf16x2 words (zero outside the image); out groups zeroed.
+  const int rows0 = group_rows(0, H);
+  const int plane0 = plane_stride(rows0 * P);
+  {
+    int total = PAIRS * plane0;
+    for (int j = 1; j < 5; ++j) total += PAIRS * plane_stride(group_rows(j, H) * P);
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+      uint32_t v = 0u;
+      if (i < PAIRS * plane0) {
+        const int p = i / plane0;
+        const int r = i - p * plane0;
+        const int gy = fy0 + r / P;
+        const int gx = fx0 + r % P;
+        if (r < rows0 * P && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const unsigned short* src = xb + (2 * p) * HW + gy * W + gx;
+          v = static_cast<uint32_t>(__ldg(src)) | (static_cast<uint32_t>(__ldg(src + HW)) << 16);
+        }
+      }
+      sm[i] = v;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+
+  const uint32_t* wstage = wfrag + lane * WPL;
+#pragma unroll 1
+  for (int s = 1; s <= 5; ++s) {
+    const int e = kHalo - s;
+    const int cy0 = max(ty0 - e, 0), cy1 = min(ty0 + kTileH + e, H);
+    const int cx0 = max(tx0 - e, 0), cx1 = min(tx0 + kTileW + e, W);
+    const int wc = cx1 - cx0;
+    const int m_total = (cy1 - cy0) * wc;
+    const int ksteps = 9 * s * CPG;
+
+    int out_off = 0;
+    for (int j = 0; j < s; ++j) out_off += PAIRS * plane_stride(group_rows(j, H) * P);
+    const int out_plane = plane_stride(group_rows(s, H) * P);
+    const int out_shift = (max(ty0 - (kHalo - s), -1) - fy0) * P;
+
+#pragma unroll 1
+    for (int pair = warp; pair * 32 < m_total; pair += kWarps) {
+      int pix[2][2], gpix[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int m = pair * 32 + mt * 16 + h * 8 + gq;
+          m = m < m_total ? m : m_total - 1;  // rows past the end compute, never store
+          const int y = cy0 + m / wc;
+          const int xx = cx0 + m % wc;
+          pix[mt][h] = (y - fy0) * P + (xx - fx0);
+          gpix[mt][h] = y * W + xx;
+        }
+      }
+      float acc[2][NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float b0 = __ldg(bias + (s - 1) * F + nt * 8 + 2 * tq);
+        const float b1 = __ldg(bias + (s - 1) * F + nt * 8 + 2 * tq + 1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          acc[mt][nt][0] = b0;
+          acc[mt][nt][1] = b1;
+          acc[mt][nt][2] = b0;
+          acc[mt][nt][3] = b1;
+        }
+      }
+
+      const uint32_t* wp = wstage;
+      int goff = 0;
+#pragma unroll 1
+      for (int j = 0; j < s; ++j) {
+        const int plane = plane_stride(group_rows(j, H) * P);
+        const int gbase = goff - (max(ty0 - (kHalo - j), -1) - fy0) * P;
+#pragma unroll
+        for (int cc = 0; cc < CPG; ++cc) {
+          const uint32_t* p0 = sm + gbase + (cc * (KC / 2) + tq) * plane;  // channels 2tq, 2tq+1
+          const uint32_t* p4 = p0 + 4 * plane;                           // channels 2tq+8, +9
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
+            const int toff = (tap / 3 - 1) * P + (tap % 3 - 1);
+            uint32_t bw[WPL];
+            load_bfrag<WPL>(bw, wp);
+            wp += 32 * WPL;
+            uint32_t a[2][AREGS];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              a[mt][0] = p0[pix[mt][0] + toff];
+              a[mt][1] = p0[pix[mt][1] + toff];
+              if constexpr (KC == 16) {
+                a[mt][2] = p4[pix[mt][0] + toff];
+                a[mt][3] = p4[pix[mt][1] + toff];
+              }
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_bf16<KC>(acc[mt][nt], a[mt], bw + nt * (KC / 8));
+              }
+            }
+          }
+        }
+        goff += PAIRS * plane;
+      }
+
+      // Epilogue: a thread holds channels co = nt*8 + 2tq and co + 1 (pair
+      // nt*4 + tq) at rows gq (acc[..][0..1]) and gq + 8 (acc[..][2..3]).
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (pair * 32 + mt * 16 + h * 8 + gq >= m_total) continue;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int pr = nt * 4 + tq;
+            // The stage output, rounded to bf16 once.
+            const float2 o = __bfloat1622float2(
+                __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]));
+            if (s < 5) {
+              const float y0 = o.x >= 0.f ? o.x : kSlope * o.x;
+              const float y1 = o.y >= 0.f ? o.y : kSlope * o.y;
+              sm[out_off + pr * out_plane + pix[mt][h] - out_shift] =
+                  bf16x2_bits(__floats2bfloat162_rn(y0, y1));
+            } else {
+              const float2 xv = bf16x2_to_float2(sm[pr * plane0 + pix[mt][h]]);
+              const __nv_bfloat162 r = __floats2bfloat162_rn(
+                  __fadd_rn(__fmul_rn(o.x, kResScale), xv.x),
+                  __fadd_rn(__fmul_rn(o.y, kResScale), xv.y));
+              const uint32_t bits = bf16x2_bits(r);
+              ob[(2 * pr) * HW + gpix[mt][h]] = static_cast<unsigned short>(bits & 0xFFFFu);
+              ob[(2 * pr + 1) * HW + gpix[mt][h]] = static_cast<unsigned short>(bits >> 16);
+            }
+          }
+        }
+      }
+    }
+    wstage += ksteps * 32 * WPL;
+    __syncthreads();
+  }
+}
+
+size_t smem_bytes_bf16(int F, const Geometry& g) {
+  size_t words = 0;
+  for (int j = 0; j < 5; ++j) words += static_cast<size_t>(F / 2) * plane_stride(group_rows(j, g.H) * g.pitch);
+  return words * sizeof(uint32_t);
+}
+
+using KernelFnBf16 = void (*)(const unsigned short*, const uint32_t*, const float*, unsigned short*,
+                              Geometry);
+
+template <int F>
+cudaError_t launch_bf16(const void* x, const void* wpack, void* out, int B, int H, int W,
+                        cudaStream_t stream) {
+  const Geometry g = make_geometry(H, W);
+  const size_t smem = smem_bytes_bf16(F, g);
+  const long long units = static_cast<long long>(B) * g.tiles_per_sample;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const KernelFnBf16 fn = g.pitch == kTileW + 2 ? drb_kernel_bf16<F, kTileW + 2>
+                                                 : drb_kernel_bf16<F, kTileW + 2 * kHalo>;
+  const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const uint32_t* wfrag = static_cast<const uint32_t*>(wpack);
+  const float* bias = reinterpret_cast<const float*>(wfrag + 9 * F * F * 15 / 2);
+  fn<<<static_cast<unsigned>(units), kThreads, smem, stream>>>(
+      static_cast<const unsigned short*>(x), wfrag, bias, static_cast<unsigned short*>(out), g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -374,6 +658,23 @@ int drb_forward_f32(const void* x, const void* wpack, void* out, int B, int F, i
       return launch<8>(xf, wf, of, B, H, W, st);
     case 16:
       return launch<16>(xf, wf, of, B, H, W, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// out = DRB(x) in bf16. x, out: (B, F, H, W) contiguous bf16 on the current
+// device; wpack: the packed weights of drb.py::pack_drb_weights_bf16 (bf16x2
+// fragment words, then the biases as fp32), 16-byte aligned.
+int drb_forward_bf16(const void* x, const void* wpack, void* out, int B, int F, int H, int W,
+                     void* stream) {
+  if (B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 8:
+      return launch_bf16<8>(x, wpack, out, B, H, W, st);
+    case 16:
+      return launch_bf16<16>(x, wpack, out, B, H, W, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,28 +1,33 @@
 """Fused DenseResidualBlock forward: the CUDA kernel's wrapper, its weight
-packing, its build on first use, and its plain PyTorch twin.
+packing, its build on first use, and its plain PyTorch twin, in fp32 and
+in bf16.
 
 Counterpart of ``downgan_tpu/ops/pallas/drb.py`` (the Pallas TPU kernel
-``drb_forward``). The kernel itself is ``drb.cu`` beside this file; its
-header says what it computes, what bounds it on Hopper and how it is laid
-out (a 3xTF32 tensor-core implicit GEMM over (sample, 16x16 tile) units).
-Here:
+``drb_forward``). The kernels themselves are ``drb.cu`` beside this file;
+its header says what they compute, what bounds them on Hopper and how they
+are laid out (tensor-core implicit GEMMs over (sample, 16x16 tile) units:
+3xTF32 for fp32, one bf16 product with fp32 accumulators for bf16). A
+block computes in its input's dtype; its parameters (fp32 in the models)
+are rounded to that dtype. Here:
 
-* :func:`pack_drb_weights` splits a block's five OIHW conv weights into
-  TF32 hi and lo parts (:func:`tf32_split`) once per weight set and lays
-  them out in the order the kernel's MMA fragments read them, followed by
-  the biases;
+* :func:`pack_drb_weights` lays a block's five OIHW conv weights out once
+  per weight set in the order the kernel's MMA fragments read them,
+  followed by the biases: for fp32, split into TF32 hi and lo parts
+  (:func:`tf32_split`); for bf16, rounded to bf16 and paired into 32-bit
+  words;
 * :func:`drb_forward` is the wrapper. On a CPU tensor it runs the plain
-  twin; on a CUDA tensor it launches the kernel or raises — nothing falls
-  back to the twin on the card;
+  twin; on a CUDA tensor it launches the kernel of the input's dtype or
+  raises — nothing falls back to the twin on the card;
 * :func:`drb_forward_reference` is the plain twin: the same function as
-  the kernel (nine shifted channel products per stage) in fp32 PyTorch.
-  Tests, CPU runs and ``chip_smoke.py`` hold the kernel against it;
+  the kernel (nine shifted channel products per stage, summed in fp32; in
+  bf16 rounded at the kernel's three points) in PyTorch. Tests, CPU runs
+  and ``chip_smoke.py`` hold the kernel against it;
 * :class:`DRBFunction` is the DRB under autograd on the card: its forward
   is the kernel; its backward (:func:`drb_backward`) recomputes the block
-  from the saved input with :func:`cudnn_chain` (five ``F.conv2d``, cuDNN
-  on the card) and differentiates that. It is first order only. The JAX
-  package's DRB has no backward kernel either: its gradients are XLA
-  convolutions, whose counterpart here is cuDNN;
+  from the saved input with :func:`cudnn_chain` (five ``F.conv2d`` in the
+  input's dtype, cuDNN on the card) and differentiates that. It is first
+  order only. The JAX package's DRB has no backward kernel either: its
+  gradients are XLA convolutions, whose counterpart here is cuDNN;
 * :func:`drb` is what the generator's blocks call: ``DRBFunction`` when
   autograd needs a gradient through a CUDA tensor, ``drb_forward``
   otherwise;
@@ -48,6 +53,7 @@ from torch.autograd.function import once_differentiable
 SLOPE = 0.01  # torch nn.LeakyReLU() default, as in the generator
 RES_SCALE = 0.2
 SUPPORTED_FILTERS = (8, 16)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 SOURCE = Path(__file__).with_name("drb.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -101,6 +107,8 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         lib.drb_forward_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.drb_forward_f32.restype = ctypes.c_int
+        lib.drb_forward_bf16.argtypes = lib.drb_forward_f32.argtypes
+        lib.drb_forward_bf16.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -121,24 +129,49 @@ def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(t.to(torch.float32) - hi)
 
 
-def packed_size(f: int) -> int:
-    """Floats in :func:`pack_drb_weights`'s output for ``f`` filters."""
+def packed_size(f: int, dtype: torch.dtype = torch.float32) -> int:
+    """Elements of :func:`pack_drb_weights`'s output for ``f`` filters: fp32
+    values for fp32, 32-bit words (two bf16 weights, or one fp32 bias) for
+    bf16."""
+    if dtype == torch.bfloat16:
+        return 9 * f * f * 15 // 2 + 5 * f
     return 2 * 9 * f * f * 15 + 5 * f
 
 
-def pack_drb_weights(weights: Sequence[torch.Tensor],
-                     biases: Sequence[torch.Tensor]) -> torch.Tensor:
+def pack_drb_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Five stages' OIHW weights (F, s*F, 3, 3) and biases (F,) -> one flat
-    fp32 tensor of :func:`packed_size` floats. Call once per weight set.
+    tensor of :func:`packed_size` elements for the kernel of ``dtype``
+    (bf16, or the fp32 kernel's layout for any other dtype). Call once per
+    weight set.
 
-    Stage s (in order) holds its m16n8k8 B fragments, hi and lo: with
-    ci = 8*chunk + 4*half + tq, co = 8*nt + gq, tap = 3*dy + dx and
-    NT = F/8, ``w[co, ci, dy, dx]``'s part p (0 = hi, 1 = lo) lands at
-    ``((((chunk*9 + tap)*NT + nt)*32 + 4*gq + tq)*4 + 2*p + half`` within
-    the stage: each lane reads one float4 (hi b0, hi b1, lo b0, lo b1) per
-    k-step and n-tile. The five biases follow the stages."""
+    fp32 (a float32 tensor): stage s (in order) holds its m16n8k8 TF32 B
+    fragments, hi and lo: with ci = 8*chunk + 4*half + tq, co = 8*nt + gq,
+    tap = 3*dy + dx and NT = F/8, ``w[co, ci, dy, dx]``'s part p (0 = hi,
+    1 = lo) lands at ``((((chunk*9 + tap)*NT + nt)*32 + 4*gq + tq)*4 + 2*p
+    + half`` within the stage: each lane reads one float4 (hi b0, hi b1, lo
+    b0, lo b1) per k-step and n-tile. The five biases follow the stages.
+
+    bf16 (an int32 tensor of bf16x2 words): the weights rounded to bf16 in
+    the B fragments of m16n8k16 (F = 16; KC = 16) or m16n8k8 (F = 8; KC = 8)
+    bf16 products: with ci = KC*chunk + 8*r + 2*tq + e, co = 8*nt + gq and
+    WPL = NT*KC/8 words per lane, ``w[co, ci, dy, dx]`` is half e (0 = low)
+    of word ``((chunk*9 + tap)*32 + 4*gq + tq)*WPL + nt*KC/8 + r`` within
+    the stage. The five biases follow as fp32 words holding their bf16
+    values."""
     with torch.no_grad():
         parts = []
+        if dtype == torch.bfloat16:
+            for w in weights:
+                f, cin = w.shape[:2]
+                kc = min(f, 16)
+                # (nt, gq, chunk, r, tq, e, dy, dx) -> (chunk, dy, dx, gq, tq, nt, r, e)
+                w8 = w.reshape(f // 8, 8, cin // kc, kc // 8, 4, 2, 3, 3)
+                w8 = w8.permute(2, 6, 7, 1, 4, 0, 3, 5).to(torch.bfloat16)
+                parts.append(w8.contiguous().reshape(-1).view(torch.int32))
+            parts += [b.reshape(-1).to(torch.bfloat16).to(torch.float32).view(torch.int32)
+                      for b in biases]
+            return torch.cat(parts).contiguous()
         for w in weights:
             f, cin = w.shape[:2]
             nt = f // 8
@@ -152,12 +185,29 @@ def pack_drb_weights(weights: Sequence[torch.Tensor],
 
 
 def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                          biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Plain PyTorch DRB forward on (B, F, H, W): per stage, nine shifted
-    (F, s*F) x (s*F, pixels) products over the zero-padded concat in fp32 —
-    the kernel's function, not a call to a convolution library."""
+                          biases: Sequence[torch.Tensor],
+                          sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch DRB forward on (B, F, H, W) in x's dtype: per stage,
+    nine shifted (F, s*F) x (s*F, pixels) products over the zero-padded
+    concat (summed in fp32 for bf16 x, in x's dtype otherwise) — the
+    kernel's function, not a call to a convolution library.
+
+    bf16: x and the parameters rounded to bf16 and upcast (exact), the same
+    fp32 sums, and ``.to(torch.bfloat16)`` at the kernel's three rounding
+    points: each stage's output (bias included), its LeakyReLU (taken in
+    fp32 of the rounded value), and the block output out_5 * 0.2 + x (taken
+    in fp32 of the rounded out_5 and x). ``sum_dtype=torch.float64`` sums
+    in float64 instead: the yardstick the kernel's and the twin's summation
+    errors are measured against."""
+    bf16 = x.dtype == torch.bfloat16
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(sum_dtype) if bf16 else t
+
     b, f, h, w = x.shape
-    acts = x
+    xf = x.to(sum_dtype) if bf16 else x
+    weights, biases = [rnd(t) for t in weights], [rnd(t) for t in biases]
+    acts = xf
     for s in range(5):
         padded = F.pad(acts, (1, 1, 1, 1))
         acc = biases[s].reshape(1, f, 1, 1).expand(b, f, h, w)
@@ -166,22 +216,26 @@ def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
             window = padded[:, :, dy:dy + h, dx:dx + w]
             acc = acc + torch.einsum("oc,bchw->bohw", weights[s][:, :, dy, dx], window)
         if s < 4:
-            acts = torch.cat([acts, F.leaky_relu(acc, SLOPE)], dim=1)
+            acts = torch.cat([acts, rnd(F.leaky_relu(rnd(acc), SLOPE))], dim=1)
         else:
-            return acc * RES_SCALE + x
+            return (rnd(acc) * RES_SCALE + xf).to(x.dtype)
 
 
 def cudnn_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The same DRB as five convolutions and concats (``F.conv2d``: cuDNN
-    on the card). :func:`drb_backward` differentiates it, and
-    ``chip_smoke.py`` times it as the library yardstick: no single PyTorch
-    call computes a DRB."""
+    """The same DRB as five convolutions and concats in x's dtype
+    (``F.conv2d`` with the parameters cast to it: cuDNN on the card; in
+    bf16 the residual is taken in fp32 and rounded once, as the kernel's). :func:`drb_backward` differentiates
+    it, and ``chip_smoke.py`` times it as the library yardstick: no single
+    PyTorch call computes a DRB."""
+    dt = x.dtype
     acts = x
     for s in range(5):
-        y = F.conv2d(acts, weights[s], biases[s], padding=1)
+        y = F.conv2d(acts, weights[s].to(dt), biases[s].to(dt), padding=1)
         if s < 4:
             acts = torch.cat([acts, F.leaky_relu(y, SLOPE)], 1)
+    if dt == torch.bfloat16:
+        return (y.float() * RES_SCALE + x.float()).to(dt)
     return y * RES_SCALE + x
 
 
@@ -220,9 +274,12 @@ def drb(x: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch
 
 class DRBFunction(torch.autograd.Function):
     """The DRB under autograd on the card: ``apply(x, packed, w1..w5,
-    b1..b5)``. The forward launches the kernel (counted in
-    ``drb_forward.launches``) and saves only x and the ten parameters; the
-    backward is :func:`drb_backward`, a cuDNN recompute, not a kernel.
+    b1..b5)``, in x's dtype (``packed`` for it). The forward launches the
+    kernel (counted in ``drb_forward.launches``) and saves only x and the
+    ten parameters; the backward is :func:`drb_backward`, a cuDNN recompute
+    in the same dtype, not a kernel: with bf16 x and fp32 parameters it
+    gives a bf16 gradient of x and fp32 gradients of the parameters, as
+    autograd through their casts would.
     First order only: the gradient penalty differentiates the critic alone
     and the critic's fake is made without a graph, so no double backward
     of the DRB is ever taken, and one raises."""
@@ -244,13 +301,14 @@ class DRBFunction(torch.autograd.Function):
 def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 biases: Sequence[torch.Tensor],
                 packed: torch.Tensor | None = None) -> torch.Tensor:
-    """DRB forward on (B, F, H, W) fp32.
+    """DRB forward on (B, F, H, W) fp32 or bf16, computed in x's dtype.
 
-    CPU tensor: the plain twin. CUDA tensor: the ``drb.cu`` kernel, with
-    ``packed`` from :func:`pack_drb_weights` (packed here when omitted);
-    ``drb_forward.launches`` counts its launches. A call that autograd
-    would have to differentiate raises: the route to a gradient on the card
-    is :class:`DRBFunction`.
+    CPU tensor: the plain twin. CUDA tensor: the ``drb.cu`` kernel of x's
+    dtype, with ``packed`` from :func:`pack_drb_weights` for that dtype
+    (packed here when omitted); ``drb_forward.launches`` counts its
+    launches of either kernel and ``drb_forward.launches_bf16`` those of
+    the bf16 one. A call that autograd would have to differentiate raises:
+    the route to a gradient on the card is :class:`DRBFunction`.
     """
     if x.device.type == "cpu":
         return drb_forward_reference(x, weights, biases)
@@ -260,36 +318,38 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise RuntimeError(
             "drb_forward is forward only: call it under torch.inference_mode() or "
             "torch.no_grad(), or take gradients through DRBFunction")
-    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+    if x.dim() != 4 or x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
         raise ValueError(
-            f"drb_forward takes contiguous (B, F, H, W) float32, got "
+            f"drb_forward takes contiguous (B, F, H, W) float32 or bfloat16, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
     b, f, h, w = x.shape
     if f not in SUPPORTED_FILTERS:
         raise ValueError(f"the DRB kernel takes F in {SUPPORTED_FILTERS}, got F={f}")
     if b < 1 or h < 1 or w < 1:
         raise ValueError(f"empty input {tuple(x.shape)}")
+    bf16 = x.dtype == torch.bfloat16
     if packed is None:
-        packed = pack_drb_weights(weights, biases)
-    if (packed.device != x.device or packed.dtype != torch.float32
-            or packed.numel() != packed_size(f)
+        packed = pack_drb_weights(weights, biases, x.dtype)
+    if (packed.device != x.device or packed.dtype != (torch.int32 if bf16 else torch.float32)
+            or packed.numel() != packed_size(f, x.dtype)
             or not packed.is_contiguous() or packed.data_ptr() % 16):
         raise ValueError("packed weights do not match this input; "
-                         "repack with pack_drb_weights")
+                         "repack with pack_drb_weights for its dtype")
     lib = load_library()
+    kernel = lib.drb_forward_bf16 if bf16 else lib.drb_forward_f32
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.drb_forward_f32(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                                  b, f, h, w, stream)
+        err = kernel(x.data_ptr(), packed.data_ptr(), out.data_ptr(), b, f, h, w, stream)
     if err:
         raise RuntimeError(
             f"DRB kernel launch failed: {lib.drb_error_string(err).decode()} "
-            f"(input {tuple(x.shape)})")
+            f"(input {tuple(x.shape)} {x.dtype})")
     with _count_lock:
         drb_forward.launches += 1
+        drb_forward.launches_bf16 += bf16
     return out
 
 
 drb_forward.launches = 0
-
+drb_forward.launches_bf16 = 0

@@ -16,7 +16,7 @@ import torch
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.models.critic import Critic
 from downgan_tpu_torch.models.generator import Generator
-from downgan_tpu_torch.models.layers import init_torch_default_
+from downgan_tpu_torch.models.layers import init_torch_default_, torch_dtype
 
 # The critic draws from its own stream, so the generator's weights are the
 # same whether or not a critic is made.
@@ -35,9 +35,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 def make_generator(config: Config, device: str | torch.device = "cuda",
                    rng: Optional[torch.Generator] = None) -> Generator:
-    """The RRDB generator for ``config``, in eval mode on ``device``, its
-    weights drawn from ``rng`` (default: a generator seeded with
-    ``config.seed``) by torch's default-init distribution."""
+    """The RRDB generator for ``config``, in eval mode on ``device``,
+    computing in ``config.hp.compute_dtype`` (fp32 parameters, as the JAX
+    package's ``make_models``), its weights drawn from ``rng`` (default: a
+    generator seeded with ``config.seed``) by torch's default-init
+    distribution."""
     if config.generator_arch != "rrdb":
         raise ValueError(
             f"generator_arch={config.generator_arch!r} is not ported yet: the "
@@ -46,15 +48,12 @@ def make_generator(config: Config, device: str | torch.device = "cuda",
         raise ValueError(
             "noise_channels > 0 (stochastic serving) is not ported yet: it "
             "comes with a later slice of the port")
-    if config.hp.compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype={config.hp.compute_dtype!r} is not ported yet: "
-            "bf16 serving comes with a later slice of the port")
     dev = resolve_device(device)
     gen = Generator(filters=config.filters, in_channels=config.n_covariates,
                     n_predictands=config.n_predictands,
                     num_res_blocks=config.num_res_blocks,
-                    num_upsample=config.num_upsample)
+                    num_upsample=config.num_upsample,
+                    compute_dtype=torch_dtype(config.hp.compute_dtype))
     if rng is None:
         rng = torch.Generator().manual_seed(config.seed)
     init_torch_default_(gen, rng)
@@ -72,10 +71,13 @@ def load_generator(config: Config, weights: Mapping[str, torch.Tensor],
 
 
 def check_training_ported(config: Config) -> None:
-    """Raise for every training option this slice has not ported: the
-    reference schedule with constant-LR Adam, the critic on the fine field
-    alone, the MAE/MSE/MSSSIM/Wass metric pass and the generator EMA
-    (``hp.ema_decay``) are what it runs.
+    """Raise for every training option the port has not ported yet. What
+    it runs: the reference and the fused schedule (``hp.schedule``) with
+    constant-LR Adam, fp32 or bf16 compute (``hp.compute_dtype``), the
+    critic on the fine field alone, the MAE/MSE/MSSSIM/Wass metric pass
+    (on a fresh fake, or the critic update's under
+    ``hp.metrics_reuse_fake``), the critic's two forwards as one
+    (``hp.fused_critic_pass``) and the generator EMA (``hp.ema_decay``).
 
     ``hp.fused_epoch`` and ``hp.remat`` only shape the JAX package's XLA
     program (one ``lax.scan`` per epoch; activation rematerialization) and
@@ -86,15 +88,12 @@ def check_training_ported(config: Config) -> None:
         "lr_schedule != 'constant'": hp.lr_schedule != "constant",
         "lr_warmup_steps": bool(hp.lr_warmup_steps),
         "grad_accum > 1": hp.grad_accum > 1,
-        "schedule='fused'": hp.schedule == "fused",
         "freq_sep": hp.freq_sep,
         "critic_conditional": config.critic_conditional,
         "divergence_lambda": bool(hp.divergence_lambda),
         "vorticity_lambda": bool(hp.vorticity_lambda),
         "eof_lambda": bool(hp.eof_lambda),
         "augment_flips": hp.augment_flips,
-        "metrics_reuse_fake": hp.metrics_reuse_fake,
-        "fused_critic_pass": hp.fused_critic_pass,
     }
     for name, on in unported.items():
         if on:
@@ -104,13 +103,15 @@ def check_training_ported(config: Config) -> None:
 
 def make_critic(config: Config, device: str | torch.device = "cuda",
                 rng: Optional[torch.Generator] = None) -> Critic:
-    """The critic for ``config`` on ``device``, its weights drawn from
+    """The critic for ``config`` on ``device``, computing in
+    ``config.hp.compute_dtype``, its weights drawn from
     ``rng`` (default: a generator seeded with ``config.seed`` plus
     :data:`CRITIC_SEED_OFFSET`) by torch's default-init distribution."""
     check_training_ported(config)
     dev = resolve_device(device)
     critic = Critic(base=config.filters, fine_size=config.fine_size,
-                    in_channels=config.critic_in_channels)
+                    in_channels=config.critic_in_channels,
+                    compute_dtype=torch_dtype(config.hp.compute_dtype))
     if rng is None:
         rng = torch.Generator().manual_seed(config.seed + CRITIC_SEED_OFFSET)
     init_torch_default_(critic, rng)

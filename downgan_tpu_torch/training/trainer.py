@@ -1,11 +1,15 @@
-"""Training loop (counterpart of the device-resident, reference-schedule
-path of ``downgan_tpu/training/trainer.py``).
+"""Training loop (counterpart of the device-resident path of
+``downgan_tpu/training/trainer.py``, both schedules).
 
 Per epoch: the batch order from ``epoch_permutation`` of
 ``np.random.default_rng((seed, epoch))``, every batch gathered on the
 device, the train step's metrics summed on the device, one host sync at
-the end of the epoch, ``gen_loss`` rescaled to its mean over the generator
-updates actually run; the means logged to the tracked run, and a
+the end of the epoch. On the reference schedule one step takes one batch
+and ``gen_loss`` is rescaled to its mean over the generator updates
+actually run; on the fused schedule the order is cut to whole rounds of
+``critic_iterations`` batches (``trainer.py:449-473``), one round takes
+one (n, B) block and ``gen_loss`` is its one update's. Then the means are
+logged to the tracked run, and a
 ``NonFiniteLossError`` on a non-finite mean before anything is
 checkpointed; then a test pass over every test sample
 (:func:`full_split_metric_pass`), which also scores the EMA generator when
@@ -34,6 +38,7 @@ from downgan_tpu_torch.inference import write_generator_bundle
 from downgan_tpu_torch.training.state import make_train_state
 from downgan_tpu_torch.training.wgan import (
     build_eval_metrics,
+    build_fused_round,
     build_train_step,
     g_updates_in_window,
 )
@@ -82,7 +87,9 @@ class Trainer:
     after a preemption; ``test_ema`` holds the EMA generator's test means
     when it is scored) and prints them as one JSON line each, every
     ``print_every`` epochs; ``history`` keeps every epoch's record.
-    ``seconds`` is the train part of the epoch, to its host sync.
+    ``steps`` counts steps on the reference schedule and rounds on the
+    fused one. ``seconds`` is the train part of the epoch, to its host
+    sync.
     ``forwards`` counts the generator forwards by kind: the train step's
     ``critic_fake``, ``update`` and ``metric``, the test pass's ``test``
     and, when the EMA generator is scored, ``test_ema``.
@@ -149,7 +156,8 @@ class Trainer:
 
         self.epoch = 0
         self.history: List[dict] = []
-        self.step_fn = build_train_step(config, self.state.generator, self.state.critic)
+        build = build_fused_round if config.hp.schedule == "fused" else build_train_step
+        self.step_fn = build(config, self.state.generator, self.state.critic)
         self._eval = build_eval_metrics(config)
         self.forwards = self.step_fn.forwards
         self.forwards["test"] = 0
@@ -205,15 +213,30 @@ class Trainer:
         return np.random.default_rng((self.config.seed, self.epoch))
 
     def run_train_epoch(self) -> tuple[int, Dict[str, float]]:
+        """One epoch of steps (reference schedule) or rounds (fused);
+        returns their count and the epoch's train means."""
         hp = self.config.hp
-        perm = torch.from_numpy(self.train_ds.epoch_perm(self._epoch_rng(), hp.batch_size))
-        perm = perm.to(self.device, torch.long)
+        perm = self.train_ds.epoch_perm(self._epoch_rng(), hp.batch_size)
+        fused = hp.schedule == "fused"
+        if fused:
+            n_c = hp.critic_iterations
+            rounds = len(perm) // n_c
+            if rounds == 0:
+                raise ValueError(f"dataset too small: {len(perm)} steps/epoch < "
+                                 f"critic_iterations={n_c} needed per fused round")
+            perm = perm[:rounds * n_c].reshape(rounds, n_c, hp.batch_size)
+        perm = torch.from_numpy(perm).to(self.device, torch.long)
         start = self.state.step
         sums: Dict[str, torch.Tensor] = {}
         for idx in perm:
-            _add(sums, self.step_fn(self.state, *self.train_ds.gather(idx)))
+            coarse, fine = self.train_ds.gather(idx.reshape(-1))
+            if fused:
+                coarse, fine = (t.reshape(*idx.shape, *t.shape[1:]) for t in (coarse, fine))
+            _add(sums, self.step_fn(self.state, coarse, fine))
         n = len(perm)
         means = _to_host_means(sums, n)
+        if fused:
+            return n, means
         # gen_loss is an exact 0.0 on the steps that skip the generator
         # update; rescale the mean to the mean over the updates run.
         n_upd = g_updates_in_window(start, n, hp.critic_iterations)

@@ -1,19 +1,29 @@
-"""WGAN-GP train step, reference schedule (counterpart of
-``downgan_tpu/training/wgan.py``: ``gradient_penalty``, the reference
-branch of ``make_loss_fns``, ``g_updates_in_window``, ``build_train_step``
-and ``build_eval_metrics``, and ``_ema_update``).
+"""WGAN-GP train step and fused n-critic round (counterpart of
+``downgan_tpu/training/wgan.py``: ``gradient_penalty``,
+``_critic_pair_means``, the reference branch of ``make_loss_fns``,
+``g_updates_in_window``, ``build_train_step``, ``build_fused_round`` and
+``build_eval_metrics``, and ``_ema_update``).
 
-Per batch, as ``wgan.py:313-440``:
+Reference schedule, per batch, as ``wgan.py:313-440``:
   1. a critic update on every step, on a fake made without a graph (the
      JAX ``stop_gradient``): loss = E[C(fake)] - E[C(real)] + w_gp * GP;
   2. a generator update when ``step % critic_iterations == 0``, step 0
      included, against the post-update critic:
      loss = -gamma * E[C(fake)] + content_lambda * L1(fake, fine);
-  3. a metric pass (MAE/MSE/MSSSIM/Wass) on a fresh fake from the
-     post-update generator and the post-update critic: the test pass's
-     :func:`build_eval_metrics` on the training batch.
+  3. a metric pass (MAE/MSE/MSSSIM/Wass) scored by the post-update critic
+     on a fresh fake from the post-update generator (the test pass's
+     :func:`build_eval_metrics` on the training batch) or, under
+     ``hp.metrics_reuse_fake``, on the critic update's fake, which the
+     pre-update generator made (no third generator forward).
+Fused schedule (``hp.schedule = "fused"``, ``wgan.py:443-582``): one round
+is ``critic_iterations`` critic updates on distinct minibatches, then one
+generator update on the last of them against the post-update critic, then
+the metric pass on that minibatch (:func:`build_fused_round`).
 After a generator update the EMA generator, when there is one, moves
 toward the new weights (:func:`ema_update`, ``wgan.py:290-295,397``).
+Under ``hp.fused_critic_pass`` every pair of independent critic forwards
+(real and fake, in the loss and in the metric pass) runs as one
+concatenated 2B forward (:func:`critic_pair_means`).
 Metrics come back as device scalars; nothing in the step waits for the
 card. The GP's per-sample alpha is :func:`gp_alpha` of ``(config.seed,
 step)``, or passed in: the JAX package draws it from ``fold_in(rng,
@@ -48,11 +58,22 @@ def gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,
     return (norms - 1.0).square().mean()
 
 
+def critic_pair_means(critic: nn.Module, a: torch.Tensor, b: torch.Tensor,
+                      fused: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[C(a)], E[C(b)]) for two equal-size batches; with ``fused``
+    (``hp.fused_critic_pass``) as one forward over their concatenation.
+    Per-sample math is the same either way."""
+    if fused:
+        out = critic(torch.cat([a, b]))
+        return out[:a.shape[0]].mean(), out[a.shape[0]:].mean()
+    return critic(a).mean(), critic(b).mean()
+
+
 def critic_loss(config: Config, critic: nn.Module, fake: torch.Tensor, real: torch.Tensor,
                 alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, E[C(real)], E[C(fake)]) with loss = E[C(fake)] - E[C(real)]
     + effective_gp_weight * GP (100 under ``double_gp_lambda``)."""
-    c_real, c_fake = critic(real).mean(), critic(fake).mean()
+    c_real, c_fake = critic_pair_means(critic, real, fake, config.hp.fused_critic_pass)
     gp = gradient_penalty(critic, real, fake, alpha)
     return c_fake - c_real + config.hp.effective_gp_weight * gp, c_real, c_fake
 
@@ -98,29 +119,73 @@ def g_updates_in_window(start_step: int, n_steps: int, critic_iterations: int) -
     return max(0, (last - first) // n + 1)
 
 
+def build_metric_pass(config: Config) -> Callable[[nn.Module, torch.Tensor, torch.Tensor],
+                                                   Metrics]:
+    """``score(critic, fake, fine)``: the metric registry on ``fake``
+    against ``fine``, and Wass from the critic (its two forwards fused
+    under ``hp.fused_critic_pass``); no update, no graph."""
+    names = config.hp.metrics_to_calculate
+    fns = resolve_metrics(names)
+    fused = config.hp.fused_critic_pass
+
+    @torch.no_grad()
+    def score(critic: nn.Module, fake: torch.Tensor, fine: torch.Tensor) -> Metrics:
+        out = {name: fn(fine, fake) for name, fn in fns.items()}
+        if "Wass" in names:
+            out["Wass"] = wass_loss(*critic_pair_means(critic, fine, fake, fused))
+        return out
+
+    return score
+
+
 def build_eval_metrics(config: Config) -> Callable[[nn.Module, nn.Module, torch.Tensor,
                                                      torch.Tensor], Metrics]:
     """Test-set metric pass for one batch, ``eval_metrics(gen, critic,
-    coarse, fine)``: the metric registry on G(coarse) against fine, and
-    Wass from the critic; no update, no graph."""
-    names = config.hp.metrics_to_calculate
-    fns = resolve_metrics(names)
+    coarse, fine)``: :func:`build_metric_pass` on G(coarse)."""
+    score = build_metric_pass(config)
 
     @torch.no_grad()
     def eval_metrics(gen: nn.Module, critic: nn.Module, coarse: torch.Tensor,
                      fine: torch.Tensor) -> Metrics:
-        fake = gen(coarse)
-        out = {name: fn(fine, fake) for name, fn in fns.items()}
-        if "Wass" in names:
-            out["Wass"] = wass_loss(critic(fine).mean(), critic(fake).mean())
-        return out
+        return score(critic, gen(coarse), fine)
 
     return eval_metrics
 
 
+def _check_modules(state: GANTrainState, gen: nn.Module, critic: nn.Module) -> None:
+    if state.generator is not gen or state.critic is not critic:
+        raise ValueError("this step was built for other modules than the state's")
+
+
+def _critic_update(config: Config, state: GANTrainState, critic: nn.Module,
+                   c_params: Sequence[torch.Tensor], fake: torch.Tensor, fine: torch.Tensor,
+                   alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One critic update on ``fake`` (made without a graph) and ``fine``;
+    returns the detached (loss, E[C(real)], E[C(fake)])."""
+    state.c_opt.zero_grad(set_to_none=True)
+    c_loss, c_real, c_fake = critic_loss(config, critic, fake, fine, alpha)
+    c_loss.backward(inputs=c_params)
+    state.c_opt.step()
+    return c_loss.detach(), c_real.detach(), c_fake.detach()
+
+
+def _generator_update(config: Config, state: GANTrainState, gen: nn.Module, critic: nn.Module,
+                      g_params: Sequence[torch.Tensor], coarse: torch.Tensor,
+                      fine: torch.Tensor) -> torch.Tensor:
+    """One generator update against the current critic, then the EMA
+    update; returns the detached loss."""
+    state.g_opt.zero_grad(set_to_none=True)
+    g_loss = generator_loss(config, gen, critic, coarse, fine)
+    g_loss.backward(inputs=g_params)
+    state.g_opt.step()
+    if state.g_ema is not None:
+        ema_update(config.hp.ema_decay, state.g_ema, g_params)
+    return g_loss.detach()
+
+
 def build_train_step(config: Config, gen: nn.Module,
                      critic: nn.Module) -> Callable[..., Metrics]:
-    """The train step over ``gen`` and ``critic``:
+    """The reference-schedule train step over ``gen`` and ``critic``:
     ``step(state, coarse, fine, alpha=None) -> metrics``, where ``state``
     is the :class:`GANTrainState` holding these two modules; it updates
     both networks and ``state.step`` in place.
@@ -132,15 +197,14 @@ def build_train_step(config: Config, gen: nn.Module,
     """
     check_training_ported(config)
     hp = config.hp
-    eval_metrics = build_eval_metrics(config)
+    score = build_metric_pass(config)
     g_params = [p for p in gen.parameters()]
     c_params = [p for p in critic.parameters()]
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
 
     def step(state: GANTrainState, coarse: torch.Tensor, fine: torch.Tensor,
              alpha: Optional[torch.Tensor] = None) -> Metrics:
-        if state.generator is not gen or state.critic is not critic:
-            raise ValueError("this step was built for other modules than the state's")
+        _check_modules(state, gen, critic)
         if alpha is None:
             alpha = gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
 
@@ -148,32 +212,89 @@ def build_train_step(config: Config, gen: nn.Module,
         with torch.no_grad():
             fake = gen(coarse)
         forwards["critic_fake"] += 1
-        state.c_opt.zero_grad(set_to_none=True)
-        c_loss, c_real, c_fake = critic_loss(config, critic, fake, fine, alpha)
-        c_loss.backward(inputs=c_params)
-        state.c_opt.step()
+        c_loss, c_real, c_fake = _critic_update(config, state, critic, c_params, fake, fine, alpha)
 
         # ---- generator update on the reference schedule, post-update critic
         if state.step % hp.critic_iterations == 0:
-            state.g_opt.zero_grad(set_to_none=True)
-            g_loss = generator_loss(config, gen, critic, coarse, fine)
+            g_loss = _generator_update(config, state, gen, critic, g_params, coarse, fine)
             forwards["update"] += 1
-            g_loss.backward(inputs=g_params)
-            state.g_opt.step()
-            if state.g_ema is not None:
-                ema_update(hp.ema_decay, state.g_ema, g_params)
-            g_loss = g_loss.detach()
         else:
             g_loss = torch.zeros((), device=fine.device)
         state.step += 1
 
-        metrics = {"critic_loss": c_loss.detach(), "gen_loss": g_loss,
-                   "Wass": wass_loss(c_real, c_fake).detach()}
-        # A fresh fake from the post-update generator, scored by the
-        # post-update critic (reference mlflow_epoch.py:53-63).
-        metrics.update(eval_metrics(gen, critic, coarse, fine))
-        forwards["metric"] += 1
+        metrics = {"critic_loss": c_loss, "gen_loss": g_loss, "Wass": wass_loss(c_real, c_fake)}
+        # The post-update critic scores a fresh fake from the post-update
+        # generator (reference mlflow_epoch.py:53-63) or, under
+        # metrics_reuse_fake, the critic update's fake.
+        if not hp.metrics_reuse_fake:
+            with torch.no_grad():
+                fake = gen(coarse)
+            forwards["metric"] += 1
+        metrics.update(score(critic, fake, fine))
         return metrics
 
     step.forwards = forwards
     return step
+
+
+def build_fused_round(config: Config, gen: nn.Module,
+                      critic: nn.Module) -> Callable[..., Metrics]:
+    """The fused n-critic round over ``gen`` and ``critic`` (``wgan.py:443-
+    582``): ``fused_round(state, coarse_n, fine_n, alphas=None) ->
+    metrics`` with inputs (n, B, C, h, w) and (n, B, P, H, W), n =
+    ``hp.critic_iterations``. It runs n critic updates on the n minibatches
+    in order, update i with alpha :func:`gp_alpha` of ``(config.seed,
+    state.step + i)`` (or ``alphas[i]``), each on a fake from the round's
+    starting generator; then one generator update on the last minibatch
+    against the post-update critic, and the EMA update. ``state.step``
+    advances by n.
+
+    Metrics: ``critic_loss`` the mean over the n updates, ``Wass`` from
+    the means of their n real and n fake scores, ``gen_loss`` the one
+    update's; the metric pass scores the last minibatch, on the last
+    critic update's fake under ``hp.metrics_reuse_fake`` (made before the
+    generator update), else on a fresh fake from the updated generator.
+    ``fused_round.forwards`` counts the generator forwards by kind, as
+    :func:`build_train_step`'s."""
+    check_training_ported(config)
+    hp = config.hp
+    score = build_metric_pass(config)
+    g_params = [p for p in gen.parameters()]
+    c_params = [p for p in critic.parameters()]
+    forwards = {"critic_fake": 0, "update": 0, "metric": 0}
+
+    def fused_round(state: GANTrainState, coarse_n: torch.Tensor, fine_n: torch.Tensor,
+                    alphas: Optional[torch.Tensor] = None) -> Metrics:
+        _check_modules(state, gen, critic)
+        n = coarse_n.shape[0]
+        if n != hp.critic_iterations:
+            raise ValueError(f"a fused round takes critic_iterations={hp.critic_iterations} "
+                             f"minibatches, got {n}")
+        losses, reals, fakes = [], [], []
+        for i in range(n):
+            coarse, fine = coarse_n[i], fine_n[i]
+            alpha = (gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
+                     if alphas is None else alphas[i])
+            with torch.no_grad():
+                fake = gen(coarse)
+            forwards["critic_fake"] += 1
+            c_loss, c_real, c_fake = _critic_update(config, state, critic, c_params, fake, fine,
+                                                    alpha)
+            losses.append(c_loss)
+            reals.append(c_real)
+            fakes.append(c_fake)
+            state.step += 1
+
+        g_loss = _generator_update(config, state, gen, critic, g_params, coarse, fine)
+        forwards["update"] += 1
+        metrics = {"critic_loss": torch.stack(losses).mean(), "gen_loss": g_loss,
+                   "Wass": wass_loss(torch.stack(reals).mean(), torch.stack(fakes).mean())}
+        if not hp.metrics_reuse_fake:
+            with torch.no_grad():
+                fake = gen(coarse)
+            forwards["metric"] += 1
+        metrics.update(score(critic, fake, fine))
+        return metrics
+
+    fused_round.forwards = forwards
+    return fused_round

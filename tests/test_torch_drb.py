@@ -21,6 +21,7 @@ from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     SLOPE,
     RES_SCALE,
     DRBFunction,
+    cudnn_chain,
     drb_backward,
     drb_forward,
     drb_forward_reference,
@@ -413,3 +414,89 @@ def test_cuda_block_runs_new_weights_after_adam_step(cuda_device):
     torch.cuda.synchronize()
     assert drb_forward.launches == before + 2
     torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# bf16
+
+
+def bf16_ulp(magnitude):
+    """The spacing of bf16 values at ``magnitude`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(magnitude)) - 7)
+
+
+# The bf16 kernel against the bf16 twin (drb.cu's criterion, also
+# chip_smoke.py's): both are held to a float64 evaluation of the same
+# function (same bf16 inputs, same three rounding points, sums in float64).
+# The kernel's largest error against it may be at most 1.25x the twin's, or
+# one bf16 ulp of the output's largest magnitude if that is larger: the twin
+# can round every element as the float64 evaluation does, and an element
+# whose fp32 sum lands next to a rounding boundary flips by its own ulp.
+# Kernel and twin differ only by fp32 summation order: at most 2 bf16 ulps
+# of the output's largest magnitude apart (one flip, carried into a later
+# stage's rounding at most once more).
+BF16_VS_FP64_TWIN_FACTOR, BF16_KERNEL_VS_TWIN_ULPS = 1.25, 2
+BF16_CUDA_CASES = [(150, 16, 16, 16), (128, 16, 16, 16), (8, 16, 32, 112), (1, 16, 37, 53),
+                   (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112)]
+
+
+def bf16_block_case(shape, seed, device="cpu"):
+    b, f, h, w = shape
+    ws, bs = init_scale_block(f, seed=seed, requires_grad=False)
+    x = torch.randn(b, f, h, w, generator=torch.Generator().manual_seed(seed + 1))
+    return x.to(torch.bfloat16).to(device), [t.to(device) for t in ws], [t.to(device) for t in bs]
+
+
+def bf16_errors(got, x, ws, bs):
+    """(kernel's max error vs float64, twin's max error vs float64, max
+    |kernel - twin|, one bf16 ulp of the output's largest magnitude)."""
+    want64 = drb_forward_reference(x, ws, bs, sum_dtype=torch.float64).double()
+    twin = drb_forward_reference(x, ws, bs).double()
+    got = got.double()
+    return ((got - want64).abs().max().item(), (twin - want64).abs().max().item(),
+            (got - twin).abs().max().item(), bf16_ulp(want64.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_CUDA_CASES, ids=lambda s: "B{}-F{}-{}x{}".format(*s))
+def test_cuda_bf16_kernel_matches_twin(cuda_device, shape):
+    x, ws, bs = bf16_block_case(shape, seed=shape[0] + shape[2], device=cuda_device)
+    before, before_bf16 = drb_forward.launches, drb_forward.launches_bf16
+    with torch.inference_mode():
+        got = drb_forward(x, ws, bs)
+        kernel_err, twin_err, vs_twin, ulp = bf16_errors(got, x, ws, bs)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert (drb_forward.launches, drb_forward.launches_bf16) == (before + 1, before_bf16 + 1)
+    assert kernel_err <= max(BF16_VS_FP64_TWIN_FACTOR * twin_err, ulp), (kernel_err, twin_err, ulp)
+    assert vs_twin <= BF16_KERNEL_VS_TWIN_ULPS * ulp, (vs_twin, ulp)
+
+
+# DRBFunction in bf16 (the bf16 kernel forward, the bf16 cuDNN recompute
+# backward) against the float64 gradient of the same block: the bf16
+# inputs and parameters, no rounding inside. Relative to each gradient's
+# largest entry. A bf16 backward rounds every conv's output gradient and
+# sums the gradients of a tensor used by several stages in bf16 (measured
+# on the H100 at B=128: 3.9e-2 off float64 at worst, a bias gradient; on
+# the CPU, through the same recompute, 1.9e-2).
+BF16_GRAD_TOL = 6e-2
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_drb_function_gradients_match_float64(cuda_device):
+    ws, bs = init_scale_block(16, seed=22, device=cuda_device)
+    rng = torch.Generator().manual_seed(23)
+    x = torch.randn(128, 16, 16, 16, generator=rng).to(cuda_device, torch.bfloat16)
+    x.requires_grad_()
+    weight = torch.randn(128, 16, 16, 16, generator=rng).to(cuda_device, torch.bfloat16)
+    before = drb_forward.launches_bf16
+    out = DRBFunction.apply(x, pack_drb_weights(ws, bs, torch.bfloat16), *ws, *bs)
+    got = torch.autograd.grad((out.float() * weight.float()).sum(), [x, *ws, *bs])
+    torch.cuda.synchronize()
+    assert drb_forward.launches_bf16 == before + 1 and out.dtype == torch.bfloat16
+    leaves = [t.detach().to(torch.bfloat16).double().requires_grad_() for t in (x, *ws, *bs)]
+    want = torch.autograd.grad((cudnn_chain(leaves[0], leaves[1:6], leaves[6:])
+                                * weight.double()).sum(), leaves)
+    for g, w, leaf in zip(got, want, (x, *ws, *bs)):
+        assert g.dtype == leaf.dtype  # bf16 for x, fp32 for the fp32 parameters
+        assert (g.double() - w).abs().max() <= BF16_GRAD_TOL * w.abs().max()

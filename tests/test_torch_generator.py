@@ -100,7 +100,6 @@ def test_seeded_init_is_reproducible_and_torch_default():
 @pytest.mark.parametrize("change,match", [
     (dict(generator_arch="srresnet"), "SRResNet"),
     (dict(noise_channels=2), "stochastic"),
-    (dict(hp=HyperParams(compute_dtype="bfloat16")), "bf16"),
 ])
 def test_later_slices_are_refused(change, match):
     _, cfg = tiny(1)

@@ -331,16 +331,12 @@ UNPORTED = {
     "lr_schedule": dict(lr_schedule="cosine", lr_decay_steps=10),
     "lr_warmup_steps": dict(lr_warmup_steps=5),
     "grad_accum": dict(grad_accum=2),
-    "schedule_fused": dict(schedule="fused"),
     "freq_sep": dict(freq_sep=True),
     "divergence_lambda": dict(divergence_lambda=0.1),
     "vorticity_lambda": dict(vorticity_lambda=0.1),
     "eof_lambda": dict(eof_lambda=0.1),
     "augment_flips": dict(augment_flips=True),
-    "metrics_reuse_fake": dict(metrics_reuse_fake=True),
-    "fused_critic_pass": dict(fused_critic_pass=True),
     "metric_ralsd": dict(metrics_to_calculate=("MAE", "RALSD")),
-    "compute_dtype": dict(compute_dtype="bfloat16"),
 }
 
 
