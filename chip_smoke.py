@@ -19,11 +19,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                times the kernel, the twin and the cuDNN five-conv chain
                beside the kernel's bound (the 3xTF32 tensor-core floor, or
                the bytes if they take longer);
-4. kernel_bf16 -- the bf16 DRB kernel and its bf16 twin, both held to a
-               float64 evaluation of the same function, at B=150, B=128, the
-               band, a ragged image and F=8; times at the first three beside
-               the twin, the bf16 cuDNN chain and the bound (the bf16
-               tensor-core rate, or the bytes);
+4. kernel_bf16 -- the bf16 DRB kernel (wgmma) and its bf16 twin, both held
+               to a float64 evaluation of the same function, at B=150,
+               B=128, B=132, the band, a ragged image and F=8; times at the
+               first four beside the twin, the bf16 cuDNN chain and the bound
+               (the bf16 tensor-core rate, or the bytes), with the kernel's
+               shared memory per CTA and CTAs per SM;
 5. generator-- the florida generator at full width (1,696,514 params,
                seeded weights): the kernel path against every DRB on the
                plain twin at B=150, against the CPU at B=2, and its forward
@@ -142,6 +143,7 @@ ADAM_ATOL_PER_UPDATE, ADAM_MEDIAN_ATOL = 2 * 2.5e-4, 1e-5
 B_MAIN = 150  # Config.chunk_size and the serving batch
 B_TRAIN = 128  # hp.batch_size of examples/florida.json and production_tuned.json
 B_PARITY = 4  # the train_parity and fused_parity phases' batch (the CPU side's cost)
+B_ONE_PER_SM = 132  # an H100 SXM's SMs: whole-sample units with no second wave
 BF16 = torch.bfloat16
 # The bf16 kernel against the bf16 twin (tests/test_torch_drb.py): both are
 # held to a float64 evaluation of the same function (same bf16 inputs, same
@@ -193,21 +195,28 @@ def check(ok: bool, message: str) -> None:
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls. The
-    card first spins for ~2 ms (``torch.cuda._sleep``), so the host queues
-    the calls ahead of it and a kernel shorter than its launch's host work
-    (the bf16 DRB kernel: ~0.03 ms) is timed on the device, not at the
-    host's launch rate."""
+    card first spins (``torch.cuda._sleep``) so that the host queues all the
+    calls ahead of it, and a kernel shorter than its launch's host work (the
+    bf16 DRB kernel: ~0.02 ms against ~0.03 ms of Python per call) is timed
+    on the device, not at the host's launch rate. If the card had already
+    finished spinning when the last call was queued, the spin is made four
+    times longer and the calls timed again."""
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(2_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    spin = 2_000_000  # clock cycles, ~1 ms
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued_ahead = not start.query()  # still spinning: every call waits in the queue
+        end.record()
+        torch.cuda.synchronize()
+        if queued_ahead or spin >= 2_000_000_000:
+            return start.elapsed_time(end) / iters
+        spin *= 4
 
 
 def card_peaks(name: str) -> dict:
@@ -295,16 +304,19 @@ def phase_build():
     lines = drb.library_path().with_suffix(".log").read_text().splitlines()
     usage, instance = {}, "?"
     for ln in lines:  # "Compiling entry function '..drb_kernel_bf16ILi16ELi18EE..'", then "Used"
-        found = re.search(r"drb_kernel(_bf16)?ILi(\d+)ELi(\d+)E", ln)
+        found = re.search(r"15drb_kernel_bf16ILi(\d+)ELi(\d+)E|10drb_kernelILi(\d+)ELi(\d+)E", ln)
         if found:
-            instance = "{} F={} pitch={}".format("bf16" if found.group(1) else "fp32",
-                                                 *found.groups()[1:])
+            bf16 = found.group(1) is not None
+            f, pitch = found.groups()[:2] if bf16 else found.groups()[2:]
+            instance = "{} F={} pitch={}".format("bf16" if bf16 else "fp32", f, pitch)
         elif "Used" in ln:
             usage[instance] = ln.split(":", 1)[1].strip()
     spills = [ln.strip() for ln in lines
               if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    # ptxas says so where it has to serialize the bf16 kernel's wgmma chains.
+    wgmma_notes = sorted({ln.strip() for ln in lines if "Potential Performance Loss" in ln})
     emit("build", seconds=seconds, library=str(drb.library_path().relative_to(ROOT)),
-         ptxas=usage, spills=spills)
+         ptxas=usage, spills=spills, wgmma_notes=wgmma_notes)
     check(not spills, f"the DRB kernel spills registers: {spills}")
     check(len(usage) == 8, f"expected 8 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
           f"2 pitches), the compiler reports {sorted(usage)}")
@@ -625,14 +637,15 @@ def time_drb_bf16(x, ws, bs, peaks):
     one DRB input, beside the kernel's bound: the larger of its FLOP at the
     bf16 tensor-core rate and its bytes (x and out in bf16, the packed
     weights) at the memory rate."""
-    from downgan_tpu_torch.ops.cuda.drb import (cudnn_chain, drb_forward, drb_forward_reference,
-                                                pack_drb_weights)
+    from downgan_tpu_torch.ops.cuda.drb import (bf16_occupancy, cudnn_chain, drb_forward,
+                                                drb_forward_reference, pack_drb_weights)
 
     packed = pack_drb_weights(ws, bs, BF16)
     kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed), iters=50)
     plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs), iters=20)
     library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
     b, f, h, w = x.shape
+    smem_bytes, ctas_per_sm = bf16_occupancy(f, h, w)
     flops = drb_flops(b, f, h, w)
     nbytes = 2 * x.numel() * 2 + packed.numel() * 4
     flop_ms = flops / (peaks["bf16"] * 1e12) * 1e3
@@ -644,7 +657,9 @@ def time_drb_bf16(x, ws, bs, peaks):
                   vs_library=library_ms / kernel_ms, flops=flops, bytes=nbytes,
                   bf16_tflops_peak=peaks["bf16"], hbm_tbps_peak=peaks["hbm"],
                   achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12,
-                  ctas=b * -(-h // 16) * -(-w // 16))
+                  ctas=b * -(-h // 16) * -(-w // 16), smem_bytes_per_cta=smem_bytes,
+                  ctas_per_sm=ctas_per_sm,
+                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
     emit("kernel_bf16_timing", **timing)
     return timing
 
@@ -652,12 +667,13 @@ def time_drb_bf16(x, ws, bs, peaks):
 def phase_kernel_bf16(rng, peaks):
     """The bf16 kernel against its bf16 twin, both held to a float64
     evaluation of the same function, at the generator's shapes (B=150, the
-    serving batch; B=128, the tuned training batch), the domain band, a
-    ragged image and F=8; times at the first three."""
+    serving batch; B=128, the tuned training batch; B=132, one sample per
+    SM of an H100, beside B=150 to show its tail), the domain band, a
+    ragged image and F=8; times at the first four."""
     from downgan_tpu_torch.ops.cuda.drb import cudnn_chain, drb_forward, drb_forward_reference
 
-    shapes = [(B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16), (8, 16, 32, 112), (1, 16, 37, 53),
-              (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112)]
+    shapes = [(B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16), (B_ONE_PER_SM, 16, 16, 16),
+              (8, 16, 32, 112), (1, 16, 37, 53), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112)]
     timed = {}
     worst = 0.0
     with torch.inference_mode():
@@ -687,9 +703,10 @@ def phase_kernel_bf16(rng, peaks):
             check(ok, f"bf16 DRB kernel fails its criterion at {shape}: kernel {kernel_err}, "
                   f"twin {twin_err}, apart {vs_twin}, ulp {ulp}, launches {launched}")
             worst = max(worst, vs_twin)
-            if shape[0] in (B_MAIN, B_TRAIN) or shape == (8, 16, 32, 112):
+            if shape[0] in (B_MAIN, B_TRAIN, B_ONE_PER_SM) or shape == (8, 16, 32, 112):
                 timed[shape] = time_drb_bf16(x, ws, bs, peaks)
-    return worst, timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)], timed[(B_TRAIN, 16, 16, 16)]
+    return (worst, timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)],
+            timed[(B_TRAIN, 16, 16, 16)], timed[(B_ONE_PER_SM, 16, 16, 16)])
 
 
 def phase_generator_bf16(config, rng):
@@ -1649,7 +1666,7 @@ def main() -> int:
     phase_build()
     rng = torch.Generator().manual_seed(1234)
     kernel_err, timing, band, timing_b128 = phase_kernel(rng, peaks)
-    bf16_err, bf16_timing, bf16_band, bf16_b128 = phase_kernel_bf16(rng, peaks)
+    bf16_err, bf16_timing, bf16_band, bf16_b128, bf16_b132 = phase_kernel_bf16(rng, peaks)
     config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     gen = phase_generator(config, rng)
     phase_generator_bf16(config, rng)
@@ -1698,7 +1715,10 @@ def main() -> int:
         "library_ms": bf16_timing["library_ms"], "shape": bf16_timing["shape"],
         "band": {k: bf16_band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         "ms_b128": bf16_b128["ms"], "bound_ms_b128": bf16_b128["bound_ms"],
-        "library_ms_b128": bf16_b128["library_ms"], "backward_ms_b128": bf16_backward_ms}]}),
+        "library_ms_b128": bf16_b128["library_ms"], "backward_ms_b128": bf16_backward_ms,
+        "ms_b132": bf16_b132["ms"], "bound_ms_b132": bf16_b132["bound_ms"],
+        "smem_bytes_per_cta": bf16_timing["smem_bytes_per_cta"],
+        "ctas_per_sm": bf16_timing["ctas_per_sm"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

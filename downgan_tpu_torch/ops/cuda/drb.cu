@@ -103,27 +103,55 @@
 //  * Bound: the tensor cores' bf16 rate. 2.654 GFLOP at B = 150 over the
 //    H100 SXM's dense 989 TFLOP/s is 0.0027 ms; x and out in bf16 (2.46 MB)
 //    plus 69 KB of packed weights take 0.0007 ms at 3.35 TB/s. B = 128 and
-//    a band (8,16,32,112) give ~0.0023 and ~0.0020 ms.
-//  * One mma.sync.m16n8k16 (bf16 in, fp32 accumulators) per k-step of 16
-//    channels where the fp32 kernel issues three m16n8k8 TF32 products per
-//    8 channels. At F = 8 a group has only 8 channels, so that instance
-//    takes m16n8k8 (bf16) k-steps of 8 channels instead of padding K.
-//  * The A fragment holds two adjacent channels per 32-bit register, so the
-//    concat is stored channel-pair-planar: each group is F/2 planes of
-//    bf16x2 words (channels 2p and 2p+1 of one pixel in one word, the lower
-//    channel in the low half), and one ld.shared.b32 fills a register. The
-//    plane stride is padded to 8 mod 32 words, so a fragment's 4 pairs x 8
-//    pixels hit 32 distinct banks, as in the fp32 kernel. Half the fp32
-//    kernel's bytes: florida 5 x 8 x 328 words = 52,480 B a CTA; an interior
-//    band tile 93,440 B.
-//  * The stage epilogue writes a thread's two adjacent output channels as
-//    one bf16x2 word. x is loaded with plain loads (its two channels of a
-//    word lie in two NCHW planes, so cp.async cannot pair them).
-//  * Units, halo recompute, warps and the frame geometry are the fp32
-//    kernel's. Weights (bf16, packed once per weight set by
-//    drb.py::pack_drb_weights_bf16 in the order the B fragments are read)
-//    stay in global memory and L1/L2: 69,120 B at F = 16.
-//
+//    a band (8,16,32,112) give ~0.0023 and ~0.0020 ms. With N = F = 16
+//    every bf16 operand of A feeds only 16 products: a wgmma m64n16k16 with
+//    both operands in shared memory takes ~22.5 SM clocks, 38 % of the
+//    bf16 peak, where m64n48k16 takes ~31.3 (83 %) and m64n64k16 ~35.8
+//    (97 %) (tools/wgmma_rate.py on the H100; PERF.md).
+//  * What held the first bf16 kernel back (mma.sync.m16n8k16 on the fp32
+//    kernel's frame, stored channel-pair planar): 8 ld.shared.b32 and a 16-byte
+//    ld.global.nc of B fragments per warp and k-step feeding 4 small MMAs,
+//    every warp reading a stage's whole weight set, 2-byte x loads.
+//  * wgmma, A and B in shared memory, K-major, no swizzle. The concat is a
+//    channel-last frame: each 8-channel slice of each group is a plane of
+//    16-byte positions (one pixel's 8 channels), so every position is a row
+//    of a core matrix and a kernel row's shift is the A descriptor's start
+//    address moved by dy * pitch positions: the im2col exists only in the
+//    descriptor. LBO steps from a k16 chunk's first slice to its second (a
+//    group's second slice at F = 16; the next group's slice, or a zero
+//    slice at odd s, at F = 8).
+//  * The three dx taps side by side in N (N = 3F: m64n48k16 at F = 16,
+//    m64n24k16 at F = 8) instead of one wgmma m64n16k16 per tap: a third of
+//    the instructions at over twice the rate. The dx shift then applies to
+//    the output rows: core matrices step 6 positions (SBO = 96 B), so each
+//    covers 8 positions and its rows 1..6 are outputs whose -1 and +1
+//    neighbours are in the same core matrix, 4 lanes away in the
+//    accumulator layout (two shuffles per value). An M-tile of 64 rows
+//    gives 48 outputs; the frame's pitch pad columns are computed and
+//    dropped: 6 M-tiles a florida stage. (SBO 6 reads as fast as 8 in
+//    tools/wgmma_rate.py.)
+//  * One chain of 3 * chunks k-steps per stage and M-tile, one commit and
+//    wait. The chunk loop is unrolled (10 % faster than a loop). 2
+//    warpgroups a CTA (3 measured slower, 4 spill); 2 or 3 M-tiles in flight
+//    per warpgroup measured 5-20 % slower (registers).
+//  * Weights by bulk copies (cp.async.bulk, 1-D TMA) on mbarriers, double
+//    buffered: buffer A holds stages 1, 3, 5 (23,040 B at F = 16), buffer B
+//    stages 2, 4 (18,432 B); stages 1, 2 and the biases load at the start,
+//    stage s + 2 right after stage s. The host packs them in wgmma's
+//    canonical B layout (drb.py::pack_drb_weights), so a stage is one copy.
+//  * x by bulk copies too, one per channel (or per channel row of a
+//    halo'd tile) into the out groups' part of the frame, then transposed
+//    into group 0 from shared memory with 16-byte reads. Loading x with
+//    per-thread global loads cost ~4 us of a ~19 us launch at B = 128.
+//    Rows that are not 16-byte aligned (W % 8 != 0) use 2-byte loads.
+//  * Stage outputs go from the accumulators into the frame as bf16x2 words,
+//    behind fence.proxy.async; the block output is staged channel-planar in
+//    buffer B and written with 16-byte stores.
+//  * Units and halo recompute are the fp32 kernel's: one CTA per (sample,
+//    16x16 tile). Shared memory: florida (F = 16, 16x16) 94,688 B, 2 CTAs
+//    per SM; an interior band tile 134,368 B, 1 CTA per SM. At B = 150, 18
+//    SMs run two samples (0.0222 ms against 0.0160 at B = 132; PERF.md).
+
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
 
@@ -393,25 +421,156 @@ cudaError_t launch(const float* x, const float* wpack, float* out, int B, int H,
 // ---------------------------------------------------------------------------
 // bf16
 
-// d += a * b, m16n8k16 (KC = 16: a[0..3], b[0..1]) or m16n8k8 (KC = 8: a[0..1],
-// b[0]), bf16 operands, fp32 accumulators (PTX fragment layouts).
-template <int KC>
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a, const uint32_t* b);
+constexpr int kWarpgroups = 2;
+constexpr int kThreadsBf16 = 128 * kWarpgroups;
+constexpr int kMTile = 64;     // wgmma's M rows: 8 core matrices of 8 frame positions
+constexpr int kCoreStep = 6;   // positions between core matrices (the A descriptor's SBO)
+constexpr int kMOut = 8 * kCoreStep;  // output positions per M-tile: rows 1..6 of each core matrix
+constexpr int kGuard = kMTile;        // zeroed positions after the frame's last plane
+constexpr int kStagePlane = kTileH * kTileW + 8;  // bf16 per channel of the output staging
+
+// k16 chunks of stage s's concat (s*F channels; F = 8 pads odd s with the
+// zero slice) and the bytes of its packed weights (drb.py::pack_drb_weights:
+// per chunk and kernel row one k-step of 3F x 16 bf16).
+__host__ __device__ __forceinline__ int bf16_chunks(int F, int s) { return (s * F + 15) / 16; }
+__host__ __device__ __forceinline__ int stage_bytes_bf16(int F, int s) {
+  return bf16_chunks(F, s) * 3 * 3 * F * 16 * 2;
+}
+__host__ __device__ __forceinline__ int stage_offset_bf16(int F, int s) {  // stage s's first byte
+  int off = 0;
+  for (int t = 1; t < s; ++t) off += stage_bytes_bf16(F, t);
+  return off;
+}
+
+// The frame, in 16-byte positions (8 channels each): group j's F/8 slices
+// of rows_j x pitch positions, in order; at F = 8 a zero slice of group 0's
+// size; then kGuard zero positions. group_base is slice 0's first position.
+__host__ __device__ __forceinline__ int group_base(int j, int F, int H, int P) {
+  int pos = 0;
+  for (int i = 0; i < j; ++i) pos += (F / 8) * group_rows(i, H) * P;
+  return pos;
+}
+
+__host__ __device__ __forceinline__ int frame_positions(int F, int H, int P) {
+  return group_base(5, F, H, P) + (F == 8 ? group_rows(0, H) * P : 0) + kGuard;
+}
+
+// Shared memory: the frame, weight buffer A (stages 1, 3, 5), weight
+// buffer B (stages 2, 4, then the block output's staging), three mbarriers
+// (odd stages' weights and the biases, even stages' weights, x), the five
+// stages' biases (fp32). x arrives NCHW in the out groups' part of the
+// frame, which is zeroed only once x has moved into group 0.
+struct SmemBf16 {
+  int buf_a, buf_b, bars, bias, total;  // byte offsets; total bytes
+};
+
+__host__ __device__ __forceinline__ SmemBf16 smem_layout_bf16(int F, int H, int P) {
+  SmemBf16 L;
+  L.buf_a = frame_positions(F, H, P) * 16;
+  L.buf_b = L.buf_a + stage_bytes_bf16(F, 5);
+  const int b_bytes = stage_bytes_bf16(F, 4);
+  const int staging = F * kStagePlane * 2;
+  L.bars = L.buf_b + (b_bytes > staging ? b_bytes : staging);
+  L.bias = L.bars + 32;
+  L.total = L.bias + 5 * F * 4;
+  return L;
+}
+
+// A K-major, no-swizzle wgmma descriptor: start address, LBO (the step
+// between the two 8-element K halves of a k16 operand) and SBO (the step
+// between 8-row core matrices along M or N), all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_strides(uint32_t lbo16, uint32_t sbo16) {
+  return (static_cast<uint64_t>(lbo16 & 0x3FFF) << 16) | (static_cast<uint64_t>(sbo16 & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ uint64_t desc_at(uint64_t strides, uint32_t start16) {
+  return strides | static_cast<uint64_t>(start16 & 0x3FFF);
+}
+
+// d += A * B for A 64x16 and B (3F)x16, both K-major bf16 in shared memory
+// (N = 3F: the three dx taps of a kernel row side by side), d in fp32
+// registers: row 16*warp + gq + 8h, column 8*nb + 2*tq + {0, 1} in
+// d[4*nb + 2*h + {0, 1}].
+template <int F>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[3 * F / 2], uint64_t da, uint64_t db);
 
 template <>
-__device__ __forceinline__ void mma_bf16<16>(float (&d)[4], const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[24], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void mma_bf16<8>(float (&d)[4], const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b[0]));
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[12], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (its results land at wgmma_wait, not at the asm).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// The arrival of one thread that expects ``bytes`` of bulk copies on ``bar``.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// ``bytes`` from global to shared memory by one bulk copy (1-D TMA),
+// completing on ``bar``. Addresses and size are multiples of 16.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
@@ -423,220 +582,322 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
   return __bfloat1622float2(v);
 }
 
-// The fragment words of one k-step for one lane: WPL = 4 (F = 16) as one
-// 16-byte load, WPL = 1 (F = 8) as one 4-byte load.
-template <int WPL>
-__device__ __forceinline__ void load_bfrag(uint32_t (&w)[WPL], const uint32_t* p) {
-  if constexpr (WPL == 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else {
-    static_assert(WPL == 1, "F = 8 or 16");
-    w[0] = __ldg(p);
-  }
-}
-
-// kPitch = g.pitch at compile time, as in drb_kernel. Shared memory holds
-// 32-bit words: group j is F/2 pair planes of plane_stride(rows_j * kPitch).
+// kPitch = g.pitch at compile time, as in drb_kernel. vec_io: W % 8 == 0 and
+// x and out 16-byte aligned, so 8 pixels of a row move as one 16-byte word.
 template <int F, int kPitch>
-__global__ void __launch_bounds__(kThreads, 2)
-drb_kernel_bf16(const unsigned short* __restrict__ x, const uint32_t* __restrict__ wfrag,
-                const float* __restrict__ bias, unsigned short* __restrict__ out, Geometry g) {
-  constexpr int KC = F >= 16 ? 16 : 8;  // channels per k-step
-  constexpr int CPG = F / KC;           // k-steps per group and tap
-  constexpr int NT = F / 8;             // n-tiles of 8 output channels
-  constexpr int WPL = NT * KC / 8;      // fragment words per lane and k-step
-  constexpr int PAIRS = F / 2;          // pair planes per group
-  constexpr int AREGS = KC / 4;         // A registers per m-tile
-  extern __shared__ uint4 smem_bf16[];
-  uint32_t* sm = reinterpret_cast<uint32_t*>(smem_bf16);
+__global__ void __launch_bounds__(kThreadsBf16, 2)
+drb_kernel_bf16(const unsigned short* __restrict__ x, const uint8_t* __restrict__ wpack,
+                const float* __restrict__ bias, unsigned short* __restrict__ out, Geometry g,
+                int vec_io) {
+  constexpr int NSL = F / 8;      // 8-channel slices per group (column blocks per dx)
+  constexpr int NACC = 3 * F / 2; // accumulators per thread: 64 x 3F over 128 threads
+  constexpr int P = kPitch;
+  extern __shared__ __align__(128) uint4 smem_bf16[];
+  uint32_t* sm32 = reinterpret_cast<uint32_t*>(smem_bf16);
 
   const int H = g.H, W = g.W, HW = H * W;
-  constexpr int P = kPitch;
   const int b = blockIdx.x / g.tiles_per_sample;
   const int tile = blockIdx.x - b * g.tiles_per_sample;
   const int ty0 = (tile / g.tiles_x) * kTileH;
   const int tx0 = (tile % g.tiles_x) * kTileW;
   const unsigned short* xb = x + static_cast<size_t>(b) * F * HW;
   unsigned short* ob = out + static_cast<size_t>(b) * F * HW;
+  // Positions q count from group 0's origin (fy0, fx0); group j holds q at
+  // position slice0(j) + i * rows_j * P + q of its slice i.
   const int fy0 = max(ty0 - kHalo, -1);
   const int fx0 = max(tx0 - kHalo, -1);
+  auto slice0 = [&](int j) {
+    return group_base(j, F, H, P) - (max(ty0 - (kHalo - j), -1) - fy0) * P;
+  };
 
-  // x with its halo as bf16x2 words (zero outside the image); out groups zeroed.
+  const SmemBf16 L = smem_layout_bf16(F, H, P);
+  const uint32_t frame_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bf16));
+  // Weight buffer and mbarrier 0 serve the odd stages, 1 the even ones.
+  auto buf_s = [&](int i) { return frame_s + (i ? L.buf_b : L.buf_a); };
+  auto bar_s = [&](int i) { return frame_s + L.bars + 8 * i; };
+
+  // x's rows as the frame needs them: rows [r_lo, r_hi), columns [c_first,
+  // c_end) widened to whole 16-byte words.
   const int rows0 = group_rows(0, H);
-  const int plane0 = plane_stride(rows0 * P);
+  const int r_lo = max(fy0, 0), r_hi = min(fy0 + rows0, H);
+  const int c_lo = max(fx0, 0), c_hi = min(fx0 + P, W);
+  const int c_first = c_lo & ~7;
+  const int c_end = min((c_hi + 7) & ~7, W);
+  const int xrows = r_hi - r_lo, xpitch = c_end - c_first;
+  const bool rows_contiguous = c_first == 0 && c_end == W;  // a channel's rows are one block
+  unsigned short* x_in = reinterpret_cast<unsigned short*>(smem_bf16 + group_base(1, F, H, P));
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_s(0), 1);
+    mbar_init(bar_s(1), 1);
+    mbar_init(bar_s(2), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // Stages 1 and 2 and the biases in flight from the start; x's bytes
+    // expected before any thread issues its copies.
+    mbar_expect(bar_s(0), stage_bytes_bf16(F, 1) + 5 * F * 4);
+    bulk_copy(buf_s(0), wpack, stage_bytes_bf16(F, 1), bar_s(0));
+    bulk_copy(frame_s + L.bias, bias, 5 * F * 4, bar_s(0));
+    mbar_expect(bar_s(1), stage_bytes_bf16(F, 2));
+    bulk_copy(buf_s(1), wpack + stage_offset_bf16(F, 2), stage_bytes_bf16(F, 2), bar_s(1));
+    if (vec_io) mbar_expect(bar_s(2), F * xrows * xpitch * 2);
+  }
+  __syncthreads();
+  if (vec_io) {  // x by bulk copies: one per channel, or per channel row
+    const uint32_t dst0 = frame_s + group_base(1, F, H, P) * 16;
+    const int copies = rows_contiguous ? F : F * xrows;
+    for (int i = threadIdx.x; i < copies; i += kThreadsBf16) {
+      const int ch = rows_contiguous ? i : i / xrows;
+      const int r = rows_contiguous ? 0 : i - ch * xrows;
+      const int n = rows_contiguous ? xrows : 1;
+      bulk_copy(dst0 + ((ch * xrows + r) * xpitch) * 2, xb + ch * HW + (r_lo + r) * W + c_first,
+                n * xpitch * 2, bar_s(2));
+    }
+  }
+  // Group 0 zeroed (its SAME ring), and the zero slice and the guard.
+  const int g1 = group_base(1, F, H, P), g5 = group_base(5, F, H, P);
+  for (int i = threadIdx.x; i < g1; i += kThreadsBf16) smem_bf16[i] = make_uint4(0, 0, 0, 0);
+  for (int i = g5 + threadIdx.x; i < frame_positions(F, H, P); i += kThreadsBf16) {
+    smem_bf16[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (vec_io) mbar_wait(bar_s(2), 0);
+  __syncthreads();
+  // x into group 0, channel-last: a thread takes 8 channels x 8 pixels of a
+  // row, transposes them in registers and stores 8 positions of 16 bytes.
   {
-    int total = PAIRS * plane0;
-    for (int j = 1; j < 5; ++j) total += PAIRS * plane_stride(group_rows(j, H) * P);
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-      uint32_t v = 0u;
-      if (i < PAIRS * plane0) {
-        const int p = i / plane0;
-        const int r = i - p * plane0;
-        const int gy = fy0 + r / P;
-        const int gx = fx0 + r % P;
-        if (r < rows0 * P && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-          const unsigned short* src = xb + (2 * p) * HW + gy * W + gx;
-          v = static_cast<uint32_t>(__ldg(src)) | (static_cast<uint32_t>(__ldg(src + HW)) << 16);
+    const int chunks = xpitch / 8 + (vec_io ? 0 : 1);  // unaligned rows: one chunk more
+    const int items = NSL * xrows * chunks;
+    for (int it = threadIdx.x; it < items; it += kThreadsBf16) {
+      const int sl = it / (xrows * chunks);
+      const int rest = it - sl * xrows * chunks;
+      const int r = rest / chunks;
+      const int gx0 = c_first + 8 * (rest - r * chunks);
+      uint32_t v[8][4];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (vec_io) {  // from the NCHW copy in shared memory
+          const uint4 u = *reinterpret_cast<const uint4*>(x_in + ((8 * sl + c) * xrows + r) * xpitch +
+                                                          gx0 - c_first);
+          v[c][0] = u.x;
+          v[c][1] = u.y;
+          v[c][2] = u.z;
+          v[c][3] = u.w;
+        } else {  // straight from global memory, 2 bytes at a time
+          const unsigned short* row = xb + (8 * sl + c) * HW + (r_lo + r) * W;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int gx = gx0 + 2 * e;
+            const uint32_t lo = gx < W ? __ldg(row + gx) : 0u;
+            const uint32_t hi = gx + 1 < W ? __ldg(row + gx + 1) : 0u;
+            v[c][e] = lo | (hi << 16);
+          }
         }
       }
-      sm[i] = v;
+      uint4* row_frame = smem_bf16 + sl * rows0 * P + (r_lo + r - fy0) * P;  // group 0 starts at 0
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int gx = gx0 + e;
+        if (gx < c_lo || gx >= c_hi) continue;
+        const uint32_t sel = (e & 1) ? 0x7632u : 0x5410u;
+        row_frame[gx - fx0] = make_uint4(__byte_perm(v[0][e >> 1], v[1][e >> 1], sel),
+                                         __byte_perm(v[2][e >> 1], v[3][e >> 1], sel),
+                                         __byte_perm(v[4][e >> 1], v[5][e >> 1], sel),
+                                         __byte_perm(v[6][e >> 1], v[7][e >> 1], sel));
+      }
     }
   }
   __syncthreads();
+  // The out groups zeroed, x's copy with them.
+  for (int i = g1 + threadIdx.x; i < g5; i += kThreadsBf16) smem_bf16[i] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
+  // Warp-uniform by construction (a shuffle from lane 0): branches on it
+  // keep the wgmma chains out of what ptxas treats as divergent code, where
+  // it would serialize them.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  const int warp = (threadIdx.x >> 5) & 3;  // warp within the warpgroup: M rows 16*warp ..
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;
   const int tq = lane & 3;
+  const uint64_t b_strides = desc_strides(128 / 16, 256 / 16);
+  unsigned short* staging = reinterpret_cast<unsigned short*>(smem_bf16) + L.buf_b / 2;
+  const float* bias_sm = reinterpret_cast<const float*>(smem_bf16) + L.bias / 4;
 
-  const uint32_t* wstage = wfrag + lane * WPL;
 #pragma unroll 1
   for (int s = 1; s <= 5; ++s) {
+    const int buf = (s - 1) & 1;
+    mbar_wait(bar_s(buf), ((s - 1) >> 1) & 1);
     const int e = kHalo - s;
     const int cy0 = max(ty0 - e, 0), cy1 = min(ty0 + kTileH + e, H);
     const int cx0 = max(tx0 - e, 0), cx1 = min(tx0 + kTileW + e, W);
-    const int wc = cx1 - cx0;
-    const int m_total = (cy1 - cy0) * wc;
-    const int ksteps = 9 * s * CPG;
-
-    int out_off = 0;
-    for (int j = 0; j < s; ++j) out_off += PAIRS * plane_stride(group_rows(j, H) * P);
-    const int out_plane = plane_stride(group_rows(s, H) * P);
-    const int out_shift = (max(ty0 - (kHalo - s), -1) - fy0) * P;
+    const int q0 = (cy0 - fy0) * P + (cx0 - fx0);
+    const int ntiles = ((cy1 - 1 - fy0) * P + (cx1 - 1 - fx0) - q0) / kMOut + 1;
+    const int nch = bf16_chunks(F, s);
+    const uint32_t b0 = buf_s(buf) >> 4;
+    const int out0 = slice0(s);  // s < 5: where out_s's slice 0 keeps q
+    const int out_plane = group_rows(s, H) * P;
 
 #pragma unroll 1
-    for (int pair = warp; pair * 32 < m_total; pair += kWarps) {
-      int pix[2][2], gpix[2][2];
+    for (int t = wg; t < ntiles; t += kWarpgroups) {
+      // M-tile t: one chain of 3 * nch k-steps (chunk, kernel row), one
+      // commit group. Core matrix j covers positions m_first + 6j .. + 7;
+      // its rows 1..6 are outputs, rows 0 and 7 their dx = -1 and +1
+      // neighbours.
+      const int m_first = q0 - 1 + t * kMOut;
+      float acc[NACC];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int m = pair * 32 + mt * 16 + h * 8 + gq;
-          m = m < m_total ? m : m_total - 1;  // rows past the end compute, never store
-          const int y = cy0 + m / wc;
-          const int xx = cx0 + m % wc;
-          pix[mt][h] = (y - fy0) * P + (xx - fx0);
-          gpix[mt][h] = y * W + xx;
+      for (int nb = 0; nb < NSL; ++nb) {  // the bias rides in the dx = 1 columns
+        const float2 bv = *reinterpret_cast<const float2*>(bias_sm + (s - 1) * F + nb * 8 + 2 * tq);
+        acc[4 * (NSL + nb)] = acc[4 * (NSL + nb) + 2] = bv.x;
+        acc[4 * (NSL + nb) + 1] = acc[4 * (NSL + nb) + 3] = bv.y;
+      }
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < (F == 16 ? 5 : 3); ++c) {  // unrolled: measured 10 % faster
+        if (c >= nch) break;
+        int a_start, lbo;
+        if constexpr (F == 16) {  // chunk c = group c's two slices
+          a_start = slice0(c);
+          lbo = group_rows(c, H) * P;
+        } else {  // groups 2c and 2c + 1, or 2c and the zero slice
+          a_start = slice0(2 * c);
+          lbo = (2 * c + 1 < s ? slice0(2 * c + 1) : group_base(5, F, H, P)) - a_start;
+        }
+        const uint64_t a_strides = desc_strides(lbo, kCoreStep);
+        const uint32_t a0 = (frame_s >> 4) + a_start + m_first;
+        const uint32_t bc = b0 + c * 3 * (6 * F);  // a k-step of B is 6F 16-byte rows
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          wgmma_bf16<F>(acc, desc_at(a_strides, a0 + (dy - 1) * P), desc_at(b_strides, bc + dy * 6 * F));
         }
       }
-      float acc[2][NT][4];
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      // out(row r) = dx=1 columns of row r + dx=0 columns of row r - 1 + dx=2
+      // columns of row r + 1: rows r -+ 1 sit 4 lanes away (gq -+ 1).
+      float o[2][NSL][2];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float b0 = __ldg(bias + (s - 1) * F + nt * 8 + 2 * tq);
-        const float b1 = __ldg(bias + (s - 1) * F + nt * 8 + 2 * tq + 1);
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          acc[mt][nt][0] = b0;
-          acc[mt][nt][1] = b1;
-          acc[mt][nt][2] = b0;
-          acc[mt][nt][3] = b1;
-        }
-      }
-
-      const uint32_t* wp = wstage;
-      int goff = 0;
-#pragma unroll 1
-      for (int j = 0; j < s; ++j) {
-        const int plane = plane_stride(group_rows(j, H) * P);
-        const int gbase = goff - (max(ty0 - (kHalo - j), -1) - fy0) * P;
+        for (int nb = 0; nb < NSL; ++nb) {
 #pragma unroll
-        for (int cc = 0; cc < CPG; ++cc) {
-          const uint32_t* p0 = sm + gbase + (cc * (KC / 2) + tq) * plane;  // channels 2tq, 2tq+1
-          const uint32_t* p4 = p0 + 4 * plane;                           // channels 2tq+8, +9
-#pragma unroll
-          for (int tap = 0; tap < 9; ++tap) {
-            const int toff = (tap / 3 - 1) * P + (tap % 3 - 1);
-            uint32_t bw[WPL];
-            load_bfrag<WPL>(bw, wp);
-            wp += 32 * WPL;
-            uint32_t a[2][AREGS];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              a[mt][0] = p0[pix[mt][0] + toff];
-              a[mt][1] = p0[pix[mt][1] + toff];
-              if constexpr (KC == 16) {
-                a[mt][2] = p4[pix[mt][0] + toff];
-                a[mt][3] = p4[pix[mt][1] + toff];
-              }
-            }
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16<KC>(acc[mt][nt], a[mt], bw + nt * (KC / 8));
-              }
-            }
+          for (int i = 0; i < 2; ++i) {
+            const float left = __shfl_up_sync(0xffffffffu, acc[4 * nb + 2 * h + i], 4);
+            const float right = __shfl_down_sync(0xffffffffu, acc[4 * (2 * NSL + nb) + 2 * h + i], 4);
+            o[h][nb][i] = acc[4 * (NSL + nb) + 2 * h + i] + left + right;
           }
         }
-        goff += PAIRS * plane;
       }
-
-      // Epilogue: a thread holds channels co = nt*8 + 2tq and co + 1 (pair
-      // nt*4 + tq) at rows gq (acc[..][0..1]) and gq + 8 (acc[..][2..3]).
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      if (gq != 0 && gq != 7) {  // rows 0 and 7 of a core matrix are neighbours only
+        // Epilogue: positions in the stage's rectangle are kept; pitch pad
+        // columns and positions past its end were computed and are dropped.
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          if (pair * 32 + mt * 16 + h * 8 + gq >= m_total) continue;
+          const int q = m_first + kCoreStep * (2 * warp + h) + gq;
+          const int fy = q / P;
+          const int oy = fy0 + fy;
+          const int ox = fx0 + (q - fy * P);
+          if (oy < cy0 || oy >= cy1 || ox < cx0 || ox >= cx1) continue;
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int pr = nt * 4 + tq;
+          for (int nb = 0; nb < NSL; ++nb) {
             // The stage output, rounded to bf16 once.
-            const float2 o = __bfloat1622float2(
-                __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]));
+            const float2 r = __bfloat1622float2(__floats2bfloat162_rn(o[h][nb][0], o[h][nb][1]));
             if (s < 5) {
-              const float y0 = o.x >= 0.f ? o.x : kSlope * o.x;
-              const float y1 = o.y >= 0.f ? o.y : kSlope * o.y;
-              sm[out_off + pr * out_plane + pix[mt][h] - out_shift] =
-                  bf16x2_bits(__floats2bfloat162_rn(y0, y1));
+              const float y0 = r.x >= 0.f ? r.x : kSlope * r.x;
+              const float y1 = r.y >= 0.f ? r.y : kSlope * r.y;
+              sm32[(out0 + nb * out_plane + q) * 4 + tq] = bf16x2_bits(__floats2bfloat162_rn(y0, y1));
             } else {
-              const float2 xv = bf16x2_to_float2(sm[pr * plane0 + pix[mt][h]]);
-              const __nv_bfloat162 r = __floats2bfloat162_rn(
-                  __fadd_rn(__fmul_rn(o.x, kResScale), xv.x),
-                  __fadd_rn(__fmul_rn(o.y, kResScale), xv.y));
-              const uint32_t bits = bf16x2_bits(r);
-              ob[(2 * pr) * HW + gpix[mt][h]] = static_cast<unsigned short>(bits & 0xFFFFu);
-              ob[(2 * pr + 1) * HW + gpix[mt][h]] = static_cast<unsigned short>(bits >> 16);
+              const float2 xv = bf16x2_to_float2(sm32[(nb * rows0 * P + q) * 4 + tq]);
+              const uint32_t res = bf16x2_bits(__floats2bfloat162_rn(
+                  __fadd_rn(__fmul_rn(r.x, kResScale), xv.x), __fadd_rn(__fmul_rn(r.y, kResScale), xv.y)));
+              unsigned short* st =
+                  staging + (8 * nb + 2 * tq) * kStagePlane + (oy - ty0) * kTileW + ox - tx0;
+              st[0] = static_cast<unsigned short>(res & 0xFFFFu);
+              st[kStagePlane] = static_cast<unsigned short>(res >> 16);
             }
           }
         }
       }
     }
-    wstage += ksteps * 32 * WPL;
+    fence_proxy_async();
     __syncthreads();
+    if (threadIdx.x == 0 && s + 2 <= 5) {  // the buffer just read takes stage s + 2
+      mbar_expect(bar_s(buf), stage_bytes_bf16(F, s + 2));
+      bulk_copy(buf_s(buf), wpack + stage_offset_bf16(F, s + 2), stage_bytes_bf16(F, s + 2), bar_s(buf));
+    }
+  }
+
+  // The block output, staged channel-planar, out to NCHW.
+  const int rows_out = min(ty0 + kTileH, H) - ty0;
+  const int cols_out = min(tx0 + kTileW, W) - tx0;
+  if (vec_io) {  // cols_out is a multiple of 8
+    const int per_row = cols_out / 8;
+    for (int i = threadIdx.x; i < F * rows_out * per_row; i += kThreadsBf16) {
+      const int co = i / (rows_out * per_row);
+      const int rem = i - co * rows_out * per_row;
+      const int r = rem / per_row;
+      const int c8 = 8 * (rem - r * per_row);
+      *reinterpret_cast<uint4*>(ob + co * HW + (ty0 + r) * W + tx0 + c8) =
+          *reinterpret_cast<const uint4*>(staging + co * kStagePlane + r * kTileW + c8);
+    }
+  } else {
+    for (int i = threadIdx.x; i < F * rows_out * cols_out; i += kThreadsBf16) {
+      const int co = i / (rows_out * cols_out);
+      const int rem = i - co * rows_out * cols_out;
+      const int r = rem / cols_out;
+      const int c = rem - r * cols_out;
+      ob[co * HW + (ty0 + r) * W + tx0 + c] = staging[co * kStagePlane + r * kTileW + c];
+    }
   }
 }
 
-size_t smem_bytes_bf16(int F, const Geometry& g) {
-  size_t words = 0;
-  for (int j = 0; j < 5; ++j) words += static_cast<size_t>(F / 2) * plane_stride(group_rows(j, g.H) * g.pitch);
-  return words * sizeof(uint32_t);
-}
+using KernelFnBf16 = void (*)(const unsigned short*, const uint8_t*, const float*, unsigned short*,
+                              Geometry, int);
 
-using KernelFnBf16 = void (*)(const unsigned short*, const uint32_t*, const float*, unsigned short*,
-                              Geometry);
+template <int F>
+KernelFnBf16 kernel_bf16(const Geometry& g) {
+  return g.pitch == kTileW + 2 ? drb_kernel_bf16<F, kTileW + 2> : drb_kernel_bf16<F, kTileW + 2 * kHalo>;
+}
 
 template <int F>
 cudaError_t launch_bf16(const void* x, const void* wpack, void* out, int B, int H, int W,
                         cudaStream_t stream) {
   const Geometry g = make_geometry(H, W);
-  const size_t smem = smem_bytes_bf16(F, g);
+  const size_t smem = smem_layout_bf16(F, H, g.pitch).total;
   const long long units = static_cast<long long>(B) * g.tiles_per_sample;
   if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const KernelFnBf16 fn = g.pitch == kTileW + 2 ? drb_kernel_bf16<F, kTileW + 2>
-                                                 : drb_kernel_bf16<F, kTileW + 2 * kHalo>;
+  if (reinterpret_cast<uintptr_t>(wpack) % 16) return cudaErrorMisalignedAddress;  // bulk copies
+  const KernelFnBf16 fn = kernel_bf16<F>(g);
   const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const uint32_t* wfrag = static_cast<const uint32_t*>(wpack);
-  const float* bias = reinterpret_cast<const float*>(wfrag + 9 * F * F * 15 / 2);
-  fn<<<static_cast<unsigned>(units), kThreads, smem, stream>>>(
-      static_cast<const unsigned short*>(x), wfrag, bias, static_cast<unsigned short*>(out), g);
+  const uint8_t* wbytes = static_cast<const uint8_t*>(wpack);
+  int wtotal = 0;
+  for (int s = 1; s <= 5; ++s) wtotal += stage_bytes_bf16(F, s);
+  const float* bias = reinterpret_cast<const float*>(wbytes + wtotal);
+  const int vec_io = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  fn<<<static_cast<unsigned>(units), kThreadsBf16, smem, stream>>>(
+      static_cast<const unsigned short*>(x), wbytes, bias, static_cast<unsigned short*>(out), g,
+      vec_io);
   return cudaGetLastError();
+}
+
+// Shared memory per CTA and resident CTAs per SM of the bf16 kernel for an
+// (F, H, W) input.
+template <int F>
+cudaError_t occupancy_bf16(int H, int W, int* smem_bytes, int* ctas_per_sm) {
+  const Geometry g = make_geometry(H, W);
+  const int smem = smem_layout_bf16(F, H, g.pitch).total;
+  const KernelFnBf16 fn = kernel_bf16<F>(g);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  *smem_bytes = smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreadsBf16, smem);
 }
 
 }  // namespace
@@ -664,8 +925,9 @@ int drb_forward_f32(const void* x, const void* wpack, void* out, int B, int F, i
 }
 
 // out = DRB(x) in bf16. x, out: (B, F, H, W) contiguous bf16 on the current
-// device; wpack: the packed weights of drb.py::pack_drb_weights_bf16 (bf16x2
-// fragment words, then the biases as fp32), 16-byte aligned.
+// device; wpack: the packed weights of drb.py::pack_drb_weights for bf16
+// (the stages in wgmma's canonical B layout, then the biases as fp32),
+// 16-byte aligned.
 int drb_forward_bf16(const void* x, const void* wpack, void* out, int B, int F, int H, int W,
                      void* stream) {
   if (B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
@@ -675,6 +937,20 @@ int drb_forward_bf16(const void* x, const void* wpack, void* out, int B, int F, 
       return launch_bf16<8>(x, wpack, out, B, H, W, st);
     case 16:
       return launch_bf16<16>(x, wpack, out, B, H, W, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 kernel's dynamic shared memory per CTA and its resident CTAs per
+// SM (the occupancy API) for an (F, H, W) input.
+int drb_bf16_occupancy(int F, int H, int W, int* smem_bytes, int* ctas_per_sm) {
+  if (H < 1 || W < 1) return cudaErrorInvalidValue;
+  switch (F) {
+    case 8:
+      return occupancy_bf16<8>(H, W, smem_bytes, ctas_per_sm);
+    case 16:
+      return occupancy_bf16<16>(H, W, smem_bytes, ctas_per_sm);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,15 +6,16 @@ Counterpart of ``downgan_tpu/ops/pallas/drb.py`` (the Pallas TPU kernel
 ``drb_forward``). The kernels themselves are ``drb.cu`` beside this file;
 its header says what they compute, what bounds them on Hopper and how they
 are laid out (tensor-core implicit GEMMs over (sample, 16x16 tile) units:
-3xTF32 for fp32, one bf16 product with fp32 accumulators for bf16). A
-block computes in its input's dtype; its parameters (fp32 in the models)
-are rounded to that dtype. Here:
+3xTF32 ``mma.sync`` for fp32; for bf16, ``wgmma`` with fp32 accumulators on
+a channel-last shared-memory frame, its weights and input brought in by
+bulk copies). A block computes in its input's dtype; its parameters (fp32
+in the models) are rounded to that dtype. Here:
 
 * :func:`pack_drb_weights` lays a block's five OIHW conv weights out once
-  per weight set in the order the kernel's MMA fragments read them,
-  followed by the biases: for fp32, split into TF32 hi and lo parts
-  (:func:`tf32_split`); for bf16, rounded to bf16 and paired into 32-bit
-  words;
+  per weight set in the order the kernel reads them, followed by the
+  biases: for fp32, split into TF32 hi and lo parts (:func:`tf32_split`) in
+  the MMA's fragment order; for bf16, rounded to bf16 in ``wgmma``'s
+  canonical B layout;
 * :func:`drb_forward` is the wrapper. On a CPU tensor it runs the plain
   twin; on a CUDA tensor it launches the kernel of the input's dtype or
   raises — nothing falls back to the twin on the card;
@@ -33,7 +34,9 @@ are rounded to that dtype. Here:
   otherwise;
 * :func:`load_library` compiles ``drb.cu`` with ``nvcc`` for ``sm_90a``
   into ``build/torch_ext/`` at the repository root (once per source
-  content) and loads it with ctypes. A failed build raises.
+  content) and loads it with ctypes. A failed build raises;
+* :func:`bf16_occupancy` reports the bf16 kernel's shared memory per CTA
+  and resident CTAs per SM for a shape.
 """
 from __future__ import annotations
 
@@ -111,8 +114,22 @@ def load_library() -> ctypes.CDLL:
         lib.drb_forward_bf16.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
+        lib.drb_bf16_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.drb_bf16_occupancy.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def bf16_occupancy(f: int, h: int, w: int) -> tuple[int, int]:
+    """(dynamic shared memory bytes per CTA, resident CTAs per SM) of the
+    bf16 kernel for a (B, f, h, w) input on the current card, from the
+    CUDA occupancy API."""
+    lib = load_library()
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    err = lib.drb_bf16_occupancy(f, h, w, ctypes.byref(smem), ctypes.byref(ctas))
+    if err:
+        raise RuntimeError(f"occupancy query failed: {lib.drb_error_string(err).decode()}")
+    return smem.value, ctas.value
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -129,12 +146,19 @@ def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(t.to(torch.float32) - hi)
 
 
+def bf16_chunks(f: int, s: int) -> int:
+    """k16 chunks of stage ``s``'s concat (s*f channels, padded to a
+    multiple of 16 at F = 8 and odd s): the bf16 kernel takes one k-step
+    per chunk and kernel row."""
+    return -(-s * f // 16)
+
+
 def packed_size(f: int, dtype: torch.dtype = torch.float32) -> int:
     """Elements of :func:`pack_drb_weights`'s output for ``f`` filters: fp32
     values for fp32, 32-bit words (two bf16 weights, or one fp32 bias) for
     bf16."""
     if dtype == torch.bfloat16:
-        return 9 * f * f * 15 // 2 + 5 * f
+        return 9 * f * 8 * sum(bf16_chunks(f, s) for s in range(1, 6)) + 5 * f
     return 2 * 9 * f * f * 15 + 5 * f
 
 
@@ -153,22 +177,29 @@ def pack_drb_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Ten
     b0, lo b1) per k-step and n-tile. The five biases follow the stages.
 
     bf16 (an int32 tensor of bf16x2 words): the weights rounded to bf16 in
-    the B fragments of m16n8k16 (F = 16; KC = 16) or m16n8k8 (F = 8; KC = 8)
-    bf16 products: with ci = KC*chunk + 8*r + 2*tq + e, co = 8*nt + gq and
-    WPL = NT*KC/8 words per lane, ``w[co, ci, dy, dx]`` is half e (0 = low)
-    of word ``((chunk*9 + tap)*32 + 4*gq + tq)*WPL + nt*KC/8 + r`` within
-    the stage. The five biases follow as fp32 words holding their bf16
-    values."""
+    ``wgmma``'s canonical K-major B layout without swizzle, with the three
+    dx taps of a kernel row side by side in N (N = 3F: column n = dx*F +
+    co). Stage s has :func:`bf16_chunks` k16 chunks c of its concat (input
+    channels 16c .. 16c + 15, zero past s*F) and takes one k-step per
+    (c, dy), in that order; a k-step is 3F x 16 bf16 (1,536 B at F = 16,
+    768 B at F = 8) of 8x8 core matrices, 16 B per column. With n = 8*nb +
+    r and ci = 16*c + 8*kb + e, ``w[co, ci, dy, dx]`` is bf16 element
+    ``(c*3 + dy)*48*F + nb*128 + kb*64 + r*8 + e`` of the stage: core
+    matrices one K step (kb) 128 B apart (the descriptor's LBO), one N step
+    (nb) 256 B apart (its SBO). Every stage is a multiple of 16 B, so each
+    is one bulk copy. The five biases follow as fp32 words holding their
+    bf16 values."""
     with torch.no_grad():
         parts = []
         if dtype == torch.bfloat16:
             for w in weights:
                 f, cin = w.shape[:2]
-                kc = min(f, 16)
-                # (nt, gq, chunk, r, tq, e, dy, dx) -> (chunk, dy, dx, gq, tq, nt, r, e)
-                w8 = w.reshape(f // 8, 8, cin // kc, kc // 8, 4, 2, 3, 3)
-                w8 = w8.permute(2, 6, 7, 1, 4, 0, 3, 5).to(torch.bfloat16)
-                parts.append(w8.contiguous().reshape(-1).view(torch.int32))
+                nch = -(-cin // 16)
+                wp = F.pad(w, (0, 0, 0, 0, 0, 16 * nch - cin))
+                # (co, c, k, dy, dx) -> (c, dy, n = dx*f + co, k) -> (c, dy, nb, kb, r, e)
+                wn = wp.reshape(f, nch, 16, 3, 3).permute(1, 3, 4, 0, 2).reshape(nch, 3, 3 * f, 16)
+                w6 = wn.reshape(nch, 3, 3 * f // 8, 8, 2, 8).permute(0, 1, 2, 4, 3, 5)
+                parts.append(w6.to(torch.bfloat16).contiguous().reshape(-1).view(torch.int32))
             parts += [b.reshape(-1).to(torch.bfloat16).to(torch.float32).view(torch.int32)
                       for b in biases]
             return torch.cat(parts).contiguous()

@@ -18,8 +18,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# The reference side: where JAX or flax is absent (the card machine) the
+# module skips rather than failing `pytest -m cuda --noconftest` at collection.
+jax = pytest.importorskip("jax")
+pytest.importorskip("flax")
 
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from downgan_tpu.config.config import Config as JaxConfig  # noqa: E402
@@ -37,6 +40,7 @@ from downgan_tpu_torch.models.layers import Conv2d  # noqa: E402
 from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     RES_SCALE,
     SLOPE,
+    bf16_chunks,
     drb_forward,
     drb_forward_reference,
     pack_drb_weights,
@@ -204,12 +208,12 @@ def test_bf16_twin_rounds_at_the_kernels_three_points():
 
 
 def test_bf16_pack_layout():
-    """bf16: w[co, ci, dy, dx] with ci = KC*chunk + 8*r + 2*tq + e and
-    co = 8*nt + gq is half e of word ((chunk*9 + tap)*32 + 4*gq + tq)*WPL +
-    nt*KC/8 + r of its stage; then the biases, rounded to bf16, as fp32."""
+    """bf16: wgmma's canonical K-major B layout with the three dx taps side
+    by side in N: with n = dx*F + co = 8*nb + r and ci = 16*c + 8*kb + e,
+    w[co, ci, dy, dx] is element (c*3 + dy)*48*F + nb*128 + kb*64 + r*8 + e
+    of its stage (bf16_chunks(F, s) k16 chunks c, zero past s*F inputs);
+    then the biases, rounded to bf16, as fp32."""
     for f in (8, 16):
-        kc, nt_count = min(f, 16), f // 8
-        wpl = nt_count * kc // 8
         g = torch.Generator().manual_seed(f)
         ws = [torch.rand(f, s * f, 3, 3, generator=g) - 0.5 for s in range(1, 6)]
         bs = [torch.rand(f, generator=g) - 0.5 for _ in range(5)]
@@ -217,22 +221,25 @@ def test_bf16_pack_layout():
         assert packed.dtype == torch.int32 and packed.numel() == packed_size(f, BF16)
         halves = packed.view(BF16)  # little-endian: half 0 of word i is element 2i
         off = 0
-        for wt in ws:
-            n = wt.numel()
-            stage = halves[off:off + n]
+        for s, wt in enumerate(ws, start=1):
+            n_stage = bf16_chunks(f, s) * 3 * 48 * f
+            stage = halves[off:off + n_stage]
             idx = torch.empty(wt.shape, dtype=torch.long)
             for co in range(f):
-                nt, gq = divmod(co, 8)
                 for ci in range(wt.shape[1]):
-                    chunk, rest = divmod(ci, kc)
-                    r, rest = divmod(rest, 8)
-                    tq, e = divmod(rest, 2)
-                    for tap in range(9):
-                        word = ((chunk * 9 + tap) * 32 + 4 * gq + tq) * wpl + nt * (kc // 8) + r
-                        idx[co, ci, tap // 3, tap % 3] = 2 * word + e
-            assert sorted(idx.reshape(-1).tolist()) == list(range(n))  # a permutation
+                    c, kk = divmod(ci, 16)
+                    kb, e = divmod(kk, 8)
+                    for dy in range(3):
+                        for dx in range(3):
+                            nb, r = divmod(dx * f + co, 8)
+                            idx[co, ci, dy, dx] = ((c * 3 + dy) * 48 * f + nb * 128 + kb * 64
+                                                   + r * 8 + e)
+            assert len(set(idx.reshape(-1).tolist())) == wt.numel()  # one place per weight
             torch.testing.assert_close(stage[idx], wt.to(BF16), rtol=0, atol=0)
-            off += n
+            rest = torch.ones(n_stage, dtype=torch.bool)
+            rest[idx.reshape(-1)] = False
+            assert not stage[rest].float().any()  # the zero-padded inputs past s*F
+            off += n_stage
         bias = packed[off // 2:].view(torch.float32)
         torch.testing.assert_close(bias, torch.cat(bs).to(BF16).float(), rtol=0, atol=0)
         # an fp32 pack of the same parameters is another tensor

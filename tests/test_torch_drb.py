@@ -437,7 +437,8 @@ def bf16_ulp(magnitude):
 # stage's rounding at most once more).
 BF16_VS_FP64_TWIN_FACTOR, BF16_KERNEL_VS_TWIN_ULPS = 1.25, 2
 BF16_CUDA_CASES = [(150, 16, 16, 16), (128, 16, 16, 16), (8, 16, 32, 112), (1, 16, 37, 53),
-                   (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112)]
+                   (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112), (132, 16, 16, 16),
+                   (300, 16, 16, 16)]
 
 
 def bf16_block_case(shape, seed, device="cpu"):
