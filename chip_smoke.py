@@ -197,7 +197,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls. The
     card first spins (``torch.cuda._sleep``) so that the host queues all the
     calls ahead of it, and a kernel shorter than its launch's host work (the
-    bf16 DRB kernel: ~0.02 ms against ~0.03 ms of Python per call) is timed
+    bf16 DRB kernel: ~0.016 ms against ~0.025 ms of Python per call) is timed
     on the device, not at the host's launch rate. If the card had already
     finished spinning when the last call was queued, the spin is made four
     times longer and the calls timed again."""

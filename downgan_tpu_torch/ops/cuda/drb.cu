@@ -131,9 +131,10 @@
 //    dropped: 6 M-tiles a florida stage. (SBO 6 reads as fast as 8 in
 //    tools/wgmma_rate.py.)
 //  * One chain of 3 * chunks k-steps per stage and M-tile, one commit and
-//    wait. The chunk loop is unrolled (10 % faster than a loop). 2
-//    warpgroups a CTA (3 measured slower, 4 spill); 2 or 3 M-tiles in flight
-//    per warpgroup measured 5-20 % slower (registers).
+//    wait. The chunk loop is unrolled (a loop measured 16 % slower); 2
+//    warpgroups a CTA (3 measured 9 % slower); two accumulator sets in turn,
+//    the next tile's chain issued before an epilogue, measured 27 % slower
+//    (ptxas serializes the wgmmas then). tools/drb_bf16_variants.py.
 //  * Weights by bulk copies (cp.async.bulk, 1-D TMA) on mbarriers, double
 //    buffered: buffer A holds stages 1, 3, 5 (23,040 B at F = 16), buffer B
 //    stages 2, 4 (18,432 B); stages 1, 2 and the biases load at the start,
@@ -141,9 +142,9 @@
 //    canonical B layout (drb.py::pack_drb_weights), so a stage is one copy.
 //  * x by bulk copies too, one per channel (or per channel row of a
 //    halo'd tile) into the out groups' part of the frame, then transposed
-//    into group 0 from shared memory with 16-byte reads. Loading x with
-//    per-thread global loads cost ~4 us of a ~19 us launch at B = 128.
-//    Rows that are not 16-byte aligned (W % 8 != 0) use 2-byte loads.
+//    into group 0 from shared memory with 16-byte reads: x costs ~1.2 us of
+//    a ~16 us launch at B = 128. Rows that are not 16-byte aligned
+//    (W % 8 != 0) use 2-byte loads.
 //  * Stage outputs go from the accumulators into the frame as bf16x2 words,
 //    behind fence.proxy.async; the block output is staged channel-planar in
 //    buffer B and written with 16-byte stores.
@@ -756,7 +757,7 @@ drb_kernel_bf16(const unsigned short* __restrict__ x, const uint8_t* __restrict_
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < (F == 16 ? 5 : 3); ++c) {  // unrolled: measured 10 % faster
+      for (int c = 0; c < (F == 16 ? 5 : 3); ++c) {  // unrolled: a loop measured 16 % slower
         if (c >= nch) break;
         int a_start, lbo;
         if constexpr (F == 16) {  // chunk c = group c's two slices
