@@ -77,7 +77,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                forward; 48 DRB launches in every generator forward (test
                passes and EMA scoring included); the kernel path against the
                twin after EMA updates and after a checkpoint load; checkpoint
-               bytes and save and load times.
+               bytes and save and load times;
+14. host_feed -- the same command as 10 with ``--host-feed`` (the set in
+               host RAM, batches through pinned buffers and a copy stream),
+               cuDNN deterministic, held bit for bit against 13's
+               uninterrupted plain run (every epoch's means, the final
+               state); epoch and step times beside that run's, the device
+               ms the step waited on the copies, the reader thread's ms per
+               batch, pinned bytes, 48 DRB launches per generator forward;
+15. stream  -- the same 1,440 samples as int16 CF-packed ``(time, var, lat,
+               lon)`` files on disk (``np.memmap``s, so no h5py is needed;
+               the CPU tests hold NetCDF staging to the JAX package),
+               trained two epochs through ``LazyField``/``StreamDataset``
+               and the feed, held bit for bit against a host-fed run on the
+               same decoded arrays; read-and-decode ms per batch, whether
+               the native host library built.
 
 Then it prints ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1438,11 +1452,10 @@ def flat_state(trainer) -> dict:
     return out
 
 
-def compare_resumed(straight, resumed) -> dict:
-    """The resumed run against the uninterrupted one, bit for bit: epoch 1's
-    means and every tensor of the final state. With cuDNN deterministic the
-    two runs do the same operations on the same inputs."""
-    a, b = flat_state(straight), flat_state(resumed)
+def state_report(a_trainer, b_trainer) -> dict:
+    """Two trainers' final train states, tensor by tensor: equal bit for bit
+    or the largest difference by part."""
+    a, b = flat_state(a_trainer), flat_state(b_trainer)
     check(set(a) == set(b), "the two runs' states hold different tensors")
     unequal = sorted(k for k in a if not torch.equal(a[k], b[k]))
     max_diff = {}
@@ -1451,16 +1464,71 @@ def compare_resumed(straight, resumed) -> dict:
             part = k.split(".")[0]
             diff = (a[k].double() - b[k].double()).abs().max().item()
             max_diff[part] = max(max_diff.get(part, 0.0), diff)
+    return {"held": "bit_identical", "tensors": len(a), "tensors_unequal": len(unequal),
+            "first_unequal": unequal[:5], "max_abs_diff": max_diff}
+
+
+def compare_resumed(straight, resumed) -> dict:
+    """The resumed run against the uninterrupted one, bit for bit: epoch 1's
+    means and every tensor of the final state. With cuDNN deterministic the
+    two runs do the same operations on the same inputs."""
+    report = state_report(straight, resumed)
     want, got = straight.history[-1], resumed.history[-1]
     splits = [k for k in ("train", "test", "test_ema") if k in want]
     check(splits == [k for k in ("train", "test", "test_ema") if k in got] and want["epoch"] == 1,
           f"epoch records differ in kind: {want} / {got}")
-    means_unequal = [f"{sp}.{k}" for sp in splits for k in want[sp] if want[sp][k] != got[sp][k]]
-    report = {"held": "bit_identical", "tensors": len(a), "tensors_unequal": len(unequal),
-              "first_unequal": unequal[:5], "means_unequal": means_unequal,
-              "max_abs_diff": max_diff}
-    check(not unequal and not means_unequal, f"resumed vs uninterrupted run: {report}")
+    report["means_unequal"] = [f"{sp}.{k}" for sp in splits for k in want[sp]
+                               if want[sp][k] != got[sp][k]]
+    check(not report["tensors_unequal"] and not report["means_unequal"],
+          f"resumed vs uninterrupted run: {report}")
     return report
+
+
+def compare_trajectories(reference, other, what: str) -> dict:
+    """Two whole runs of the same training from other residencies, bit for
+    bit: every epoch's train and test means, the generator forwards and
+    every tensor of the final state (cuDNN deterministic on both)."""
+    report = state_report(reference, other)
+    report["means_unequal"] = [
+        f"epoch{r['epoch']}.{sp}.{k}" for r, o in zip(reference.history, other.history)
+        for sp in ("train", "test") for k in r[sp] if r[sp][k] != o.get(sp, {}).get(k)]
+    check(len(reference.history) == len(other.history) == 2, f"{what}: epochs run")
+    check(reference.forwards == other.forwards,
+          f"{what}: generator forwards {other.forwards}, not {reference.forwards}")
+    check(not report["tensors_unequal"] and not report["means_unequal"],
+          f"{what} vs device-resident run: {report}")
+    return report
+
+
+def feed_report(trainer) -> list:
+    """Each train epoch of a host-fed trainer: its seconds and ms per step,
+    the device ms the step's stream waited on the feed's copies, and the
+    reader thread's ms per batch (gathering or reading and decoding rows;
+    waiting for a pinned buffer to come free)."""
+    out = []
+    for record, stats in zip(trainer.history, trainer.feed_stats):
+        out.append({"epoch": record["epoch"], "seconds": record["seconds"],
+                    "ms_per_step": 1e3 * record["seconds"] / record["steps"],
+                    "consumer_wait_ms": stats.consumer_wait_ms(),
+                    "read_ms_per_batch": 1e3 * stats.read_s / stats.batches,
+                    "ring_wait_ms_per_batch": 1e3 * stats.ring_wait_s / stats.batches,
+                    "batches": stats.batches, "pinned_bytes": stats.pinned_bytes})
+    return out
+
+
+def epoch_times(trainer) -> list:
+    return [{"epoch": r["epoch"], "seconds": r["seconds"],
+             "ms_per_step": 1e3 * r["seconds"] / r["steps"]} for r in trainer.history]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def phase_resume(config, rng, smi: str):
@@ -1494,9 +1562,7 @@ def phase_resume(config, rng, smi: str):
                          "--tracking-root", str(root / "exps"), *extra, *more])
 
     runs, steps_after_stop = {}, {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with cudnn_deterministic():
         with launches_per_generator_forward() as per_forward, after_each_train_step(preempt):
             drb_forward.launches = 0  # the resume path's run starts here
             for name, (cfg_path, extra) in variants.items():
@@ -1509,8 +1575,6 @@ def phase_resume(config, rng, smi: str):
                 runs[name] = (straight, stopped, resumed)
             torch.cuda.synchronize()
             launches = drb_forward.launches  # the resume path's run ends here
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
 
     report = {}
     for name, (straight, stopped, resumed) in runs.items():
@@ -1650,7 +1714,107 @@ def phase_resume(config, rng, smi: str):
                      "clock": "host, after torch.cuda.synchronize()"},
          resumed_round_ms=rounds, ema_update_ms=ema_update_ms)
     tmp.cleanup()
-    return launches, bundle_launches
+    return launches, bundle_launches, runs["plain"][0]
+
+
+def phase_host_feed(device_run, smi: str):
+    """The host-fed path: ``cli train --config examples/florida.json
+    --synthetic --samples 1440 --epochs 2 --host-feed`` in-process, cuDNN
+    deterministic, held bit for bit against ``device_run``, the resume
+    phase's uninterrupted run of the same command from the device."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.data.feed import HostDataset
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_feed_") as root, \
+            cudnn_deterministic(), launches_per_generator_forward() as per_forward:
+        drb_forward.launches = 0  # the host-fed path's run starts here
+        host = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
+                         "--synthetic", "--samples", "1440", "--epochs", "2", "--host-feed",
+                         "--tracking-root", root])
+        torch.cuda.synchronize()
+        launches = drb_forward.launches  # the host-fed path's run ends here
+    check(isinstance(host.train_ds, HostDataset) and isinstance(host.test_ds, HostDataset)
+          and len(host.train_ds) == 1296 and len(host.test_ds) == 144,
+          "the host-fed run did not train from host RAM")
+    report = compare_trajectories(device_run, host, "host-fed run")
+    n_forwards = sum(host.forwards.values())
+    check(len(per_forward) == n_forwards and set(per_forward) == {48}
+          and launches == 48 * n_forwards,
+          f"{launches} DRB launches over {len(per_forward)} generator forwards")
+    emit("host_feed", card=smi, command="cli train --config examples/florida.json --synthetic "
+         "--samples 1440 --epochs 2 --host-feed", batch=B_TRAIN, vs_device_resident=report,
+         host_fed=feed_report(host), device_resident=epoch_times(device_run),
+         generator_forwards=host.forwards, drb_launches=launches, drb_launches_per_forward=48,
+         h2d_bytes_per_batch=B_TRAIN * 4 * (2 * 128 * 128 + 7 * 16 * 16))
+    return launches
+
+
+def pack_int16(arr: np.ndarray):
+    """CF-pack a float field as ERA files are: an int16 payload with
+    ``scale_factor`` and ``add_offset``."""
+    lo, hi = float(arr.min()), float(arr.max())
+    scale = max(hi - lo, 1e-6) / 65500.0
+    offset = (hi + lo) / 2.0
+    return np.round((arr - offset) / scale).astype(np.int16), {"scale_factor": scale,
+                                                                "add_offset": offset}
+
+
+def phase_stream(config, smi: str):
+    """The streaming path: the synthetic florida set of 1,440 samples laid
+    out on disk as ``(time, var, lat, lon)`` int16 CF-packed files (the
+    preprocessed layout, as ``np.memmap``s, so no h5py is needed), trained
+    for two epochs through ``LazyField``, ``StreamDataset`` and the feed,
+    and held bit for bit against a host-fed run on the same decoded
+    arrays."""
+    from downgan_tpu_torch.data import native
+    from downgan_tpu_torch.data.dataset import synthetic_dataset
+    from downgan_tpu_torch.data.feed import HostDataset
+    from downgan_tpu_torch.data.stream import LazyField, StreamDataset
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.training.trainer import Trainer
+
+    config = config.replace(hp=dataclasses.replace(config.hp, fused_epoch=False, epochs=2))
+    coarse, fine = synthetic_dataset(n_samples=1440, coarse_size=config.coarse_size,
+                                     fine_size=config.fine_size, n_covariates=config.n_covariates,
+                                     n_predictands=config.n_predictands, seed=config.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as root:
+        fields, disk_bytes = {}, 0
+        for kind, arr in (("coarse", coarse), ("fine", fine)):
+            for split, rows in (("train", slice(0, 1296)), ("test", slice(1296, 1440))):
+                packed, attrs = pack_int16(np.transpose(arr[rows], (0, 3, 1, 2)))
+                path = Path(root) / f"{kind}_{split}.int16"
+                packed.tofile(path)
+                disk_bytes += packed.nbytes
+                fields[kind, split] = LazyField(
+                    np.memmap(path, dtype=np.int16, mode="r", shape=packed.shape), attrs=attrs)
+        streamed = {split: StreamDataset(fields["coarse", split], fields["fine", split])
+                    for split in ("train", "test")}
+        decoded = {split: HostDataset(np.asarray(ds.coarse), np.asarray(ds.fine))
+                   for split, ds in streamed.items()}
+        with cudnn_deterministic():
+            host = Trainer(config, decoded["train"], decoded["test"], print_every=100)
+            host.train()
+            with launches_per_generator_forward() as per_forward:
+                drb_forward.launches = 0  # the streaming path's run starts here
+                stream = Trainer(config, streamed["train"], streamed["test"], print_every=100)
+                stream.train()
+                torch.cuda.synchronize()
+                launches = drb_forward.launches  # the streaming path's run ends here
+    report = compare_trajectories(host, stream, "streamed run")
+    n_forwards = sum(stream.forwards.values())
+    check(len(per_forward) == n_forwards and set(per_forward) == {48}
+          and launches == 48 * n_forwards,
+          f"{launches} DRB launches over {len(per_forward)} generator forwards")
+    emit("stream", card=smi, data="synthetic florida set, 1,296 + 144 samples, int16 CF-packed "
+         "(time, var, lat, lon) np.memmap files read by LazyField", disk_bytes=disk_bytes,
+         netcdf_staging={"run": False, "h5py": package_versions(("h5py",))["h5py"],
+                         "held_by": "tests/test_torch_data.py, on the CPU, against the JAX "
+                         "package"},
+         native_library=native.available(), vs_host_fed_decoded=report,
+         streamed=feed_report(stream), host_fed_decoded=feed_report(host),
+         generator_forwards=stream.forwards, drb_launches=launches, drb_launches_per_forward=48)
+    return launches
 
 
 def main() -> int:
@@ -1684,18 +1848,25 @@ def main() -> int:
         bf16_serving_launches = phase_serving_bf16(tuned, trained, rng)
     check(tuned_launches > 0 and bf16_serving_launches > 0,
           "the tuned training or bf16 serving path launched no bf16 DRB kernel")
-    resume_launches, bundle_launches = phase_resume(config, rng, smi)
+    resume_launches, bundle_launches, device_run = phase_resume(config, rng, smi)
     check(resume_launches > 0 and bundle_launches > 0,
           "the resume or bundle-serving path launched no DRB kernel")
+    host_feed_launches = phase_host_feed(device_run, smi)
+    del device_run
+    stream_launches = phase_stream(config, smi)
+    check(host_feed_launches > 0 and stream_launches > 0,
+          "the host-fed or streaming path launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
               "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
               "card": smi}
     print(json.dumps({"kernels": [{
         "name": "drb_forward", "dtype": "float32", **common,
-        "launches": serving_launches + training_launches + resume_launches + bundle_launches,
+        "launches": (serving_launches + training_launches + resume_launches + bundle_launches
+                     + host_feed_launches + stream_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
-                             "resume": resume_launches, "bundle_serving": bundle_launches},
+                             "resume": resume_launches, "bundle_serving": bundle_launches,
+                             "host_feed": host_feed_launches, "stream": stream_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],

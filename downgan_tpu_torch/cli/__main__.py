@@ -1,8 +1,11 @@
 """Command line of the port (counterpart of ``downgan_tpu/cli/__main__.py``;
-the port has ``train``, ``serve`` and ``export``)::
+the port has ``train``, ``serve``, ``export``, ``prepare-data`` and
+``prepare-covariates``)::
 
     python -m downgan_tpu_torch.cli train --config examples/florida.json \
         --synthetic --samples 1440 --epochs 2 --track-best MSSSIM
+    python -m downgan_tpu_torch.cli prepare-data --config my_region.json
+    python -m downgan_tpu_torch.cli train --config my_region.json   # or --host-feed, --stream
     python -m downgan_tpu_torch.cli train --config examples/production_tuned.json \
         --synthetic --samples 1440 --epochs 2    # bf16, fused rounds
     python -m downgan_tpu_torch.cli train ... --resume      # after a SIGTERM
@@ -16,13 +19,17 @@ epoch into ``<run artifacts>/checkpoints``. ``serve`` and ``export`` take
 a bundle or trainer checkpoint directory (``--checkpoint``), a tracked run
 (``--run``) or, for ``serve``, a generator state dict (``--weights``, a
 bundle's ``generator.pt`` or the JAX package's ``export-torch`` file).
-``train`` runs on the synthetic set only: the NetCDF staging tiers come
-with the data slice.
+Without ``--synthetic``, ``train`` stages the config's data: the
+preprocessed NetCDFs (``already_preprocessed``, written by
+``prepare-data``) or the raw ones, onto the device; with ``--host-feed``
+into host RAM, fed batch by batch; with ``--stream`` left on disk in the
+preprocessed files and read batch by batch.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -126,11 +133,49 @@ def _export(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
     return out
 
 
-def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
-    """Train on the synthetic set, split 90/10 into train and test as the
-    JAX package's ``train --synthetic``, as one tracked run; returns the
-    :class:`Trainer`."""
+def _datasets(args: argparse.Namespace, parser: argparse.ArgumentParser, config, device):
+    """The train and test sets of ``train``: the synthetic set split 90/10
+    (as the JAX package's ``train --synthetic``) or the config's data, on
+    the device, in host RAM (``--host-feed``) or on disk (``--stream``).
+    Missing preprocessed files are a usage error that names
+    ``prepare-data``."""
     from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.data.feed import HostDataset
+    from downgan_tpu_torch.data.staging import (generate_train_test_coarse_fine,
+                                                load_preprocessed, preprocessed_path)
+    from downgan_tpu_torch.data.stream import StreamDataset
+
+    def residency(coarse, fine):
+        if args.host_feed:
+            return HostDataset(coarse, fine)
+        return DeviceDataset.from_numpy(coarse, fine, device)
+
+    if args.synthetic:
+        coarse, fine = synthetic_dataset(
+            n_samples=args.samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
+            n_covariates=config.n_covariates, n_predictands=config.n_predictands,
+            seed=config.seed)
+        split = int(0.9 * args.samples)
+        return residency(coarse[:split], fine[:split]), residency(coarse[split:], fine[split:])
+    if args.stream or config.already_preprocessed:
+        missing = [p for p in (preprocessed_path(config, kind, split) for kind in ("coarse", "fine")
+                               for split in ("train", "test")) if not os.path.exists(p)]
+        if missing:
+            parser.error(f"no preprocessed data: {', '.join(missing)} missing; run "
+                         "`prepare-data` with this config first, set already_preprocessed "
+                         "false to stage its raw files, or pass --synthetic")
+    if args.stream:
+        return (StreamDataset.from_preprocessed(config, "train"),
+                StreamDataset.from_preprocessed(config, "test"))
+    if config.already_preprocessed:
+        ct, ft, cv, fv = load_preprocessed(config)
+    else:
+        ct, ft, cv, fv = generate_train_test_coarse_fine(config)
+    return residency(ct, ft), residency(cv, fv)
+
+
+def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """Train as one tracked run; returns the :class:`Trainer`."""
     from downgan_tpu_torch.inference import is_bundle, load_bundle
     from downgan_tpu_torch.tracking import TrackingStore, define_experiment, log_hyperparams
     from downgan_tpu_torch.training.state import resolve_device
@@ -143,6 +188,19 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
                                    ("schedule", args.schedule)) if v is not None}
     config = config.replace(hp=dataclasses.replace(config.hp, **overrides),
                             seed=config.seed if args.seed is None else args.seed)
+    if args.host_feed and args.stream:
+        parser.error("--host-feed and --stream are different residency tiers (host RAM vs "
+                     "disk); pick one")
+    if args.stream and args.synthetic:
+        parser.error("--stream reads the preprocessed NetCDF layout; --synthetic has no files "
+                     "to stream (run `prepare-data` on real data, or use --host-feed to "
+                     "exercise the streaming loop in RAM)")
+    if args.host_feed or args.stream:
+        if config.hp.fused_epoch or config.hp.schedule == "fused":
+            print("host feed: using the per-step loop (hp.fused_epoch=False, "
+                  "schedule='reference')", file=sys.stderr, flush=True)
+        config = config.replace(hp=dataclasses.replace(config.hp, fused_epoch=False,
+                                                       schedule="reference"))
     if args.warm_start:
         # The bundle's weights fix the model's shape; they load after the
         # resume decision, so a resumed run never reads them.
@@ -155,12 +213,7 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
             "fine_size")})
     device = resolve_device(args.device)
     _fp32_without_tf32()
-    coarse, fine = synthetic_dataset(
-        n_samples=args.samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
-        n_covariates=config.n_covariates, n_predictands=config.n_predictands, seed=config.seed)
-    split = int(0.9 * args.samples)
-    train_ds = DeviceDataset.from_numpy(coarse[:split], fine[:split], device)
-    test_ds = DeviceDataset.from_numpy(coarse[split:], fine[split:], device)
+    train_ds, test_ds = _datasets(args, parser, config, device)
 
     store = TrackingStore(args.tracking_root)
     exp_id = define_experiment(store, args.experiment, tag=config.experiment_tag)
@@ -191,12 +244,82 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
         raise
     finally:
         ckpt.close()
+        if args.stream:
+            train_ds.close()
+            test_ds.close()
     if trainer.preempted:
         print(f"preempted after epoch {trainer.epoch - 1}: checkpoint saved; re-run with "
               "--resume to continue the exact trajectory", file=sys.stderr, flush=True)
     print(f"run {run.run_id} finished; artifacts in {run.artifact_dir}", file=sys.stderr,
           flush=True)
     return trainer
+
+
+def _region_config(args: argparse.Namespace):
+    config = _load_config(args.config)
+    return config if args.region is None else config.replace(region=args.region)
+
+
+def _prepare_data(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """Write the 4 preprocessed train/test NetCDFs (parity with the
+    reference's ``helpers/gen_train_test_netcdfs.py``); returns their paths."""
+    from downgan_tpu_torch.data.staging import (generate_train_test_coarse_fine,
+                                                load_fine_coords, write_preprocessed)
+
+    config = _region_config(args)
+    arrays = generate_train_test_coarse_fine(config)
+    lats, lons = load_fine_coords(config)
+    paths = write_preprocessed(config, *arrays, fine_lats=lats, fine_lons=lons)
+    for p in paths:
+        print(p, flush=True)
+    return paths
+
+
+def _prepare_covariates(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """Write one standardized NetCDF per covariate for a region and split,
+    and the statistics as JSON (parity with the legacy
+    ``helpers/covariates.py`` CLI); returns the paths, statistics first."""
+    import numpy as np
+
+    from downgan_tpu_torch.config.config import COVARIATE_NAMES_ORDERED
+    from downgan_tpu_torch.data.netcdf import write_netcdf
+    from downgan_tpu_torch.data.pipeline import standardize_all
+    from downgan_tpu_torch.data.staging import load_covariates, load_fine
+    from downgan_tpu_torch.data.times import filter_times
+
+    config = _region_config(args)
+    _, times = load_fine(config)
+    if times is None:
+        times = np.asarray(config.range_datetimes)
+    n_times = len(times)
+    cov = load_covariates(config, n_times)
+
+    train_mask = filter_times(times[:n_times], mask_years=config.mask_years)
+    sel_mask = train_mask.copy() if args.which_set == "train" else ~train_mask
+    sel_mask[0] = False  # legacy quirk: the first WRF field is dropped (covariates.py)
+    # The statistics' masks follow the reference (covariates.py:60-64,
+    # 115-147): the train split standardizes over itself (first field
+    # already dropped); the validation split over ~sel_mask, taken after
+    # the drop, i.e. the train times plus the dropped first field.
+    stats_mask = sel_mask if args.which_set == "train" else ~sel_mask
+    _, stats = standardize_all({k: v[stats_mask] for k, v in cov.items()})
+    standardized, _ = standardize_all({k: v[sel_mask] for k, v in cov.items()}, stats=stats)
+
+    os.makedirs(config.proc_data_dir, exist_ok=True)
+    stats_path = os.path.join(config.proc_data_dir, f"cov_stats_{config.region}.json")
+    with open(stats_path, "w") as f:
+        json.dump({k: list(v) for k, v in stats.items()}, f, indent=2)
+    paths = [stats_path]
+    for name in COVARIATE_NAMES_ORDERED:
+        arr = np.asarray(standardized[name], dtype=np.float32)
+        path = os.path.join(config.proc_data_dir,
+                            f"cov_{name}_{args.which_set}_{config.region}.nc")
+        write_netcdf(path, variables={name: arr}, dims={name: ("time", "lat", "lon")},
+                     coords={"time": np.arange(arr.shape[0], dtype=np.float64)})
+        paths.append(path)
+    for p in paths:
+        print(p, flush=True)
+    return paths
 
 
 def _non_negative_int(text: str) -> int:
@@ -223,6 +346,8 @@ def _add_source_args(sub: argparse.ArgumentParser, what: str) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from downgan_tpu_torch.config.config import REGIONS
+
     parser = argparse.ArgumentParser(prog="python -m downgan_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
     serve = sub.add_parser(
@@ -259,8 +384,19 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--config", default=None,
                        help="Config JSON (default: the built-in florida Config).")
     train.add_argument("--synthetic", action="store_true",
-                       help="Train on the synthetic dataset (required: the NetCDF "
-                       "staging tiers are not ported yet).")
+                       help="Train on the synthetic dataset (default: the config's data, "
+                       "preprocessed or raw NetCDFs).")
+    train.add_argument("--host-feed", action="store_true",
+                       help="Keep the dataset in host RAM and feed batches through pinned "
+                       "buffers and a copy stream (for sets too big for device memory). "
+                       "Implies the per-step loop (hp.fused_epoch=False, "
+                       "schedule='reference'); the trajectory matches device-resident "
+                       "training bit for bit.")
+    train.add_argument("--stream", action="store_true",
+                       help="Leave the dataset on disk and read batches lazily from the "
+                       "preprocessed NetCDFs (run `prepare-data` first). Implies the "
+                       "per-step loop like --host-feed; the trajectory matches "
+                       "device-resident training bit for bit.")
     train.add_argument("--samples", type=int, default=512, help="Synthetic sample count.")
     train.add_argument("--epochs", type=int, default=None,
                        help="Epochs (default: the config's hp.epochs).")
@@ -302,16 +438,33 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Improvement direction for --track-best (default: max for "
                        "MSSSIM, min for error metrics).")
     train.set_defaults(func=_train)
+
+    prepare = sub.add_parser(
+        "prepare-data", help="Run the preprocessing pipeline and write the 4 train/test "
+        "NetCDFs into the config's proc_data_dir.")
+    prepare.add_argument("--config", default=None,
+                         help="Config JSON (default: the built-in florida Config).")
+    prepare.add_argument("-r", "--region", choices=sorted(REGIONS), default=None)
+    prepare.set_defaults(func=_prepare_data)
+
+    covariates = sub.add_parser(
+        "prepare-covariates", help="Write one standardized NetCDF per covariate for a "
+        "region and split (validation standardized with the train statistics).")
+    covariates.add_argument("--config", default=None,
+                            help="Config JSON (default: the built-in florida Config).")
+    covariates.add_argument("-r", "--region", choices=sorted(REGIONS), default=None)
+    covariates.add_argument("-s", "--set", dest="which_set", choices=("train", "validation"),
+                            default="train", help="Which split to write.")
+    covariates.set_defaults(func=_prepare_covariates)
     return parser
 
 
 def main(argv=None):
     """Run one subcommand; returns what it returns (``train``: the
-    Trainer; ``export``: the bundle directory)."""
+    Trainer; ``export``: the bundle directory; ``prepare-data`` and
+    ``prepare-covariates``: the paths written)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command == "train" and not args.synthetic:
-        parser.error("train needs --synthetic: the NetCDF staging tiers are not ported yet")
     return args.func(args, parser)
 
 

@@ -3,8 +3,8 @@
 The port's own copy of ``downgan_tpu/config/config.py`` (the JAX package's
 ``Config``/``HyperParams``), kept field for field so one JSON file
 (``examples/florida.json``, or any ``Config.to_json`` output) loads into both
-packages to equal values. The data-tier constants (attribute renames,
-covariate ordering) arrive with the data slice of the port.
+packages to equal values, with the data tiers' constants (attribute
+renames, covariate and predictand ordering).
 """
 from __future__ import annotations
 
@@ -45,6 +45,31 @@ REGIONS: Dict[str, RegionBox] = {
     "central_larger": RegionBox(9, 47, 29, 67),
     "west": RegionBox(30, 46, 15, 31),
 }
+
+# Attribute-name standardization map (reference config/config.py:71-79).
+NON_STANDARD_ATTRIBUTES: Dict[str, str] = {
+    "latitude": "lat",
+    "longitude": "lon",
+    "Times": "time",
+    "Time": "time",
+    "times": "time",
+    "U10": "u10",
+    "V10": "v10",
+}
+
+# Covariate channel order: standardized name -> raw NetCDF variable name
+# (reference config/config.py:94-103).
+COVARIATE_NAMES_ORDERED: Dict[str, str] = {
+    "u10": "u10",
+    "v10": "v10",
+    "land_sea_mask": "lsm",
+    "surface_pressure": "sp",
+    "surface_roughness": "sr",
+    "geopotential": "z",
+    "cape": "cape",
+}
+
+FINE_NAMES_ORDERED: Dict[str, str] = {"u10": "u10", "v10": "v10"}
 
 def wrf_period(start: datetime, end: datetime, step_hours: int = 6) -> List[datetime]:
     """Enumerate the 6-hourly WRF period [start, end).
@@ -299,8 +324,7 @@ class Config:
     critic_conditional: bool = False
 
     # Wind-vector component positions in the channel stacks (u10, v10 lead
-    # both stacks, as the JAX package's COVARIATE_NAMES_ORDERED /
-    # FINE_NAMES_ORDERED order them) — consumed
+    # both stacks, COVARIATE_NAMES_ORDERED / FINE_NAMES_ORDERED) — consumed
     # by the physics-aware flip augmentation (hp.augment_flips): a lon
     # mirror negates the u channels, a lat mirror the v channels.
     u_channels_coarse: Tuple[int, ...] = (0,)

@@ -1,10 +1,13 @@
-"""Training loop (counterpart of the device-resident path of
-``downgan_tpu/training/trainer.py``, both schedules).
+"""Training loop (counterpart of the single-device paths of
+``downgan_tpu/training/trainer.py``: device-resident on both schedules,
+host-fed on the reference one).
 
 Per epoch: the batch order from ``epoch_permutation`` of
 ``np.random.default_rng((seed, epoch))``, every batch gathered on the
-device, the train step's metrics summed on the device, one host sync at
-the end of the epoch. On the reference schedule one step takes one batch
+device (a ``DeviceDataset``) or brought there by ``prefetch_batches`` (a
+``HostDataset`` in host RAM, or a ``StreamDataset`` on disk; the same
+batches, so the same trajectory), the train step's metrics summed on the
+device, one host sync at the end of the epoch. On the reference schedule one step takes one batch
 and ``gen_loss`` is rescaled to its mean over the generator updates
 actually run; on the fused schedule the order is cut to whole rounds of
 ``critic_iterations`` batches (``trainer.py:449-473``), one round takes
@@ -16,8 +19,8 @@ checkpointed; then a test pass over every test sample
 it selects a best epoch; the best bundle on an improvement; a checkpoint
 every ``save_every`` epochs. SIGTERM stops the loop at the next epoch
 boundary with the full state checkpointed, and :meth:`Trainer.maybe_resume`
-continues the exact trajectory. The host-fed and multi-host branches, grid
-plots and TensorBoard are not ported yet.
+continues the exact trajectory. The multi-host branch, grid plots and
+TensorBoard are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.data.dataset import DeviceDataset
+from downgan_tpu_torch.data.feed import FeedStats, HostDataset, prefetch_batches
 from downgan_tpu_torch.inference import write_generator_bundle
 from downgan_tpu_torch.training.state import make_train_state
 from downgan_tpu_torch.training.wgan import (
@@ -63,24 +67,34 @@ def _to_host_means(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, float]:
     return {k: v / max(n, 1) for k, v in zip(sums, values)}
 
 
-def full_split_metric_pass(ds: DeviceDataset, batch_size: int,
-                           eval_batch: Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
-                           ) -> Dict[str, float]:
+def full_split_metric_pass(ds: DeviceDataset | HostDataset, batch_size: int,
+                           eval_batch: Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]],
+                           device: str | torch.device | None = None) -> Dict[str, float]:
     """Metric means over EVERY sample of ``ds``: full batches in order, then
     a ragged tail as its own smaller batch (so MS-SSIM's batch-global
     normalization sees the tail alone, as the reference's last partial
     batch), each batch weighted equally. ``eval_batch(coarse, fine)``
-    returns device scalars, summed on the device; one host sync."""
-    idx = torch.arange(len(ds), device=ds.device)
+    returns device scalars, summed on the device; one host sync. A host
+    dataset's batches come through ``prefetch_batches`` onto ``device``."""
+    n = len(ds)
+    starts = range(0, n, batch_size)  # the last start is the tail's, if any
+    if isinstance(ds, DeviceDataset):
+        idx = torch.arange(n, device=ds.device)
+        batches = (ds.gather(idx[lo:lo + batch_size]) for lo in starts)
+    else:
+        batches = prefetch_batches(ds, [np.arange(lo, min(lo + batch_size, n)) for lo in starts],
+                                   device)
     sums: Dict[str, torch.Tensor] = {}
-    starts = range(0, len(ds), batch_size)  # the last start is the tail's, if any
-    for lo in starts:
-        _add(sums, eval_batch(*ds.gather(idx[lo:lo + batch_size])))
+    for coarse, fine in batches:
+        _add(sums, eval_batch(coarse, fine))
     return _to_host_means(sums, len(starts))
 
 
 class Trainer:
-    """WGAN-GP trainer over device-resident train and test sets.
+    """WGAN-GP trainer over train and test sets on the device
+    (``DeviceDataset``) or, on the reference schedule, in host RAM or on
+    disk (``HostDataset``, ``StreamDataset``: ``feed_stats`` then holds
+    each train epoch's :class:`~downgan_tpu_torch.data.feed.FeedStats`).
 
     ``train(epochs)`` returns the per-epoch records ``{"epoch", "steps",
     "seconds", "train", "test"}`` (``test`` is absent without a test set or
@@ -113,8 +127,20 @@ class Trainer:
         self.state = make_train_state(config, device)
         self.device = next(self.state.generator.parameters()).device
         for name, ds in (("train", train), ("test", test)):
-            if ds is not None and ds.device != self.device:
+            if isinstance(ds, DeviceDataset) and ds.device != self.device:
                 raise ValueError(f"the {name} set lies on {ds.device}, the trainer on {self.device}")
+        self._host_fed = isinstance(train, HostDataset)
+        if self._host_fed and config.hp.fused_epoch:
+            raise ValueError(
+                "HostDataset training needs hp.fused_epoch=False: the fused epoch "
+                "gathers batches from device-resident arrays; the per-step loop streams "
+                "host batches through data.feed instead")
+        if self._host_fed and config.hp.schedule == "fused":
+            raise ValueError(
+                "HostDataset training supports schedule='reference' only (the fused "
+                "n-critic round consumes stacked multi-batch inputs, which the host feed "
+                "does not assemble)")
+        self.feed_stats: List[FeedStats] = []
         if len(train) < config.hp.batch_size:
             raise ValueError(f"{len(train)} training samples make no batch of "
                              f"{config.hp.batch_size}")
@@ -217,6 +243,14 @@ class Trainer:
         returns their count and the epoch's train means."""
         hp = self.config.hp
         perm = self.train_ds.epoch_perm(self._epoch_rng(), hp.batch_size)
+        start = self.state.step
+        sums: Dict[str, torch.Tensor] = {}
+        if self._host_fed:
+            stats = FeedStats()
+            self.feed_stats.append(stats)
+            for coarse, fine in prefetch_batches(self.train_ds, perm, self.device, stats=stats):
+                _add(sums, self.step_fn(self.state, coarse, fine))
+            return self._train_means(start, len(perm), sums)
         fused = hp.schedule == "fused"
         if fused:
             n_c = hp.critic_iterations
@@ -226,20 +260,23 @@ class Trainer:
                                  f"critic_iterations={n_c} needed per fused round")
             perm = perm[:rounds * n_c].reshape(rounds, n_c, hp.batch_size)
         perm = torch.from_numpy(perm).to(self.device, torch.long)
-        start = self.state.step
-        sums: Dict[str, torch.Tensor] = {}
         for idx in perm:
             coarse, fine = self.train_ds.gather(idx.reshape(-1))
             if fused:
                 coarse, fine = (t.reshape(*idx.shape, *t.shape[1:]) for t in (coarse, fine))
             _add(sums, self.step_fn(self.state, coarse, fine))
-        n = len(perm)
-        means = _to_host_means(sums, n)
         if fused:
-            return n, means
-        # gen_loss is an exact 0.0 on the steps that skip the generator
-        # update; rescale the mean to the mean over the updates run.
-        n_upd = g_updates_in_window(start, n, hp.critic_iterations)
+            return len(perm), _to_host_means(sums, len(perm))
+        return self._train_means(start, len(perm), sums)
+
+    def _train_means(self, start: int, n: int, sums: Dict[str, torch.Tensor]
+                     ) -> tuple[int, Dict[str, float]]:
+        """The reference schedule's epoch means over ``n`` steps from step
+        ``start``. ``gen_loss`` is an exact 0.0 on the steps that skip the
+        generator update: its mean is rescaled to the mean over the updates
+        run."""
+        means = _to_host_means(sums, n)
+        n_upd = g_updates_in_window(start, n, self.config.hp.critic_iterations)
         if "gen_loss" in means and n_upd:
             means["gen_loss"] *= n / n_upd
         return n, means
@@ -259,7 +296,8 @@ class Trainer:
                                                                      fine).items()})
             return out
 
-        return full_split_metric_pass(self.test_ds, self.config.hp.batch_size, eval_batch)
+        return full_split_metric_pass(self.test_ds, self.config.hp.batch_size, eval_batch,
+                                      self.device)
 
     def _update_best(self, means: Dict[str, float]) -> None:
         """On an improvement of the tracked metric in ``means`` (the test

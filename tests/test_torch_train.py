@@ -320,7 +320,7 @@ def test_cli_train_refuses_without_synthetic_and_without_a_card(tmp_path, capsys
     with pytest.raises(SystemExit) as exc:
         main(["train", "--config", tiny_config_file(tmp_path), "--device", "cpu"])
     assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert "run `prepare-data`" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["train", "--config", tiny_config_file(tmp_path), "--synthetic", "--samples", "14",
