@@ -91,7 +91,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                trained two epochs through ``LazyField``/``StreamDataset``
                and the feed, held bit for bit against a host-fed run on the
                same decoded arrays; read-and-decode ms per batch, whether
-               the native host library built.
+               the native host library built;
+16. stochastic -- ``cli train --config examples/florida.json --synthetic
+               --samples 1440 --epochs 1 --noise-channels 4`` in-process (the
+               stochastic RRDB, 1,697,090 params): 48 DRB launches in every
+               generator forward, finite means, a timed round and peak
+               memory beside the ``training`` phase's, the card's forward
+               against the CPU's with the same weights and latent at B=2, and
+               the fp32 and bf16 forwards with the latent at B=150 (48 fp32 or
+               bf16 launches) timed in turns with the deterministic ones;
+17. ensemble -- ``ensemble_metrics`` with 8 members over that run's
+               144-sample test split (CRPS, spread, MAEs) against a float64
+               numpy computation of the same members, each member drawn twice
+               bit for bit;
+18. serving_stochastic -- that generator served over HTTP: coalesced
+               requests equal to direct calls bit for bit (the fixed latent
+               in each request's own block layout) and a domain request (the
+               whole-domain latent) equal to the direct tiler's;
+19. srresnet -- ``cli train ... --epochs 1 --generator-arch srresnet`` (the
+               SRResNet family, 115,414 params, no DRB and so no
+               hand-written kernel), a timed round, its forward against the
+               CPU's at B=2 and timed at B=150, and the trained model served
+               over HTTP.
 
 Then it prints ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -185,6 +206,9 @@ BF16_STEP_RTOL, BF16_STEP_ATOL, BF16_MEDIAN_ATOL = 2e-2, 1e-3, 1e-4
 # every conv's output gradient (tests/test_torch_drb.py; measured on the
 # H100: 3.9e-2 at worst, a bias gradient).
 BF16_GRAD_TOL = 6e-2
+# Ensemble scores on the card (fp32 sums over 4.7 M points a member)
+# against a float64 numpy computation of the same members.
+ENSEMBLE_RTOL = 1e-5
 # Dense peaks (NVIDIA data sheets, no sparsity), at the card's full power
 # limit, in TFLOP/s: fp32 outside the tensor cores, TF32 and bf16 on them;
 # HBM in TB/s.
@@ -459,15 +483,11 @@ def kernel_class(name: str) -> str:
     return "elementwise_and_other"
 
 
-def phase_profile(config, gen, rng):
-    """Device time by kernel over 3 generator forwards at B=150, from
-    ``torch.profiler``. A report: if the profiler records no device time,
-    it says so and the run goes on."""
+def profile_forwards(gen, x, n_fwd: int = 3):
+    """Device time by kernel over ``n_fwd`` forwards of ``gen`` on ``x``,
+    from ``torch.profiler``; None where it records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    n_fwd = 3
-    x = torch.randn(B_MAIN, config.n_covariates, config.coarse_size, config.coarse_size,
-                    generator=rng).cuda()
     with torch.inference_mode():
         gen(x)
         torch.cuda.synchronize()
@@ -495,13 +515,25 @@ def phase_profile(config, gen, rng):
         entry["ms_per_forward"] += us / 1e3 / n_fwd
         entry["calls_per_forward"] += evt.count / n_fwd
     if not kernels:
-        emit("profile", note="device time not measured: the profiler recorded no device events")
-        return
+        return None
     kernels.sort(key=lambda k: -k["ms_per_forward"])
     busy = sum(k["ms_per_forward"] for k in kernels)
-    emit("profile", forwards=n_fwd, batch=B_MAIN, forward_ms_events=window_ms / n_fwd,
-         device_busy_ms_per_forward=busy, device_busy_share=busy * n_fwd / window_ms,
-         by_class=classes, kernels=kernels[:15])
+    return {"forwards": n_fwd, "batch": x.shape[0], "forward_ms_events": window_ms / n_fwd,
+            "device_busy_ms_per_forward": busy, "device_busy_share": busy * n_fwd / window_ms,
+            "by_class": classes, "kernels": kernels[:15]}
+
+
+def phase_profile(config, gen, rng):
+    """Device time by kernel over 3 generator forwards at B=150, from
+    ``torch.profiler``. A report: if the profiler records no device time,
+    it says so and the run goes on."""
+    x = torch.randn(B_MAIN, config.n_covariates, config.coarse_size, config.coarse_size,
+                    generator=rng).cuda()
+    report = profile_forwards(gen, x)
+    if report is None:
+        emit("profile", note="device time not measured: the profiler recorded no device events")
+        return
+    emit("profile", **report)
 
 
 def phase_serving(config, gen, rng):
@@ -1019,6 +1051,7 @@ def phase_training(tracking_root: Path):
 
     step_metrics = []  # every step's metrics
     torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold
     with launches_per_generator_forward() as per_forward, \
             after_each_train_step(lambda state, metrics: step_metrics.append(metrics)):
         drb_forward.launches = 0  # the training path's run starts here
@@ -1126,6 +1159,7 @@ def phase_training(tracking_root: Path):
          "--epochs 2", batch=B_TRAIN, epochs=history, wall_s_including_data=wall_s,
          step0_critic_loss=c0, generator_forwards=forwards, drb_launches=launches,
          drb_launches_per_forward=48, peak_memory_bytes=peak_bytes,
+         peak_memory_above_start_bytes=peak_bytes - start_bytes,
          ms_per_update_step=float(np.mean(update_ms)), ms_per_critic_only_step=float(np.mean(critic_ms)),
          update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
          steps_per_s_events=5e3 / round_ms, patches_per_s_events=B_TRAIN * 5e3 / round_ms,
@@ -1134,7 +1168,12 @@ def phase_training(tracking_root: Path):
          parts_ms=parts, profile_round={
              "steps": 5, "by_kernel_class": classes or "device time not measured: the profiler "
              "recorded no device events", "kernels": kernels[:15], "convolutions": convs[:8]})
-    return launches
+    return launches, {"patches_per_s_events": B_TRAIN * 5e3 / round_ms,
+                      "patches_per_s_epoch0": B_TRAIN * 10 / history[0]["seconds"],
+                      "ms_per_update_step": float(np.mean(update_ms)),
+                      "ms_per_critic_only_step": float(np.mean(critic_ms)),
+                      "peak_memory_bytes": peak_bytes,
+                      "peak_memory_above_start_bytes": peak_bytes - start_bytes}
 
 
 def tuned_config(batch: int, compute_dtype: str):
@@ -1348,37 +1387,27 @@ def phase_training_tuned(tracking_root: Path):
     return launches[1], trainer, trained
 
 
-def phase_serving_bf16(trainer, trained, rng):
-    """The tuned run's generator restored from its checkpoint directory the
-    way ``serve --checkpoint`` restores it (a bf16 model, from the run's
-    logged config) and served over HTTP: concurrent /v1/generate requests
-    and a /v1/generate-domain request through the 32x112 bands, against
-    the same bf16 model's direct forward."""
-    from downgan_tpu_torch.cli.__main__ import _resolve_source, build_parser
+def serve_and_compare(config, weights, rng, n_clients, n_requests, sizes, domain_shape):
+    """``weights`` served over HTTP by ``BatchingSRModel`` to concurrent
+    clients (request ``r`` of each client ``sizes[r]`` patches) and, given
+    ``domain_shape``, one domain request, against a direct ``SRModel``;
+    returns /healthz, /metrics, the DRB launches (all and bf16) of the
+    served traffic, the largest differences, the times and both models'
+    compute dtypes."""
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.serving import (BatchingSRModel, SRModel, generate_domain_remote,
                                            generate_remote, serve_model)
 
-    parser = build_parser()
-    config, weights = _resolve_source(parser.parse_args(
-        ["serve", "--checkpoint", trainer.ckpt.directory]), parser)
-    check(config.hp.compute_dtype == "bfloat16", "the run's logged config is not bf16")
-    check(set(weights) == set(trained) and all(torch.equal(weights[k], v)
-                                               for k, v in trained.items()),
-          "the restored weights are not the generator the run ended with")
     model = BatchingSRModel(config, weights, batch_size=B_MAIN, max_wait_ms=20.0)
     direct = SRModel(config, weights, batch_size=B_MAIN)
-    check(model._gen.compute_dtype == BF16 and direct._gen.compute_dtype == BF16,
-          "the served generator does not compute in bf16")
     server = serve_model(model, host="127.0.0.1", port=0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     cs, c = config.coarse_size, config.n_covariates
-    n_clients, n_requests, n_patches = 4, 2, 8
-    inputs = [[torch.randn(n_patches, cs, cs, c, generator=rng).numpy()
-               for _ in range(n_requests)] for _ in range(n_clients)]
-    domain = torch.randn(2, 56, 112, c, generator=rng).numpy()
+    inputs = [[torch.randn(sizes[r], cs, cs, c, generator=rng).numpy()
+               for r in range(n_requests)] for _ in range(n_clients)]
+    domain = torch.randn(*domain_shape, c, generator=rng).numpy() if domain_shape else None
     results = [[None] * n_requests for _ in range(n_clients)]
     errors = []
 
@@ -1390,7 +1419,8 @@ def phase_serving_bf16(trainer, trained, rng):
             errors.append((i, repr(exc)))
 
     try:
-        reset_launch_counts()  # the bf16 serving path's run starts here
+        health = json.loads(urllib.request.urlopen(f"{url}/healthz").read())
+        reset_launch_counts()  # the served traffic starts here
         t0 = time.perf_counter()
         clients = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
         for t in clients:
@@ -1399,8 +1429,9 @@ def phase_serving_bf16(trainer, trained, rng):
             t.join(timeout=300)
         patch_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        fields = generate_domain_remote(url, domain, tile_rows=16, overlap=8)
-        domain_s = time.perf_counter() - t0
+        fields = generate_domain_remote(url, domain, tile_rows=16, overlap=8) \
+            if domain_shape else None
+        domain_s = time.perf_counter() - t0 if domain_shape else None
         launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
         metrics = json.loads(urllib.request.urlopen(f"{url}/metrics").read())
     finally:
@@ -1409,27 +1440,58 @@ def phase_serving_bf16(trainer, trained, rng):
         model.close()
         thread.join(timeout=60)
     check(not errors and not any(t.is_alive() for t in clients), f"client errors {errors}")
-    check(launches == (48 * metrics["dispatches"],) * 2,
-          f"{launches} (all, bf16) DRB launches for {metrics['dispatches']} dispatches")
     patch_err = 0.0
     for i in range(n_clients):
         for r in range(n_requests):
             got = results[i][r]
-            check(got.shape == (n_patches, config.fine_size, config.fine_size,
+            check(got.shape == (sizes[r], config.fine_size, config.fine_size,
                                 config.n_predictands) and np.isfinite(got).all(),
                   f"client {i} request {r}: bad response {got.shape}")
             patch_err = max(patch_err, float(np.abs(got - direct.generate(inputs[i][r])).max()))
-    want = direct.generate_domain(domain, tile_rows=16, overlap=8)
-    check(fields.shape == (2, 56 * 8, 112 * 8, config.n_predictands) and np.isfinite(fields).all(),
-          f"domain response {fields.shape}")
-    domain_err = float(np.abs(fields - want).max())
-    check(patch_err <= SERVE_ATOL and domain_err <= SERVE_ATOL,
-          f"served vs direct bf16: patches {patch_err}, domain {domain_err}")
+    domain_err = None
+    if domain_shape:
+        want = direct.generate_domain(domain, tile_rows=16, overlap=8)
+        check(fields.shape == want.shape and np.isfinite(fields).all(),
+              f"domain response {fields.shape}")
+        domain_err = float(np.abs(fields - want).max())
+    return {"health": health, "metrics": metrics, "drb_launches": launches[0],
+            "drb_launches_bf16": launches[1], "patch_phase_s": patch_s,
+            "domain_request_s": domain_s,
+            "domain_shape": list(domain_shape) if domain_shape else None,
+            "max_abs_err_patches": patch_err, "max_abs_err_domain": domain_err,
+            "compute_dtypes": [str(m._gen.compute_dtype) for m in (model, direct)]}
+
+
+def phase_serving_bf16(trainer, trained, rng):
+    """The tuned run's generator restored from its checkpoint directory the
+    way ``serve --checkpoint`` restores it (a bf16 model, from the run's
+    logged config) and served over HTTP: concurrent /v1/generate requests
+    and a /v1/generate-domain request through the 32x112 bands, against
+    the same bf16 model's direct forward."""
+    from downgan_tpu_torch.cli.__main__ import _resolve_source, build_parser
+
+    parser = build_parser()
+    config, weights = _resolve_source(parser.parse_args(
+        ["serve", "--checkpoint", trainer.ckpt.directory]), parser)
+    check(config.hp.compute_dtype == "bfloat16", "the run's logged config is not bf16")
+    check(set(weights) == set(trained) and all(torch.equal(weights[k], v)
+                                               for k, v in trained.items()),
+          "the restored weights are not the generator the run ended with")
+    n_clients, n_requests, n_patches = 4, 2, 8
+    report = serve_and_compare(config, weights, rng, n_clients, n_requests,
+                               sizes=(n_patches,) * n_requests, domain_shape=(2, 56, 112))
+    check(report.pop("compute_dtypes") == [str(BF16)] * 2,
+          "the served generator does not compute in bf16")
+    launches = (report["drb_launches"], report["drb_launches_bf16"])
+    check(launches == (48 * report["metrics"]["dispatches"],) * 2,
+          f"{launches} (all, bf16) DRB launches for {report['metrics']['dispatches']} dispatches")
+    check(report["max_abs_err_patches"] <= SERVE_ATOL and report["max_abs_err_domain"] <= SERVE_ATOL,
+          f"served vs direct bf16: patches {report['max_abs_err_patches']}, "
+          f"domain {report['max_abs_err_domain']}")
+    report.pop("health")
     emit("serving_bf16", source="serve --checkpoint <the tuned run's checkpoints>",
          requests=n_clients * n_requests + 1, patches=n_clients * n_requests * n_patches,
-         patch_phase_s=patch_s, domain_request_s=domain_s, domain_shape=list(domain.shape),
-         metrics=metrics, drb_launches=launches[0], drb_launches_bf16=launches[1],
-         max_abs_err_patches=patch_err, max_abs_err_domain=domain_err, atol=SERVE_ATOL)
+         atol=SERVE_ATOL, **report)
     return launches[1]
 
 
@@ -1817,6 +1879,222 @@ def phase_stream(config, smi: str):
     return launches
 
 
+def cpu_vs_card(gen, x) -> float:
+    """Largest |card - CPU| of ``gen``'s forward on ``x`` (a card tensor),
+    over the largest output magnitude (at least 1), with the same weights."""
+    cpu_gen = copy.deepcopy(gen).cpu()
+    with torch.no_grad():
+        card = gen(x).cpu()
+        cpu = cpu_gen(x.cpu())
+    return (card - cpu).abs().max().item() / max(1.0, cpu.abs().max().item())
+
+
+def florida_coarse(config, batch: int, rng, noise_channels: int = 0) -> torch.Tensor:
+    """Random florida covariates on the card, NCHW, with the fixed latent
+    appended when ``noise_channels`` > 0."""
+    from downgan_tpu_torch.training.wgan import fixed_latent
+
+    cs = config.coarse_size
+    x = torch.randn(batch, config.n_covariates, cs, cs, generator=rng)
+    if noise_channels:
+        z = fixed_latent(config, (batch, cs, cs, noise_channels))
+        x = torch.cat([x, torch.from_numpy(z).permute(0, 3, 1, 2)], dim=1)
+    return x.cuda()
+
+
+def phase_stochastic(config, rng, tracking_root: Path, deterministic: dict, smi: str):
+    """The stochastic generator's training path: ``cli train --config
+    examples/florida.json --synthetic --samples 1440 --epochs 1
+    --noise-channels 4`` in-process (48 DRB launches in every generator
+    forward, finite means), a timed round beside the deterministic
+    ``training`` phase's, the card's forward against the CPU's with the
+    same weights and latent at B=2, and the fp32 and bf16 forwards at B=150
+    beside the deterministic ones in the same call."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.training.state import make_generator
+
+    k = 4
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    with launches_per_generator_forward() as per_forward:
+        reset_launch_counts()  # the stochastic training path's run starts here
+        trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
+                            "--synthetic", "--samples", "1440", "--epochs", "1",
+                            "--noise-channels", str(k), "--tracking-root", str(tracking_root)])
+        torch.cuda.synchronize()
+        launches = drb_forward.launches  # the stochastic training path's run ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    cfg, history, forwards = trainer.config, trainer.history, dict(trainer.forwards)
+    n_params = sum(p.numel() for p in trainer.state.generator.parameters())
+    check(cfg.noise_channels == k and n_params == 1_697_090,
+          f"stochastic florida generator: noise_channels {cfg.noise_channels}, {n_params} params")
+    check([r["steps"] for r in history] == [10], f"steps per epoch {history}")
+    check(all(np.isfinite(v) for r in history for v in (*r["train"].values(),
+                                                        *r["test"].values())),
+          f"non-finite epoch means {history}")
+    want_forwards = {"critic_fake": 10, "update": 2, "metric": 10, "test": 2}
+    check(forwards == want_forwards, f"generator forwards {forwards}, not {want_forwards}")
+    check(len(per_forward) == sum(forwards.values()) and set(per_forward) == {48}
+          and launches == 48 * sum(forwards.values()),
+          f"{launches} DRB launches over {len(per_forward)} generator forwards")
+    update_ms, critic_ms = time_round(trainer)  # steps 10-14
+    round_ms = sum(update_ms + critic_ms)
+
+    gen = trainer.state.generator
+    cpu_err = cpu_vs_card(gen, florida_coarse(cfg, 2, rng, k))
+    check(cpu_err <= GEN_ATOL, f"stochastic generator: card vs CPU {cpu_err}")
+    forward = {}
+    for dtype in ("float32", "bfloat16"):
+        hp = dataclasses.replace(config.hp, compute_dtype=dtype)
+        models = {noise: make_generator(config.replace(hp=hp, noise_channels=noise), "cuda",
+                                        rng=torch.Generator().manual_seed(0)) for noise in (k, 0)}
+        xs = {noise: florida_coarse(config, B_MAIN, rng, noise) for noise in (k, 0)}
+        with torch.inference_mode():
+            reset_launch_counts()
+            out = models[k](xs[k])
+            torch.cuda.synchronize()
+            per = (drb_forward.launches, drb_forward.launches_bf16)
+            check(per == ((48, 48) if dtype == "bfloat16" else (48, 0))
+                  and bool(torch.isfinite(out).all()),
+                  f"{dtype} stochastic forward: {per} (all, bf16) DRB launches")
+            ms = {noise: [] for noise in (k, 0)}
+            for noise in (k, 0, 0, k):  # in turns
+                ms[noise].append(cuda_ms(lambda: models[noise](xs[noise]), iters=10))
+        forward[dtype] = {"noise_channels_4_ms": ms[k], "deterministic_ms": ms[0],
+                          "drb_launches_per_forward": per[1] if dtype == "bfloat16" else per[0]}
+    emit("stochastic", card=smi, command="cli train --config examples/florida.json --synthetic "
+         "--samples 1440 --epochs 1 --noise-channels 4", batch=B_TRAIN, params=n_params,
+         epochs=history, generator_forwards=forwards, drb_launches=launches,
+         drb_launches_per_forward=48, peak_memory_bytes=peak_bytes,
+         peak_memory_above_start_bytes=peak_bytes - start_bytes,
+         ms_per_update_step=float(np.mean(update_ms)),
+         ms_per_critic_only_step=float(np.mean(critic_ms)),
+         update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
+         patches_per_s_events=B_TRAIN * 5e3 / round_ms,
+         patches_per_s_epoch0=B_TRAIN * 10 / history[0]["seconds"],
+         deterministic_training_phase=deterministic,
+         max_err_vs_cpu_b2=cpu_err, tolerance=GEN_ATOL, forward_b150=forward)
+    return launches, trainer
+
+
+def phase_ensemble(trainer, smi: str):
+    """``ensemble_metrics`` with 8 members over the 144-sample test split,
+    from the stochastic run's generator, its CRPS and spread held to a
+    float64 numpy computation of the same members, each member drawn twice
+    bit for bit."""
+    from downgan_tpu_torch.inference import ensemble_metrics, generate_ensemble
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    m = 8
+    cfg = trainer.config
+    weights = trainer.state.generator.state_dict()
+    nhwc = lambda t: t.permute(0, 2, 3, 1).cpu().numpy()  # noqa: E731
+    coarse, fine = nhwc(trainer.test_ds.coarse), nhwc(trainer.test_ds.fine)
+    reset_launch_counts()  # the ensemble path's run starts here
+    t0 = time.perf_counter()
+    scores = ensemble_metrics(cfg, weights, coarse, fine, n_members=m)
+    seconds = time.perf_counter() - t0
+    launches = drb_forward.launches  # the ensemble path's run ends here
+    chunks = -(-len(coarse) // cfg.chunk_size)
+    check(launches == 48 * m * chunks, f"{launches} DRB launches for {m * chunks} forwards")
+    first, second = (generate_ensemble(cfg, weights, coarse, n_members=m) for _ in range(2))
+    check(first.shape == (m, 144, 128, 128, 2) and np.isfinite(first).all(),
+          f"members {first.shape}")
+    identical = [bool(np.array_equal(a, b)) for a, b in zip(first, second)]
+    check(all(identical), f"members drawn twice differ: {identical}")
+    ens, truth = first.astype(np.float64), fine.astype(np.float64)
+    term1 = np.abs(ens - truth[None]).mean(axis=0)
+    pairs = sum(np.abs(ens[i] - ens[j]) for i in range(m) for j in range(i + 1, m))
+    want = {"CRPS": float((term1 - pairs / (m * (m - 1))).mean()),
+            "spread": float(ens.std(axis=0, ddof=1).mean()),
+            "ens_mean_MAE": float(np.abs(ens.mean(axis=0) - truth).mean()),
+            "member_MAE": float(np.abs(ens[0] - truth).mean())}
+    rel = {k: abs(scores[k] - v) / abs(v) for k, v in want.items()}
+    check(scores["n_members"] == m and max(rel.values()) <= ENSEMBLE_RTOL and scores["spread"] > 0,
+          f"ensemble scores {scores} against float64 {want}")
+    emit("ensemble", card=smi, members=m, samples=len(coarse), chunks_per_member=chunks,
+         scores=scores, float64=want, rel_err=rel, rtol=ENSEMBLE_RTOL,
+         members_bit_identical_when_drawn_twice=identical, ensemble_metrics_s=seconds,
+         drb_launches=launches)
+    return launches
+
+
+def phase_serving_stochastic(trainer, rng, smi: str):
+    """The stochastic run's generator served over HTTP: coalesced requests
+    of 3, 5 and 8 patches equal to direct calls bit for bit (each request
+    gets the fixed latent in its own block layout), and a domain request
+    (the whole-domain latent) equal to the direct tiler's."""
+    config = trainer.config
+    weights = {k: v.detach().cpu() for k, v in trainer.state.generator.state_dict().items()}
+    report = serve_and_compare(config, weights, rng, n_clients=6, n_requests=3, sizes=(3, 5, 8),
+                               domain_shape=(2, 56, 112))
+    dispatches = report["metrics"]["dispatches"]
+    check(report["drb_launches"] == 48 * dispatches,
+          f"{report['drb_launches']} DRB launches for {dispatches} dispatches")
+    check(dispatches < 6 * 3 + 1, f"no request was coalesced: {dispatches} dispatches")
+    check(report["max_abs_err_patches"] == 0.0 and report["max_abs_err_domain"] == 0.0,
+          f"served vs direct, stochastic: {report}")
+    emit("serving_stochastic", card=smi, noise_channels=config.noise_channels, **report)
+    return report["drb_launches"]
+
+
+def phase_srresnet(config, rng, tracking_root: Path, smi: str):
+    """The SRResNet family at florida width (115,414 params): ``cli train
+    --generator-arch srresnet`` for one epoch (no DRB, so no hand-written
+    kernel: the JAX package left it to XLA and the port to cuDNN), a timed
+    round, its forward against the CPU's at B=2 and timed at B=150, and
+    the trained model served over HTTP."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.models.generator import SRResNetGenerator
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_launch_counts()  # the SRResNet training path's run starts here
+    trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
+                        "--synthetic", "--samples", "1440", "--epochs", "1",
+                        "--generator-arch", "srresnet", "--tracking-root", str(tracking_root)])
+    torch.cuda.synchronize()
+    launches = drb_forward.launches  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    gen, history = trainer.state.generator, trainer.history
+    n_params = sum(p.numel() for p in gen.parameters())
+    check(isinstance(gen, SRResNetGenerator) and n_params == 115_414,
+          f"SRResNet: {type(gen).__name__} with {n_params} params")
+    check([r["steps"] for r in history] == [10]
+          and all(np.isfinite(v) for r in history for v in (*r["train"].values(),
+                                                            *r["test"].values())),
+          f"SRResNet epoch {history}")
+    check(launches == 0, f"the SRResNet launched {launches} DRB kernels")
+    update_ms, critic_ms = time_round(trainer)
+    round_ms = sum(update_ms + critic_ms)
+    cpu_err = cpu_vs_card(gen, florida_coarse(config, 2, rng))
+    check(cpu_err <= GEN_ATOL, f"SRResNet: card vs CPU {cpu_err}")
+    x = florida_coarse(config, B_MAIN, rng)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: gen(x), iters=10)
+    profile_b150 = profile_forwards(gen, x) or "device time not measured: the profiler " \
+        "recorded no device events"
+    weights = {k: v.detach().cpu() for k, v in gen.state_dict().items()}
+    served = serve_and_compare(trainer.config, weights, rng, n_clients=1, n_requests=1,
+                               sizes=(8,), domain_shape=None)
+    check(served["health"]["generator_arch"] == "srresnet"
+          and served["max_abs_err_patches"] <= SERVE_ATOL and served["drb_launches"] == 0,
+          f"SRResNet served: {served}")
+    emit("srresnet", card=smi, command="cli train --config examples/florida.json --synthetic "
+         "--samples 1440 --epochs 1 --generator-arch srresnet", params=n_params, epochs=history,
+         drb_launches=launches, peak_memory_bytes=peak_bytes,
+         peak_memory_above_start_bytes=peak_bytes - start_bytes,
+         ms_per_update_step=float(np.mean(update_ms)),
+         ms_per_critic_only_step=float(np.mean(critic_ms)),
+         update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
+         patches_per_s_events=B_TRAIN * 5e3 / round_ms, max_err_vs_cpu_b2=cpu_err,
+         tolerance=GEN_ATOL, forward_ms_b150=fwd_ms,
+         patches_per_s_b150=B_MAIN / (fwd_ms * 1e-3), profile_b150=profile_b150,
+         served=served)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1842,7 +2120,7 @@ def main() -> int:
     phase_train_parity(config)
     phase_fused_parity()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tracking_root:
-        training_launches = phase_training(Path(tracking_root))
+        training_launches, training_summary = phase_training(Path(tracking_root))
         check(training_launches > 0, "the training path launched no DRB kernel")
         tuned_launches, tuned, trained = phase_training_tuned(Path(tracking_root))
         bf16_serving_launches = phase_serving_bf16(tuned, trained, rng)
@@ -1856,6 +2134,15 @@ def main() -> int:
     stream_launches = phase_stream(config, smi)
     check(host_feed_launches > 0 and stream_launches > 0,
           "the host-fed or streaming path launched no DRB kernel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stochastic_") as tracking_root:
+        stochastic_launches, stochastic = phase_stochastic(config, rng, Path(tracking_root),
+                                                           training_summary, smi)
+        ensemble_launches = phase_ensemble(stochastic, smi)
+        serving_stochastic_launches = phase_serving_stochastic(stochastic, rng, smi)
+        del stochastic
+        phase_srresnet(config, rng, Path(tracking_root), smi)
+    check(stochastic_launches > 0 and ensemble_launches > 0 and serving_stochastic_launches > 0,
+          "a stochastic path launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
               "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
@@ -1863,10 +2150,13 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "drb_forward", "dtype": "float32", **common,
         "launches": (serving_launches + training_launches + resume_launches + bundle_launches
-                     + host_feed_launches + stream_launches),
+                     + host_feed_launches + stream_launches + stochastic_launches
+                     + ensemble_launches + serving_stochastic_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches,
-                             "host_feed": host_feed_launches, "stream": stream_launches},
+                             "host_feed": host_feed_launches, "stream": stream_launches,
+                             "stochastic": stochastic_launches, "ensemble": ensemble_launches,
+                             "serving_stochastic": serving_stochastic_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],

@@ -9,6 +9,8 @@ the port has ``train``, ``serve``, ``export``, ``prepare-data`` and
     python -m downgan_tpu_torch.cli train --config examples/production_tuned.json \
         --synthetic --samples 1440 --epochs 2    # bf16, fused rounds
     python -m downgan_tpu_torch.cli train ... --resume      # after a SIGTERM
+    python -m downgan_tpu_torch.cli train ... --noise-channels 4       # stochastic
+    python -m downgan_tpu_torch.cli train ... --generator-arch srresnet
     python -m downgan_tpu_torch.cli serve --checkpoint <run artifacts>/best
     python -m downgan_tpu_torch.cli export --run <run id> --ema --out bundle/
     python -m downgan_tpu_torch.cli serve --weights generator.pt
@@ -188,6 +190,12 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
                                    ("schedule", args.schedule)) if v is not None}
     config = config.replace(hp=dataclasses.replace(config.hp, **overrides),
                             seed=config.seed if args.seed is None else args.seed)
+    if args.generator_arch is not None:
+        config = config.replace(generator_arch=args.generator_arch)
+    if args.noise_channels is not None:
+        if args.noise_channels < 0:
+            parser.error("--noise-channels must be >= 0")
+        config = config.replace(noise_channels=args.noise_channels)
     if args.host_feed and args.stream:
         parser.error("--host-feed and --stream are different residency tiers (host RAM vs "
                      "disk); pick one")
@@ -208,9 +216,16 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
             parser.error(f"{args.warm_start} is not a bundle directory (expected "
                          "generator.pt + config.json, the `export` layout)")
         bundle_config = _load_config(os.path.join(args.warm_start, "config.json"))
+        for flag, field, what in (("--generator-arch", "generator_arch", "the architecture"),
+                                  ("--noise-channels", "noise_channels",
+                                   "the generator input width")):
+            ours, theirs = getattr(args, field), getattr(bundle_config, field)
+            if ours is not None and ours != theirs:
+                parser.error(f"{flag} {ours} conflicts with the bundle's {field}={theirs!r} "
+                             f"(the warm-start weights fix {what})")
         config = config.replace(**{k: getattr(bundle_config, k) for k in (
             "filters", "num_res_blocks", "n_covariates", "n_predictands", "coarse_size",
-            "fine_size")})
+            "fine_size", "generator_arch", "noise_channels")})
     device = resolve_device(args.device)
     _fp32_without_tf32()
     train_ds, test_ds = _datasets(args, parser, config, device)
@@ -408,6 +423,13 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--schedule", choices=("reference", "fused"), default=None,
                        help="Generator-update schedule: reference parity (step %% n_critic) "
                        "or the fused n_critic round (overrides hp.schedule).")
+    train.add_argument("--generator-arch", choices=("rrdb", "srresnet"), default=None,
+                       help="Generator family: rrdb (the reference's ESRGAN model) or "
+                       "srresnet (its SRGAN-style variant); overrides the config's.")
+    train.add_argument("--noise-channels", type=int, default=None,
+                       help="Latent channels appended to the generator input (> 0: a "
+                       "stochastic generator for probabilistic downscaling; 0: the "
+                       "deterministic model); overrides the config's.")
     train.add_argument("--device", default="cuda", help="Torch device (default cuda).")
     train.add_argument("--experiment", default="downgan-tpu", help="Experiment name.")
     train.add_argument("--run-name", default=None)
@@ -419,7 +441,8 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--warm-start", default=None,
                        help="Start the generator (and the critic, if the bundle has one) "
                        "from a bundle directory, with fresh optimizer state; its model-shape "
-                       "fields override the config. A successful --resume supersedes it.")
+                       "fields, generator_arch and noise_channels override the config. A "
+                       "successful --resume supersedes it.")
     train.add_argument("--save-every", type=int, default=None,
                        help="Checkpoint cadence in epochs (default: hp.save_every).")
     train.add_argument("--max-checkpoints", type=_non_negative_int, default=None,

@@ -1,9 +1,12 @@
-"""ESRGAN-style residual-in-residual dense generator, NCHW (counterpart of
+"""The two generator families, NCHW (counterpart of
 ``downgan_tpu/models/generator.py``).
 
+:class:`Generator`, the ESRGAN-style residual-in-residual dense network:
 conv1 -> N x RRDB -> conv2 + global skip -> K x [conv(4F), LeakyReLU,
 PixelShuffle(2)] -> conv, LeakyReLU, conv. Florida: (B, 7, 16, 16) ->
-(B, 2, 128, 128), 1,696,514 params.
+(B, 2, 128, 128), 1,696,514 params. A stochastic generator
+(``config.noise_channels = k``) takes k latent channels after the
+covariates: only conv1 widens (1,697,090 params at k = 4).
 
 Attribute names reproduce the reference state-dict keys (``conv1``,
 ``res_blocks.{i}.dense_blocks.{j}.b{k}.0``, ``conv2``, ``upsampling.{0,3,6}``,
@@ -19,6 +22,20 @@ twin, under autograd or not.
 ``dtype``: the input is cast to it, every conv, activation, residual add,
 DRB and pixel shuffle computes in it, the parameters stay fp32 and the
 output is fp32. In bf16 the DRBs take the bf16 kernel.
+
+:class:`SRResNetGenerator`, the SRGAN-style family: 9x9 conv + PReLU ->
+N x [conv, PReLU, conv + input] -> conv + :class:`InstanceNorm` + global
+skip -> K x [conv(4F), PixelShuffle(2), PReLU] -> 9x9 conv; the 3x3 convs
+have no bias. Florida: 115,414 params. It has no DRB, so it runs on stock
+cuDNN convolutions alone (the JAX package left it to XLA). Its state-dict
+keys are the port's own (the JAX package's ``export-torch`` covers the RRDB
+only) and follow the flax tree: ``conv1.{weight,bias}``,
+``prelu1.weight``, ``res_blocks.{i}.{conv1,conv2}.weight``,
+``res_blocks.{i}.prelu.weight``, ``conv2.weight``, ``bn2.{weight,bias}``,
+``up{i}.weight``, ``up_prelu{i}.weight``, ``conv3.{weight,bias}``
+(``utils/port_weights.py::srresnet_state_dict_from_flax``). Its PReLU and
+norm scale and shift with fp32 parameters, so, as in flax, their outputs
+are fp32 when the network computes in bf16; the next conv casts back.
 """
 from __future__ import annotations
 
@@ -27,7 +44,7 @@ import functools
 import torch
 from torch import nn
 
-from downgan_tpu_torch.models.layers import GEN_SLOPE, conv3x3
+from downgan_tpu_torch.models.layers import GEN_SLOPE, conv, conv3x3
 from downgan_tpu_torch.ops.cuda.drb import drb, pack_drb_weights
 
 
@@ -103,3 +120,88 @@ class Generator(nn.Module):
         out1 = self.conv1(x.to(self.compute_dtype))
         out = out1 + self.conv2(self.res_blocks(out1))
         return self.conv3(self.upsampling(out)).float()
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU with one learnable slope, initially 0.25:
+    ``where(x >= 0, x, a * x)`` (the JAX ``PReLU``; 0 at x = 0). The slope
+    is an fp32 parameter, so a bf16 input gives an fp32 output, as the flax
+    module's ``alpha * x`` does."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight * x)
+
+
+class InstanceNorm(nn.Module):
+    """The JAX ``BatchNorm`` of the SRResNet: each sample normalized by its
+    own per-channel mean and biased variance over H and W (eps 1e-5), then
+    scaled and shifted by learnable per-channel parameters. No running
+    statistics, so training and evaluation compute the same, and a sample's
+    output does not depend on its batch. Not ``nn.BatchNorm2d``.
+
+    As ``jnp.mean`` and ``jnp.var`` of a bf16 input, the statistics are
+    summed in fp32 and rounded to the input's dtype; the normalization
+    computes in that dtype and the fp32 scale and shift make it fp32."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        var = xf.var(dim=(2, 3), correction=0, keepdim=True).to(x.dtype)
+        norm = (x - mean) * torch.rsqrt(var + self.eps)
+        return norm * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+
+
+class SRResNetBlock(nn.Module):
+    """conv (no bias) -> PReLU -> conv (no bias), plus the input."""
+
+    def __init__(self, channels: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = conv(channels, channels, bias=False, compute_dtype=compute_dtype)
+        self.prelu = PReLU()
+        self.conv2 = conv(channels, channels, bias=False, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.prelu(self.conv1(x))) + x
+
+
+class SRResNetGenerator(nn.Module):
+    """SRGAN-style generator with the :class:`Generator`'s contract: input
+    (N, in_channels, h, w), output (N, n_predictands, h * 2**num_upsample,
+    w * 2**num_upsample) fp32, convs computing in ``compute_dtype``."""
+
+    def __init__(self, filters: int = 16, in_channels: int = 7,
+                 n_predictands: int = 2, num_res_blocks: int = 16,
+                 num_upsample: int = 3, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.num_upsample = num_upsample
+        self.conv1 = conv(in_channels, filters, 9, compute_dtype=compute_dtype)
+        self.prelu1 = PReLU()
+        self.res_blocks = nn.Sequential(*[SRResNetBlock(filters, compute_dtype)
+                                          for _ in range(num_res_blocks)])
+        self.conv2 = conv(filters, filters, bias=False, compute_dtype=compute_dtype)
+        self.bn2 = InstanceNorm(filters)
+        for i in range(num_upsample):
+            setattr(self, f"up{i}", conv(filters, 4 * filters, bias=False,
+                                         compute_dtype=compute_dtype))
+            setattr(self, f"up_prelu{i}", PReLU())
+        self.shuffle = nn.PixelShuffle(2)
+        self.conv3 = conv(filters, n_predictands, 9, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out1 = self.prelu1(self.conv1(x.to(self.compute_dtype)))
+        out = out1 + self.bn2(self.conv2(self.res_blocks(out1)))
+        for i in range(self.num_upsample):
+            # the shuffle before the PReLU (the RRDB's LeakyReLU comes first)
+            out = getattr(self, f"up_prelu{i}")(self.shuffle(getattr(self, f"up{i}")(out)))
+        return self.conv3(out).float()

@@ -5,7 +5,9 @@ The port runs NCHW, PyTorch's own layout, so the JAX package's explicit
 padding and depth-to-space helpers become stock modules:
 
 * a 3x3 conv is ``nn.Conv2d(kernel_size=3, padding=1)``, which pads (1, 1)
-  like the JAX ``Conv3x3``;
+  like the JAX ``Conv3x3``; the SRResNet's 9x9 conv pads 4, like its
+  ``nn.Conv(kernel_size=(9, 9), padding=((4, 4), (4, 4)))`` (:func:`conv`,
+  with or without a bias);
 * pixel shuffle is ``nn.PixelShuffle(2)``, whose channel order the JAX
   ``pixel_shuffle`` reproduces in NHWC;
 * a layer that computes in a dtype is :class:`Conv2d` or :class:`Linear`
@@ -77,8 +79,16 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def conv(cin: int, cout: int, kernel_size: int = 3, bias: bool = True,
+         compute_dtype: torch.dtype = torch.float32) -> Conv2d:
+    """A stride-1 conv padded ``kernel_size // 2`` on every side, so the
+    output keeps the input's size."""
+    return Conv2d(cin, cout, kernel_size=kernel_size, padding=kernel_size // 2, bias=bias,
+                  compute_dtype=compute_dtype)
+
+
 def conv3x3(cin: int, cout: int, compute_dtype: torch.dtype = torch.float32) -> Conv2d:
-    return Conv2d(cin, cout, kernel_size=3, padding=1, compute_dtype=compute_dtype)
+    return conv(cin, cout, 3, compute_dtype=compute_dtype)
 
 
 @torch.no_grad()

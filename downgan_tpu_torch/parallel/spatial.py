@@ -1,6 +1,11 @@
 """Overlap-tiled full-domain inference on one device (counterpart of
 ``effective_fold``, ``count_tiled_dispatches`` and ``tiled_sr_inference`` in
 ``downgan_tpu/parallel/spatial.py``; meshes come with the multi-GPU slice).
+
+A stochastic generator's latent is drawn once for the whole domain and
+appended before tiling (``spatial.py:238-247``), so overlapping tiles see
+the same latent in the cells they share and stitch without seams. It is
+the JAX package's numpy draw, so the two packages tile the same input.
 """
 from __future__ import annotations
 
@@ -10,8 +15,8 @@ import numpy as np
 import torch
 
 from downgan_tpu_torch.config.config import Config
-from downgan_tpu_torch.models.generator import Generator
 from downgan_tpu_torch.training.state import load_generator
+from downgan_tpu_torch.training.wgan import fixed_latent
 
 
 def effective_fold(tiles_per_dispatch: int) -> int:
@@ -48,18 +53,24 @@ def tiled_sr_inference(config: Config, weights: Mapping[str, torch.Tensor],
                           tiles_per_dispatch=tiles_per_dispatch)
 
 
-def tiled_generate(gen: Generator, config: Config, coarse: np.ndarray,
+def tiled_generate(gen: torch.nn.Module, config: Config, coarse: np.ndarray,
                    tile_rows: int = 16, overlap: int = 8, tile_cols: int = 0,
                    tiles_per_dispatch: int = 8) -> np.ndarray:
     """:func:`tiled_sr_inference` with an already built generator, on the
-    generator's device."""
+    generator's device. For a stochastic generator, an input of
+    ``n_covariates`` channels gets the whole-domain latent
+    (``fixed_latent`` at (B, H, W, k)) appended before tiling; an input
+    that already carries its latent channels is tiled as it is."""
     if tile_rows < 1 or overlap < 0 or tile_cols < 0:
         raise ValueError(
             f"invalid tiling: tile_rows={tile_rows} (>=1), overlap={overlap} "
             f"(>=0), tile_cols={tile_cols} (>=0)")
     # The generator's own output ratio, not the data pipeline's scale_factor.
     sf = 2 ** config.num_upsample
-    b, h, w, _ = coarse.shape
+    b, h, w, c = coarse.shape
+    if config.noise_channels and c == config.n_covariates:
+        z = fixed_latent(config, (b, h, w, config.noise_channels)).astype(coarse.dtype)
+        coarse = np.concatenate([coarse, z], axis=-1)
     band_h = tile_rows + 2 * overlap
     band_w = tile_cols + 2 * overlap if tile_cols else w
     keep_h = min(tile_rows, h) * sf

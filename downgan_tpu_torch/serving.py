@@ -15,7 +15,9 @@ Protocol:
     cap and an estimated-output cap (413).
 
 The wire format is NHWC .npy; the model runs NCHW on the device, and the
-transposes happen there. Every device call runs under
+transposes happen there. Clients send covariates only: a stochastic
+generator (``noise_channels > 0``) serves the fixed latent realization,
+appended on the host, so the same request always returns the same fields. Every device call runs under
 ``torch.inference_mode()``, entered by the thread that makes it.
 
 Client: ``generate_remote(url, coarse)``.
@@ -38,6 +40,7 @@ import torch
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.parallel.spatial import count_tiled_dispatches, tiled_generate
 from downgan_tpu_torch.training.state import load_generator
+from downgan_tpu_torch.training.wgan import fixed_latent
 
 
 class RequestTooLarge(ValueError):
@@ -58,6 +61,12 @@ class SRModel:
         self.batch = batch_size or config.chunk_size
         self._gen = load_generator(config, weights, device)
         self.device = next(self._gen.parameters()).device
+        # A stochastic generator serves the fixed latent (wgan.fixed_latent):
+        # row i of every serving-batch block gets row i of this one block,
+        # laid out per request (_augment), so a request coalesced with other
+        # traffic gets the latents, and the fields, of a direct call.
+        k, cs = config.noise_channels, config.coarse_size
+        self._latent = fixed_latent(config, (self.batch, cs, cs, k)) if k else None
         self._lock = threading.Lock()
         # Observability counters (GET /metrics).
         self.dispatch_count = 0
@@ -103,6 +112,17 @@ class SRModel:
                 block = np.concatenate([block, np.zeros((pad, *block.shape[1:]), block.dtype)])
             yield block, pad
 
+    def _augment(self, coarse: np.ndarray) -> np.ndarray:
+        """``coarse`` with the fixed latent appended as channels, in the
+        request's own padded-block layout: sample j of the request gets
+        latent row ``j % batch``."""
+        if self._latent is None:
+            return coarse
+        n = coarse.shape[0]
+        z = np.concatenate([self._latent[:min(self.batch, n - s)]
+                            for s in range(0, n, self.batch)])
+        return np.concatenate([coarse, z], axis=-1)
+
     def _forward(self, block: np.ndarray) -> np.ndarray:
         """One generator dispatch: NHWC host block -> NHWC host fields."""
         with torch.inference_mode():
@@ -122,7 +142,7 @@ class SRModel:
     def generate(self, coarse: np.ndarray) -> np.ndarray:
         self._validate_patches(coarse)
         t0 = time.perf_counter()
-        fields = self._run_blocks(np.asarray(coarse, np.float32))
+        fields = self._run_blocks(self._augment(np.asarray(coarse, np.float32)))
         self._record(coarse.shape[0], time.perf_counter() - t0)
         return fields
 
@@ -211,7 +231,8 @@ class BatchingSRModel(SRModel):
     def generate(self, coarse: np.ndarray) -> np.ndarray:
         self._validate_patches(coarse)
         t0 = time.perf_counter()
-        coarse = np.asarray(coarse, np.float32)
+        # The latent is appended per request, before coalescing.
+        coarse = self._augment(np.asarray(coarse, np.float32))
         slot: list = [None]
         done = threading.Event()
         with self._cv:

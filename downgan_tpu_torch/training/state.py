@@ -12,10 +12,11 @@ from dataclasses import dataclass
 from typing import Mapping, Optional
 
 import torch
+from torch import nn
 
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.models.critic import Critic
-from downgan_tpu_torch.models.generator import Generator
+from downgan_tpu_torch.models.generator import Generator, SRResNetGenerator
 from downgan_tpu_torch.models.layers import init_torch_default_, torch_dtype
 
 # The critic draws from its own stream, so the generator's weights are the
@@ -34,26 +35,25 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def make_generator(config: Config, device: str | torch.device = "cuda",
-                   rng: Optional[torch.Generator] = None) -> Generator:
-    """The RRDB generator for ``config``, in eval mode on ``device``,
-    computing in ``config.hp.compute_dtype`` (fp32 parameters, as the JAX
-    package's ``make_models``), its weights drawn from ``rng`` (default: a
-    generator seeded with ``config.seed``) by torch's default-init
-    distribution."""
-    if config.generator_arch != "rrdb":
-        raise ValueError(
-            f"generator_arch={config.generator_arch!r} is not ported yet: the "
-            "SRResNet generator comes with a later slice of the port")
-    if config.noise_channels > 0:
-        raise ValueError(
-            "noise_channels > 0 (stochastic serving) is not ported yet: it "
-            "comes with a later slice of the port")
+                   rng: Optional[torch.Generator] = None) -> nn.Module:
+    """The generator of ``config.generator_arch`` (the RRDB
+    :class:`Generator` or the :class:`SRResNetGenerator`) for ``config``,
+    in eval mode on ``device``, computing in ``config.hp.compute_dtype``
+    (fp32 parameters, as the JAX package's ``make_models``), taking
+    ``config.generator_in_channels`` inputs (the covariates, then
+    ``noise_channels`` latent channels), its weights drawn from ``rng``
+    (default: a generator seeded with ``config.seed``) by torch's
+    default-init distribution."""
+    if config.noise_channels < 0:
+        raise ValueError(f"noise_channels must be >= 0, got {config.noise_channels}")
+    archs = {"rrdb": Generator, "srresnet": SRResNetGenerator}
+    if config.generator_arch not in archs:
+        raise ValueError(f"unknown generator_arch {config.generator_arch!r}")
     dev = resolve_device(device)
-    gen = Generator(filters=config.filters, in_channels=config.n_covariates,
-                    n_predictands=config.n_predictands,
-                    num_res_blocks=config.num_res_blocks,
-                    num_upsample=config.num_upsample,
-                    compute_dtype=torch_dtype(config.hp.compute_dtype))
+    gen = archs[config.generator_arch](
+        filters=config.filters, in_channels=config.generator_in_channels,
+        n_predictands=config.n_predictands, num_res_blocks=config.num_res_blocks,
+        num_upsample=config.num_upsample, compute_dtype=torch_dtype(config.hp.compute_dtype))
     if rng is None:
         rng = torch.Generator().manual_seed(config.seed)
     init_torch_default_(gen, rng)
@@ -61,10 +61,10 @@ def make_generator(config: Config, device: str | torch.device = "cuda",
 
 
 def load_generator(config: Config, weights: Mapping[str, torch.Tensor],
-                   device: str | torch.device = "cuda") -> Generator:
-    """:func:`make_generator` with ``weights`` (a reference-layout state
-    dict, e.g. from ``utils.port_weights.load_generator_weights``) loaded
-    ``strict=True``."""
+                   device: str | torch.device = "cuda") -> nn.Module:
+    """:func:`make_generator` with ``weights`` (a state dict of the
+    config's architecture, e.g. from
+    ``utils.port_weights.load_generator_weights``) loaded ``strict=True``."""
     gen = make_generator(config, device)
     gen.load_state_dict(weights, strict=True)
     return gen
@@ -72,9 +72,10 @@ def load_generator(config: Config, weights: Mapping[str, torch.Tensor],
 
 def check_training_ported(config: Config) -> None:
     """Raise for every training option the port has not ported yet. What
-    it runs: the reference and the fused schedule (``hp.schedule``) with
-    constant-LR Adam, fp32 or bf16 compute (``hp.compute_dtype``), the
-    critic on the fine field alone, the MAE/MSE/MSSSIM/Wass metric pass
+    it runs: either generator family, deterministic or stochastic
+    (``noise_channels``), on the reference and the fused schedule
+    (``hp.schedule``) with constant-LR Adam, fp32 or bf16 compute
+    (``hp.compute_dtype``), the critic on the fine field alone, the MAE/MSE/MSSSIM/Wass metric pass
     (on a fresh fake, or the critic update's under
     ``hp.metrics_reuse_fake``), the critic's two forwards as one
     (``hp.fused_critic_pass``) and the generator EMA (``hp.ema_decay``).
@@ -136,7 +137,7 @@ def make_optimizer(config: Config, module: torch.nn.Module) -> torch.optim.Adam:
                             foreach=True, fused=False)
 
 
-def make_ema_generator(config: Config, gen: Generator) -> Generator:
+def make_ema_generator(config: Config, gen: nn.Module) -> nn.Module:
     """A copy of ``gen``'s weights on its device, out of autograd: the EMA
     generator (the JAX package's ``g_ema = tree.map(copy, g_params)``).
     A fresh module, so its DRB blocks keep their own packed-weight cache."""
@@ -151,16 +152,17 @@ class GANTrainState:
     ``num_steps``) and the EMA generator (``hp.ema_decay > 0``, else None);
     the train step advances ``step`` by one.
 
-    :meth:`state_dict` is everything a resume needs: the GP's alphas are a
-    function of ``(config.seed, step)`` (``training/wgan.py::gp_alpha``),
-    so the step carries their stream."""
+    :meth:`state_dict` is everything a resume needs: the GP's alphas and
+    a stochastic generator's training latents are functions of
+    ``(config.seed, step)`` (``training/wgan.py::gp_alpha``,
+    ``train_latent``), so the step carries their streams."""
 
     step: int
-    generator: Generator
+    generator: nn.Module
     critic: Critic
     g_opt: torch.optim.Adam
     c_opt: torch.optim.Adam
-    g_ema: Optional[Generator] = None
+    g_ema: Optional[nn.Module] = None
 
     def state_dict(self) -> dict:
         """Tensors, numbers and nested dicts and lists only (no module), so

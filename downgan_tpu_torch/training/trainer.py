@@ -21,6 +21,14 @@ every ``save_every`` epochs. SIGTERM stops the loop at the next epoch
 boundary with the full state checkpointed, and :meth:`Trainer.maybe_resume`
 continues the exact trajectory. The multi-host branch, grid plots and
 TensorBoard are not ported yet.
+
+A stochastic generator (``config.noise_channels > 0``) needs nothing of the
+loop: the step draws its training latents as functions of ``(seed, step,
+stream)`` (``wgan.py::train_latent``) and every test pass, device-resident,
+host-fed or streamed, EMA scoring included, scores the one fixed
+realization (``wgan.py::fixed_latent`` through ``build_eval_metrics``). So
+a checkpoint holds no latent state, and a resume draws the latents the
+uninterrupted run would have.
 """
 from __future__ import annotations
 

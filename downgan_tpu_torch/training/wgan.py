@@ -28,10 +28,22 @@ Metrics come back as device scalars; nothing in the step waits for the
 card. The GP's per-sample alpha is :func:`gp_alpha` of ``(config.seed,
 step)``, or passed in: the JAX package draws it from ``fold_in(rng,
 step)``, a stream torch cannot reproduce, so parity tests inject it.
+
+A stochastic generator (``config.noise_channels = k > 0``,
+``wgan.py:77-108``) takes k channels of N(0, 1) latent after the
+covariates. Training draws a fresh latent for every generator forward:
+:func:`train_latent` of ``(config.seed, step, stream)``, one stream per
+forward of the step (the critic update's fake, the generator update, the
+metric pass's fresh fake), so a resumed run draws what an uninterrupted one
+would have. These are the port's own streams, not the JAX package's
+threefry draws; parity tests pass the JAX latents in (``latents=``). The
+test pass scores one fixed realization, :func:`fixed_latent` of
+``config.seed``, drawn on the host, so the card and the CPU score the same
+latent. With ``noise_channels = 0`` no latent is drawn or appended.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,10 +92,16 @@ def critic_loss(config: Config, critic: nn.Module, fake: torch.Tensor, real: tor
 
 def generator_loss(config: Config, gen: nn.Module, critic: nn.Module, coarse: torch.Tensor,
                    fine: torch.Tensor) -> torch.Tensor:
-    """-gamma * E[C(G(coarse))] + content_lambda * L1(G(coarse), fine)."""
+    """-gamma * E[C(G(coarse))] + content_lambda * L1(G(coarse), fine);
+    ``coarse`` is the generator's whole input (latent included)."""
     fake = gen(coarse)
     hp = config.hp
     return -critic(fake).mean() * hp.gamma + hp.content_lambda * content_loss(fake, fine)
+
+
+def _device_rng(entropy: Tuple[int, ...], device: torch.device) -> torch.Generator:
+    seed = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def gp_alpha(seed: int, step: int, batch: int, device: torch.device) -> torch.Tensor:
@@ -92,9 +110,48 @@ def gp_alpha(seed: int, step: int, batch: int, device: torch.device) -> torch.Te
     it is a pure function of the two, like the JAX package's
     ``fold_in(rng, step)``, and a resumed run draws what an uninterrupted
     one would have."""
-    step_seed = int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
-    rng = torch.Generator(device=device).manual_seed(step_seed)
-    return torch.rand((batch, 1, 1, 1), generator=rng, device=device)
+    return torch.rand((batch, 1, 1, 1), generator=_device_rng((seed, step), device),
+                      device=device)
+
+
+# The generator forwards of a step that draw a training latent, by stream
+# (the JAX package folds 0, 1, 2 into the step's noise key, wgan.py:366-429).
+LATENT_STREAMS = ("critic_fake", "update", "metric")
+_LATENT_TAG = 2  # keeps the latent streams apart from gp_alpha's (seed, step)
+FIXED_LATENT_TAG = 0x5E11  # the JAX package's fixed-realization tag (eval_noise_rng, spatial.py)
+
+
+def train_latent(config: Config, step: int, stream: str,
+                 coarse: torch.Tensor) -> Optional[torch.Tensor]:
+    """The training latent (B, k, h, w) for ``coarse`` (B, C, h, w) of the
+    generator forward ``stream`` (one of :data:`LATENT_STREAMS`) at
+    ``step``, N(0, 1) in ``coarse``'s dtype, drawn on ``coarse``'s device
+    from a generator seeded from ``(config.seed, step, stream)``: a pure
+    function of the three. None for a deterministic generator."""
+    k = config.noise_channels
+    if not k:
+        return None
+    b, _, h, w = coarse.shape
+    rng = _device_rng((config.seed, step, _LATENT_TAG, LATENT_STREAMS.index(stream)),
+                      coarse.device)
+    return torch.randn((b, k, h, w), generator=rng, device=coarse.device, dtype=coarse.dtype)
+
+
+def fixed_latent(config: Config, shape: Tuple[int, int, int, int]) -> np.ndarray:
+    """The fixed latent realization of evaluation and serving, NHWC
+    ``shape`` (b, h, w, k) float32 on the host:
+    ``np.random.default_rng((config.seed, 0x5E11)).standard_normal(shape)``.
+    A draw of b rows is the first b rows of any larger draw, so every batch
+    size sees the same realization row by row. The whole-domain latent of
+    the tiler is this draw at the domain's shape, as in the JAX package."""
+    z = np.random.default_rng((config.seed, FIXED_LATENT_TAG)).standard_normal(shape)
+    return z.astype(np.float32)
+
+
+def with_latent(coarse: torch.Tensor, z: Optional[torch.Tensor]) -> torch.Tensor:
+    """The generator input: ``coarse`` with the latent ``z`` appended as
+    channels, or ``coarse`` itself when there is no latent."""
+    return coarse if z is None else torch.cat([coarse, z.to(coarse.dtype)], dim=1)
 
 
 @torch.no_grad()
@@ -138,16 +195,30 @@ def build_metric_pass(config: Config) -> Callable[[nn.Module, torch.Tensor, torc
     return score
 
 
-def build_eval_metrics(config: Config) -> Callable[[nn.Module, nn.Module, torch.Tensor,
-                                                     torch.Tensor], Metrics]:
+def build_eval_metrics(config: Config) -> Callable[..., Metrics]:
     """Test-set metric pass for one batch, ``eval_metrics(gen, critic,
-    coarse, fine)``: :func:`build_metric_pass` on G(coarse)."""
+    coarse, fine, latent=None)``: :func:`build_metric_pass` on G(coarse).
+    A stochastic generator scores the fixed realization: the first B rows
+    of :func:`fixed_latent`, drawn once per batch shape and device and
+    kept there, or ``latent`` (B, k, h, w) when given."""
     score = build_metric_pass(config)
+    fixed: Dict[tuple, torch.Tensor] = {}
+
+    def eval_latent(coarse: torch.Tensor) -> Optional[torch.Tensor]:
+        if not config.noise_channels:
+            return None
+        b, _, h, w = coarse.shape
+        key = (b, h, w, coarse.device)
+        if key not in fixed:
+            z = fixed_latent(config, (b, h, w, config.noise_channels))
+            fixed[key] = torch.from_numpy(z).permute(0, 3, 1, 2).contiguous().to(coarse.device)
+        return fixed[key]
 
     @torch.no_grad()
     def eval_metrics(gen: nn.Module, critic: nn.Module, coarse: torch.Tensor,
-                     fine: torch.Tensor) -> Metrics:
-        return score(critic, gen(coarse), fine)
+                     fine: torch.Tensor, latent: Optional[torch.Tensor] = None) -> Metrics:
+        z = eval_latent(coarse) if latent is None else latent
+        return score(critic, gen(with_latent(coarse, z)), fine)
 
     return eval_metrics
 
@@ -186,12 +257,15 @@ def _generator_update(config: Config, state: GANTrainState, gen: nn.Module, crit
 def build_train_step(config: Config, gen: nn.Module,
                      critic: nn.Module) -> Callable[..., Metrics]:
     """The reference-schedule train step over ``gen`` and ``critic``:
-    ``step(state, coarse, fine, alpha=None) -> metrics``, where ``state``
-    is the :class:`GANTrainState` holding these two modules; it updates
-    both networks and ``state.step`` in place.
+    ``step(state, coarse, fine, alpha=None, latents=None) -> metrics``,
+    where ``state`` is the :class:`GANTrainState` holding these two
+    modules; it updates both networks and ``state.step`` in place.
 
     ``alpha`` (B, 1, 1, 1) is, when omitted, :func:`gp_alpha` of
-    ``(config.seed, state.step)``. ``step.forwards`` counts
+    ``(config.seed, state.step)``. A stochastic generator's three latents
+    are :func:`train_latent` of ``(config.seed, state.step, stream)``, or
+    ``latents[stream]`` (B, k, h, w) for each stream of
+    :data:`LATENT_STREAMS` the step runs. ``step.forwards`` counts
     the generator forwards it runs, by kind: ``critic_fake``, ``update``
     and ``metric``.
     """
@@ -203,20 +277,28 @@ def build_train_step(config: Config, gen: nn.Module,
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
 
     def step(state: GANTrainState, coarse: torch.Tensor, fine: torch.Tensor,
-             alpha: Optional[torch.Tensor] = None) -> Metrics:
+             alpha: Optional[torch.Tensor] = None,
+             latents: Optional[Mapping[str, torch.Tensor]] = None) -> Metrics:
         _check_modules(state, gen, critic)
         if alpha is None:
             alpha = gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
+        at_step = state.step
+
+        def g_input(stream: str) -> torch.Tensor:
+            z = train_latent(config, at_step, stream, coarse) if latents is None \
+                else latents[stream]
+            return with_latent(coarse, z)
 
         # ---- critic update; no gradient reaches the generator
         with torch.no_grad():
-            fake = gen(coarse)
+            fake = gen(g_input("critic_fake"))
         forwards["critic_fake"] += 1
         c_loss, c_real, c_fake = _critic_update(config, state, critic, c_params, fake, fine, alpha)
 
         # ---- generator update on the reference schedule, post-update critic
         if state.step % hp.critic_iterations == 0:
-            g_loss = _generator_update(config, state, gen, critic, g_params, coarse, fine)
+            g_loss = _generator_update(config, state, gen, critic, g_params, g_input("update"),
+                                       fine)
             forwards["update"] += 1
         else:
             g_loss = torch.zeros((), device=fine.device)
@@ -225,10 +307,10 @@ def build_train_step(config: Config, gen: nn.Module,
         metrics = {"critic_loss": c_loss, "gen_loss": g_loss, "Wass": wass_loss(c_real, c_fake)}
         # The post-update critic scores a fresh fake from the post-update
         # generator (reference mlflow_epoch.py:53-63) or, under
-        # metrics_reuse_fake, the critic update's fake.
+        # metrics_reuse_fake, the critic update's fake (made from its latent).
         if not hp.metrics_reuse_fake:
             with torch.no_grad():
-                fake = gen(coarse)
+                fake = gen(g_input("metric"))
             forwards["metric"] += 1
         metrics.update(score(critic, fake, fine))
         return metrics
@@ -240,14 +322,22 @@ def build_train_step(config: Config, gen: nn.Module,
 def build_fused_round(config: Config, gen: nn.Module,
                       critic: nn.Module) -> Callable[..., Metrics]:
     """The fused n-critic round over ``gen`` and ``critic`` (``wgan.py:443-
-    582``): ``fused_round(state, coarse_n, fine_n, alphas=None) ->
-    metrics`` with inputs (n, B, C, h, w) and (n, B, P, H, W), n =
-    ``hp.critic_iterations``. It runs n critic updates on the n minibatches
-    in order, update i with alpha :func:`gp_alpha` of ``(config.seed,
-    state.step + i)`` (or ``alphas[i]``), each on a fake from the round's
-    starting generator; then one generator update on the last minibatch
-    against the post-update critic, and the EMA update. ``state.step``
-    advances by n.
+    582``): ``fused_round(state, coarse_n, fine_n, alphas=None,
+    latents=None) -> metrics`` with inputs (n, B, C, h, w) and (n, B, P, H,
+    W), n = ``hp.critic_iterations``. It runs n critic updates on the n
+    minibatches in order, update i with alpha :func:`gp_alpha` of
+    ``(config.seed, state.step + i)`` (or ``alphas[i]``), each on a fake
+    from the round's starting generator; then one generator update on the
+    last minibatch against the post-update critic, and the EMA update.
+    ``state.step`` advances by n.
+
+    A stochastic generator's latents: critic update i's fake takes
+    :func:`train_latent` at step ``state.step + i``, stream
+    ``critic_fake``; the generator update and the metric pass's fresh fake
+    take streams ``update`` and ``metric`` at the step the round ends on
+    (the JAX round folds 2, 3 and 4 into the same steps' keys). Given,
+    ``latents["critic_fake"]`` is (n, B, k, h, w) and ``latents["update"]``
+    and ``latents["metric"]`` are (B, k, h, w).
 
     Metrics: ``critic_loss`` the mean over the n updates, ``Wass`` from
     the means of their n real and n fake scores, ``gen_loss`` the one
@@ -264,19 +354,28 @@ def build_fused_round(config: Config, gen: nn.Module,
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
 
     def fused_round(state: GANTrainState, coarse_n: torch.Tensor, fine_n: torch.Tensor,
-                    alphas: Optional[torch.Tensor] = None) -> Metrics:
+                    alphas: Optional[torch.Tensor] = None,
+                    latents: Optional[Mapping[str, torch.Tensor]] = None) -> Metrics:
         _check_modules(state, gen, critic)
         n = coarse_n.shape[0]
         if n != hp.critic_iterations:
             raise ValueError(f"a fused round takes critic_iterations={hp.critic_iterations} "
                              f"minibatches, got {n}")
+
+        def g_input(stream: str, coarse: torch.Tensor, i: Optional[int] = None) -> torch.Tensor:
+            if latents is None:
+                z = train_latent(config, state.step, stream, coarse)
+            else:
+                z = latents[stream] if i is None else latents[stream][i]
+            return with_latent(coarse, z)
+
         losses, reals, fakes = [], [], []
         for i in range(n):
             coarse, fine = coarse_n[i], fine_n[i]
             alpha = (gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
                      if alphas is None else alphas[i])
             with torch.no_grad():
-                fake = gen(coarse)
+                fake = gen(g_input("critic_fake", coarse, i))
             forwards["critic_fake"] += 1
             c_loss, c_real, c_fake = _critic_update(config, state, critic, c_params, fake, fine,
                                                     alpha)
@@ -285,13 +384,14 @@ def build_fused_round(config: Config, gen: nn.Module,
             fakes.append(c_fake)
             state.step += 1
 
-        g_loss = _generator_update(config, state, gen, critic, g_params, coarse, fine)
+        g_loss = _generator_update(config, state, gen, critic, g_params,
+                                   g_input("update", coarse), fine)
         forwards["update"] += 1
         metrics = {"critic_loss": torch.stack(losses).mean(), "gen_loss": g_loss,
                    "Wass": wass_loss(torch.stack(reals).mean(), torch.stack(fakes).mean())}
         if not hp.metrics_reuse_fake:
             with torch.no_grad():
-                fake = gen(coarse)
+                fake = gen(g_input("metric", coarse))
             forwards["metric"] += 1
         metrics.update(score(critic, fake, fine))
         return metrics

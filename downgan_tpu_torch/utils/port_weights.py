@@ -6,7 +6,9 @@ what the JAX package's ``export-torch`` writes:
 ``conv1.*``, ``res_blocks.{i}.dense_blocks.{j}.b{k}.0.*``, ``conv2.*``,
 ``upsampling.{0,3,6}.*``, ``conv3.{0,2}.*`` for the generator;
 ``features.{0,2,...,14}.*`` (bias only at 0) and ``classifier.{0,2}.*``
-for the critic. Flax conv kernels are HWIO; torch's are OIHW.
+for the critic. Flax conv kernels are HWIO; torch's are OIHW. The SRResNet
+generator's keys are the port's own (``models/generator.py``), since the JAX
+package exports the RRDB only.
 """
 from __future__ import annotations
 
@@ -49,6 +51,33 @@ def generator_state_dict_from_flax(params: Mapping, num_res_blocks: int = 16,
     return sd
 
 
+def srresnet_state_dict_from_flax(params: Mapping, num_res_blocks: int = 16,
+                                  num_upsample: int = 3) -> Dict[str, torch.Tensor]:
+    """Flax ``SRResNetGenerator`` variables (as numpy arrays) -> the port's
+    :class:`~downgan_tpu_torch.models.generator.SRResNetGenerator` state
+    dict. The 3x3 convs (``Conv3x3``) hold their kernel under ``Conv_0``;
+    the 9x9 ``conv1`` and ``conv3`` are plain ``nn.Conv`` leaves; a PReLU's
+    ``alpha`` (1,) is torch's ``weight`` (1,), the norm's ``scale`` and
+    ``bias`` its ``weight`` and ``bias``."""
+    p = params["params"] if "params" in params else params
+    vec = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    sd: Dict[str, torch.Tensor] = {}
+    sd.update(conv_from_flax(p["conv1"], "conv1"))
+    sd["prelu1.weight"] = vec(p["prelu1"]["alpha"])
+    for i in range(num_res_blocks):
+        block = p[f"res{i}"]
+        sd.update(conv_from_flax(block["conv1"]["Conv_0"], f"res_blocks.{i}.conv1"))
+        sd[f"res_blocks.{i}.prelu.weight"] = vec(block["prelu"]["alpha"])
+        sd.update(conv_from_flax(block["conv2"]["Conv_0"], f"res_blocks.{i}.conv2"))
+    sd.update(conv_from_flax(p["conv2"]["Conv_0"], "conv2"))
+    sd["bn2.weight"], sd["bn2.bias"] = vec(p["bn2"]["scale"]), vec(p["bn2"]["bias"])
+    for u in range(num_upsample):
+        sd.update(conv_from_flax(p[f"up{u}"]["Conv_0"], f"up{u}"))
+        sd[f"up_prelu{u}.weight"] = vec(p[f"up_prelu{u}"]["alpha"])
+    sd.update(conv_from_flax(p["conv3"], "conv3"))
+    return sd
+
+
 def _nchw_to_nhwc_flat_perm(c: int, h: int, w: int) -> np.ndarray:
     """Permutation p with flax_flat[i] = torch_flat[p[i]]: index by
     (h, w, c) NHWC order into the torch (c, h, w) flat layout (the JAX
@@ -82,10 +111,12 @@ def critic_state_dict_from_flax(params: Mapping, base: int = 16,
 
 def load_generator_weights(path: str) -> Dict[str, torch.Tensor]:
     """Read a generator state dict onto the CPU: a bundle's
-    ``generator.pt`` or the file ``downgan_tpu.cli export-torch`` writes
-    (both a ``torch.save``d dict of tensors under the reference keys)."""
+    ``generator.pt`` (RRDB or SRResNet) or the file ``downgan_tpu.cli
+    export-torch`` writes (RRDB), each a ``torch.save``d dict of tensors.
+    Both families have a ``conv1.weight``; which one the keys must match
+    is the config's ``generator_arch``, checked when they load."""
     sd = load_params(path)
     if not isinstance(sd, dict) or "conv1.weight" not in sd:
-        raise ValueError(f"{path} is not a DoWnGAN generator state_dict "
-                         "(no conv1.weight)")
+        raise ValueError(f"{path} is not a generator state_dict of either architecture, "
+                         "RRDB or SRResNet (no conv1.weight)")
     return sd

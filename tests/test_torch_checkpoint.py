@@ -218,11 +218,18 @@ def straight(data):
     return trainer
 
 
-def test_resume_reproduces_the_uninterrupted_run(tmp_path, data, straight, capsys):
+@pytest.mark.parametrize("noise_channels", [0, 2], ids=["deterministic", "stochastic"])
+def test_resume_reproduces_the_uninterrupted_run(tmp_path, data, straight, capsys,
+                                                  noise_channels):
     """3 epochs == 2 epochs, checkpoint, a fresh trainer resuming, 1 more:
     every tensor (EMA and Adam states included) and epoch 2's means, bit
-    for bit."""
-    cfg = tiny_config(ema_decay=EMA)
+    for bit. A stochastic generator's training latents are functions of
+    (seed, step, stream) and its test pass scores the fixed latent, so the
+    checkpoint carries them too."""
+    cfg = tiny_config(ema_decay=EMA).replace(noise_channels=noise_channels)
+    if noise_channels:
+        straight = trainer_of(cfg, data)
+        straight.train(3)
     first = trainer_of(cfg, data, checkpoint_manager=CheckpointManager(str(tmp_path / "ck")))
     first.train(2)
     resumed = trainer_of(cfg, data, checkpoint_manager=CheckpointManager(str(tmp_path / "ck")))
@@ -463,7 +470,7 @@ def _drb_blocks(gen):
 
 def _apply(kind, trainer, tmp_path):
     state = trainer.state
-    if kind == "resume":
+    if kind in ("resume", "resume_stochastic"):
         mngr = CheckpointManager(str(tmp_path / "ck"))
         snapshot = make_train_state(trainer.config.replace(seed=4), "cpu")
         mngr.save(0, snapshot)
@@ -476,15 +483,18 @@ def _apply(kind, trainer, tmp_path):
         ema_update(EMA, state.g_ema, list(state.generator.parameters()))
 
 
-@pytest.mark.parametrize("kind", ["resume", "warm_start", "ema_update"])
+@pytest.mark.parametrize("kind", ["resume", "warm_start", "ema_update", "resume_stochastic"])
 def test_drb_packed_weights_refresh(tmp_path, data, kind):
     """The DRB blocks' packed-weight cache is keyed on each parameter's
     version: a resume, a warm start and an EMA update each change the
-    key, and the next forward packs the current weights."""
-    trainer = trainer_of(tiny_config(ema_decay=EMA), data)
+    key, and the next forward packs the current weights; so does the
+    resume of a stochastic generator (whose trunk is the same)."""
+    k = 2 if kind == "resume_stochastic" else 0
+    trainer = trainer_of(tiny_config(ema_decay=EMA).replace(noise_channels=k), data)
     with torch.no_grad():
         trainer.state.generator.state_dict()["conv1.weight"].mul_(1.5)  # EMA != live weights
         x = data[0].coarse[:1]
+        x = torch.cat([x, torch.ones(1, k, *x.shape[2:])], dim=1)
         nets = [trainer.state.generator, trainer.state.g_ema]
         for net in nets:
             net(x)

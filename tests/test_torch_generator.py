@@ -1,6 +1,7 @@
 """The port's generator against the JAX package's flax Generator: parameter
 count, state-dict keys and mapping, forward on carried-over weights, pixel
-shuffle order, seeded initialisation, and the slice's refusals."""
+shuffle order and seeded initialisation (the stochastic RRDB and the SRResNet:
+tests/test_torch_stochastic.py, tests/test_torch_srresnet.py)."""
 import dataclasses
 import json
 
@@ -95,16 +96,6 @@ def test_seeded_init_is_reproducible_and_torch_default():
             bound = 1.0 / m.weight[0].numel() ** 0.5
             assert m.weight.abs().max() <= bound and m.bias.abs().max() <= bound
             assert m.weight.abs().max() > 0.9 * bound
-
-
-@pytest.mark.parametrize("change,match", [
-    (dict(generator_arch="srresnet"), "SRResNet"),
-    (dict(noise_channels=2), "stochastic"),
-])
-def test_later_slices_are_refused(change, match):
-    _, cfg = tiny(1)
-    with pytest.raises(ValueError, match=match):
-        make_generator(cfg.replace(**change), "cpu")
 
 
 def test_hyperparams_validation_is_kept():
