@@ -112,7 +112,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                SRResNet family, 115,414 params, no DRB and so no
                hand-written kernel), a timed round, its forward against the
                CPU's at B=2 and timed at B=150, and the trained model served
-               over HTTP.
+               over HTTP;
+20. variants_parity -- (after fused_parity) three florida steps at batch
+               4 with every training variant on (frequency separation, the
+               conditional critic, flips, the divergence, vorticity and EOF
+               terms, grad_accum 2, a cosine schedule with warmup), card
+               against CPU from the same weights, EOF basis, alphas and
+               flip masks, 48 DRB launches in every generator forward;
+21. variants -- ``cli train --config examples/florida.json --synthetic
+               --samples 1440 --epochs 1`` with every variant's flag (the
+               EOF basis fit at staging), and again from a config file with
+               the physics terms and metrics: epoch means, launches by
+               kind, timed rounds, peak memory, and a lone critic update's
+               peak memory with grad_accum 1 and 2;
+22. variants_tuned -- ``cli train --config examples/production_tuned.json
+               ... --epochs 1 --augment-flips --critic-conditional
+               --grad-accum 2``: bf16 fused rounds, 768 bf16 DRB launches.
+
+The kernel phases also hold the kernels at B=64 (a microbatch under
+grad_accum 2), and the generator phase holds a generator built inside
+``torch.inference_mode()`` to the normal build, bit for bit.
 
 Then it prints ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -179,6 +198,7 @@ B_MAIN = 150  # Config.chunk_size and the serving batch
 B_TRAIN = 128  # hp.batch_size of examples/florida.json and production_tuned.json
 B_PARITY = 4  # the train_parity and fused_parity phases' batch (the CPU side's cost)
 B_ONE_PER_SM = 132  # an H100 SXM's SMs: whole-sample units with no second wave
+B_MICRO = B_TRAIN // 2  # a generator update's microbatch under grad_accum = 2
 BF16 = torch.bfloat16
 # The bf16 kernel against the bf16 twin (tests/test_torch_drb.py): both are
 # held to a float64 evaluation of the same function (same bf16 inputs, same
@@ -408,12 +428,13 @@ def time_drb(x, ws, bs, want, peaks):
 
 
 def phase_kernel(rng, peaks):
-    """The kernel against its twin at every shape; times at the generator's
-    shape (B=150, the main path's) and at the domain band."""
+    """The kernel against its twin at every shape (B=64 is a microbatch
+    under grad_accum = 2); times at the generator's shape (B=150, the main
+    path's), B=128 and the domain band."""
     from downgan_tpu_torch.ops.cuda.drb import drb_forward, drb_forward_reference
 
     shapes = [(1, 16, 16, 16), (3, 16, 16, 16), (B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16),
-              (8, 16, 32, 56),
+              (B_MICRO, 16, 16, 16), (8, 16, 32, 56),
               (8, 16, 32, 112), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112),
               (1, 16, 37, 53), (1, 8, 40, 24)]
     timed = {(B_MAIN, 16, 16, 16): None, (B_TRAIN, 16, 16, 16): None, (8, 16, 32, 112): None}
@@ -465,10 +486,25 @@ def phase_generator(config, rng):
         check(cpu_err <= GEN_ATOL * max(1.0, ref.abs().max().item()),
               f"generator: card vs CPU max abs err {cpu_err}")
         fwd_ms = cuda_ms(lambda: gen(x), iters=10)
+        # A generator built inside inference mode (inference-tensor
+        # parameters, no version counters): its DRBs repack at every
+        # forward and give the normal build's output bit for bit.
+        inference_gen = make_generator(config, "cuda", rng=torch.Generator().manual_seed(0))
+        before = drb_forward.launches
+        inference_out = inference_gen(x)
+        torch.cuda.synchronize()
+        inference_launches = drb_forward.launches - before
+        check(all(p.is_inference() for p in inference_gen.parameters()),
+              "the generator built in inference mode has parameters that are not inference tensors")
+        check(inference_launches == 48 and torch.equal(inference_out, out),
+              f"a generator built in inference mode: {inference_launches} launches, "
+              f"{(inference_out - out).abs().max().item()} off the normal build")
+        del inference_gen
     emit("generator", params=n_params, batch=B_MAIN, out_shape=list(shape),
          drb_launches_per_forward=per_forward, max_abs_err_vs_plain_twin=err,
          max_abs_err_vs_cpu_b2=cpu_err, atol=GEN_ATOL, rtol=GEN_RTOL,
-         forward_ms=fwd_ms, patches_per_s=B_MAIN / (fwd_ms * 1e-3))
+         forward_ms=fwd_ms, patches_per_s=B_MAIN / (fwd_ms * 1e-3),
+         inference_mode_build_bit_for_bit=True, inference_mode_build_launches=inference_launches)
     return gen
 
 
@@ -714,12 +750,14 @@ def phase_kernel_bf16(rng, peaks):
     """The bf16 kernel against its bf16 twin, both held to a float64
     evaluation of the same function, at the generator's shapes (B=150, the
     serving batch; B=128, the tuned training batch; B=132, one sample per
-    SM of an H100, beside B=150 to show its tail), the domain band, a
-    ragged image and F=8; times at the first four."""
+    SM of an H100, beside B=150 to show its tail; B=64, a microbatch under
+    grad_accum = 2), the domain band, a ragged image and F=8; times at
+    B=150, 128, 132 and the band."""
     from downgan_tpu_torch.ops.cuda.drb import cudnn_chain, drb_forward, drb_forward_reference
 
     shapes = [(B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16), (B_ONE_PER_SM, 16, 16, 16),
-              (8, 16, 32, 112), (1, 16, 37, 53), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112)]
+              (B_MICRO, 16, 16, 16), (8, 16, 32, 112), (1, 16, 37, 53), (3, 8, 16, 16),
+              (2, 8, 12, 20), (2, 16, 56, 112)]
     timed = {}
     worst = 0.0
     with torch.inference_mode():
@@ -2095,6 +2133,234 @@ def phase_srresnet(config, rng, tracking_root: Path, smi: str):
          served=served)
 
 
+# Every training variant at once: all of them in variants_parity, the
+# flags of `cli train` in the variants phase's first run.
+VARIANT_HP = dict(freq_sep=True, augment_flips=True, divergence_lambda=1.0, vorticity_lambda=1.0,
+                  eof_lambda=1.0, grad_accum=2, lr_schedule="cosine", lr_warmup_steps=1,
+                  lr_decay_steps=10)
+VARIANT_FLAGS = ["--freq-sep", "--critic-conditional", "--augment-flips", "--eof-lambda", "1",
+                 "--grad-accum", "2", "--lr-schedule", "cosine", "--lr-warmup-steps", "2",
+                 "--lr-decay-steps", "10"]
+PHYSICS_METRICS = ("MAE", "MSE", "MSSSIM", "Divergence", "Vorticity", "RALSD", "Wass")
+
+
+def phase_variants_parity(config):
+    """Three florida steps (full width, batch 4) with every training variant
+    on (frequency separation, the conditional critic, flips, the divergence,
+    vorticity and EOF terms at weight 1, grad_accum 2, a cosine schedule
+    with one warmup update) on the card and on the CPU from the same
+    weights, data, EOF basis, alphas and flip masks (drawn on the host: a
+    card generator draws other numbers than a CPU one), held to
+    train_parity's tolerances; 48 DRB launches in every generator forward,
+    microbatch forwards included."""
+    from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.training.state import make_train_state
+    from downgan_tpu_torch.training.trainer import training_eof_components
+    from downgan_tpu_torch.training.wgan import build_train_step
+
+    n_steps = 3
+    cfg = config.replace(critic_conditional=True, hp=dataclasses.replace(
+        config.hp, batch_size=B_PARITY, metrics_to_calculate=PHYSICS_METRICS, **VARIANT_HP))
+    cpu_ds = DeviceDataset.from_numpy(*synthetic_dataset(n_samples=B_PARITY * n_steps, seed=16),
+                                      "cpu")
+    t0 = time.perf_counter()
+    comps = training_eof_components(
+        DeviceDataset.from_numpy(*synthetic_dataset(n_samples=96, seed=17), "cpu"), cfg.hp.ncomp)
+    eof_fit_s = time.perf_counter() - t0
+    host = torch.Generator().manual_seed(18)
+    alphas = torch.rand(n_steps, B_PARITY, 1, 1, 1, generator=host)
+    flips = torch.rand(n_steps, 2, B_PARITY, generator=host) < 0.5
+    states = {dev: make_train_state(cfg, dev) for dev in ("cuda", "cpu")}
+    n_critic = sum(p.numel() for p in states["cuda"].critic.parameters())
+    check(n_critic == 1_113_321, f"the conditional florida critic has {n_critic} params")
+    steps = {dev: build_train_step(cfg, st.generator, st.critic, eof_components=comps)
+             for dev, st in states.items()}
+    metrics, per_step = {"cuda": [], "cpu": []}, []
+    for i in range(n_steps):
+        rows = torch.arange(B_PARITY * i, B_PARITY * (i + 1))
+        for dev in ("cuda", "cpu"):
+            coarse, fine = (t.to(dev) for t in cpu_ds.gather(rows))
+            with launches_per_generator_forward() as per_forward:
+                m = steps[dev](states[dev], coarse, fine, alphas[i].to(dev),
+                               flips=tuple(flips[i].to(dev)))
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+            if dev == "cuda":
+                per_step.append(list(per_forward))
+    want = [[48] * 4, [48] * 2, [48] * 2]  # critic fake, 2 microbatches at step 0, metric fake
+    check(per_step == want, f"DRB launches per generator forward by step {per_step}, not {want}")
+    metric_err = 0.0
+    for i, (mc, mp) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
+        check(set(mp) == {"critic_loss", "gen_loss", *PHYSICS_METRICS}, f"metrics {sorted(mp)}")
+        for k in mp:
+            err = abs(mc[k] - mp[k])
+            metric_err = max(metric_err, err / (STEP_ATOL + STEP_RTOL * abs(mp[k])))
+            check(err <= STEP_ATOL + STEP_RTOL * abs(mp[k]),
+                  f"variants step {i} {k}: card {mc[k]} vs CPU {mp[k]}")
+    # The generator's one update (step 0) ran at lr 0 (count 0 of the
+    # warmup): its weights stay put on both sides, and its gradient is read
+    # from Adam's first moment, (1 - beta1) * g, over the whole vector.
+    moments = [torch.cat([st.g_opt.state[p]["exp_avg"].cpu().reshape(-1)
+                          for p in st.generator.parameters()]) for st in states.values()]
+    g_grad_l2 = ((moments[0] - moments[1]).norm() / moments[1].norm()).item()
+    check(g_grad_l2 <= GRAD_TENSOR_TOL, f"generator gradient, card vs CPU: relative L2 {g_grad_l2}")
+    param_err = {}
+    for net, updates in (("generator", 0), ("critic", n_steps)):
+        card, cpu = (getattr(states[d], net).state_dict() for d in ("cuda", "cpu"))
+        diff = torch.cat([(card[k].cpu() - cpu[k]).abs().reshape(-1) for k in cpu])
+        atol = ADAM_ATOL_PER_UPDATE * updates
+        param_err[net] = {"max": diff.max().item(), "median": diff.median().item(), "atol": atol}
+        check(param_err[net]["max"] <= atol and param_err[net]["median"] <= ADAM_MEDIAN_ATOL,
+              f"{net} parameters after {n_steps} variant steps, card vs CPU: {param_err[net]}")
+    lrs = [st.c_opt.param_groups[0]["lr"] for st in states.values()]
+    check(lrs[0] == lrs[1] and lrs[0] < cfg.hp.lr, f"critic learning rates {lrs}")
+    emit("variants_parity", batch=B_PARITY, steps=n_steps, variants=VARIANT_HP,
+         critic_conditional=True, critic_params=n_critic, eof_components=list(comps.shape),
+         eof_fit_s_96_fields=eof_fit_s, drb_launches_per_forward_by_step=per_step,
+         metrics_card=metrics["cuda"], worst_metric_err_over_tolerance=metric_err,
+         metric_rtol=STEP_RTOL, metric_atol=STEP_ATOL,
+         generator_grad_rel_l2_from_adam_moment=g_grad_l2, param_err=param_err,
+         adam_median_atol=ADAM_MEDIAN_ATOL, critic_lr_after=lrs[0])
+
+
+def run_train_cli(argv, want_forwards):
+    """``cli train argv`` in-process, with the DRB launches of each generator
+    forward counted (every count set to 0 just before): finite epoch means,
+    the generator forwards by kind, 48 launches in each; returns the trainer
+    and what the run measured."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    with launches_per_generator_forward() as per_forward:
+        reset_launch_counts()  # the path's run starts here
+        t0 = time.perf_counter()
+        trainer = cli_main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    forwards = dict(trainer.forwards)
+    for r in trainer.history:
+        values = [*r["train"].values(), *r["test"].values()]
+        check(all(np.isfinite(v) for v in values), f"non-finite epoch means {r}")
+    check(forwards == want_forwards, f"generator forwards {forwards}, not {want_forwards}")
+    check(len(per_forward) == sum(forwards.values()) and set(per_forward) == {48},
+          f"DRB launches per generator forward {sorted(set(per_forward))} over "
+          f"{len(per_forward)} forwards")
+    return trainer, {"epochs": trainer.history, "generator_forwards": forwards,
+                     "drb_launches": launches[0], "drb_launches_bf16": launches[1],
+                     "drb_launches_per_forward": 48, "wall_s_including_data": wall_s,
+                     "peak_memory_bytes": peak_bytes,
+                     "peak_memory_above_start_bytes": peak_bytes - start_bytes}
+
+
+def critic_update_peaks(trainer):
+    """Peak memory above the starting allocation of a lone critic update at
+    B=128 (the GP's double backward) with grad_accum 1 and 2, in turns,
+    with CUDA-event times."""
+    from downgan_tpu_torch.training.wgan import critic_inputs, critic_update, make_condition
+
+    state, ds = trainer.state, trainer.train_ds
+    coarse, fine = ds.gather(torch.arange(B_TRAIN, device="cuda"))
+    alpha = torch.rand(B_TRAIN, 1, 1, 1, device="cuda")
+    with torch.no_grad():
+        fake = state.generator(coarse)
+    fake_c, real_c = critic_inputs(trainer.config, make_condition(trainer.config), fake, fine,
+                                   coarse)
+    c_params = list(state.critic.parameters())
+    peaks, ms = {1: [], 2: []}, {1: [], 2: []}
+    for k in (1, 2, 2, 1):
+        cfg = trainer.config.replace(hp=dataclasses.replace(trainer.config.hp, grad_accum=k))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        critic_update(cfg, state, state.critic, c_params, fake_c, real_c, alpha)
+        end.record()
+        torch.cuda.synchronize()
+        peaks[k].append(torch.cuda.max_memory_allocated() - base)
+        ms[k].append(start.elapsed_time(end))
+    return {"peak_above_start_bytes": {f"grad_accum_{k}": v for k, v in peaks.items()},
+            "ms": {f"grad_accum_{k}": v for k, v in ms.items()},
+            "ratio_2_over_1": max(peaks[2]) / min(peaks[1])}
+
+
+def phase_variants(tracking_root: Path, training_summary: dict):
+    """The training variants through ``cli train`` on florida (fp32, the
+    reference schedule, batch 128, 1,440 synthetic samples, one epoch):
+    run A with every variant's flag (the EOF basis fit at staging), run B
+    from a config file with the divergence and vorticity terms at weight 1
+    and the RALSD, Divergence and Vorticity metrics; each with its epoch
+    means, launches by kind, a timed 5-step round and peak memory; then a
+    lone critic update's peak memory with grad_accum 1 and 2."""
+    florida = ROOT / "examples" / "florida.json"
+    common = ["--synthetic", "--samples", "1440", "--epochs", "1",
+              "--tracking-root", str(tracking_root)]
+    report, launches = {}, 0
+    # 10 steps: critic fakes 10, updates at steps 0 and 5 of 2 microbatches
+    # each, metric fakes 10, 2 test batches (128 and a tail of 16)
+    trainer, run = run_train_cli(["train", "--config", str(florida), *common, *VARIANT_FLAGS],
+                                 {"critic_fake": 10, "update": 4, "metric": 10, "test": 2})
+    hp = trainer.config.hp
+    check(trainer.config.critic_conditional and hp.freq_sep and hp.augment_flips
+          and hp.grad_accum == 2 and hp.lr_schedule == "cosine" and hp.eof_lambda == 1.0,
+          "run A is not the variants' configuration")
+    check(trainer.eof_components.shape == (hp.ncomp, 2, 128 * 128),
+          f"EOF basis {trainer.eof_components.shape}")
+    update_ms, critic_ms = time_round(trainer)
+    run.update(eof_fit_s=trainer.eof_fit_seconds, update_step_ms_samples=update_ms,
+               critic_only_step_ms_samples=critic_ms, critic_update_alone=critic_update_peaks(trainer))
+    check(run["critic_update_alone"]["ratio_2_over_1"] < 1.0,
+          f"grad_accum 2 does not lower a critic update's peak: {run['critic_update_alone']}")
+    report["flags"], launches = run, launches + run["drb_launches"]
+    del trainer
+
+    from downgan_tpu_torch.config.config import Config
+
+    cfg = Config.from_json(florida.read_text())
+    cfg = cfg.replace(hp=dataclasses.replace(cfg.hp, divergence_lambda=1.0, vorticity_lambda=1.0,
+                                             metrics_to_calculate=PHYSICS_METRICS))
+    physics = tracking_root / "florida_physics.json"
+    physics.write_text(cfg.to_json())
+    trainer, run = run_train_cli(["train", "--config", str(physics), *common],
+                                 {"critic_fake": 10, "update": 2, "metric": 10, "test": 2})
+    for r in trainer.history:
+        check({"Divergence", "Vorticity", "RALSD"} <= set(r["train"]) & set(r["test"]),
+              f"physics metrics missing from {r}")
+    update_ms, critic_ms = time_round(trainer)
+    run.update(update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms)
+    report["physics_config"], launches = run, launches + run["drb_launches"]
+    emit("variants", batch=B_TRAIN, runs=report, drb_launches=launches,
+         training_phase_for_comparison=training_summary)
+    return launches
+
+
+def phase_variants_tuned(tracking_root: Path):
+    """``cli train --config examples/production_tuned.json --synthetic
+    --samples 1440 --epochs 1 --augment-flips --critic-conditional
+    --grad-accum 2``: bf16, fused rounds, every generator forward on the
+    bf16 kernel; finite means, launches by kind, timed rounds, peak memory."""
+    trainer, run = run_train_cli(
+        ["train", "--config", str(ROOT / "examples" / "production_tuned.json"), "--synthetic",
+         "--samples", "1440", "--epochs", "1", "--augment-flips", "--critic-conditional",
+         "--grad-accum", "2", "--tracking-root", str(tracking_root)],
+        # 2 rounds: 10 critic fakes, 2 updates of 2 microbatches, the
+        # metric pass on the reused fake, 2 test batches
+        {"critic_fake": 10, "update": 4, "metric": 0, "test": 2})
+    hp = trainer.config.hp
+    check((hp.compute_dtype, hp.schedule, hp.grad_accum, hp.augment_flips)
+          == ("bfloat16", "fused", 2, True) and trainer.config.critic_conditional,
+          "not the tuned configuration with the variants")
+    check(run["drb_launches"] == run["drb_launches_bf16"] == 768,
+          f"{run['drb_launches']} (all), {run['drb_launches_bf16']} (bf16) DRB launches, not 768")
+    run["round_ms_samples"] = time_fused_rounds(trainer, 3)
+    emit("variants_tuned", batch=B_TRAIN, **run)
+    return run["drb_launches_bf16"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2119,6 +2385,7 @@ def main() -> int:
     bf16_backward_ms = phase_drb_grad_bf16(rng, bf16_b128)
     phase_train_parity(config)
     phase_fused_parity()
+    phase_variants_parity(config)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tracking_root:
         training_launches, training_summary = phase_training(Path(tracking_root))
         check(training_launches > 0, "the training path launched no DRB kernel")
@@ -2143,6 +2410,11 @@ def main() -> int:
         phase_srresnet(config, rng, Path(tracking_root), smi)
     check(stochastic_launches > 0 and ensemble_launches > 0 and serving_stochastic_launches > 0,
           "a stochastic path launched no DRB kernel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tracking_root:
+        variants_launches = phase_variants(Path(tracking_root), training_summary)
+        variants_tuned_launches = phase_variants_tuned(Path(tracking_root))
+    check(variants_launches > 0 and variants_tuned_launches > 0,
+          "a training-variant path launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
               "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
@@ -2151,12 +2423,13 @@ def main() -> int:
         "name": "drb_forward", "dtype": "float32", **common,
         "launches": (serving_launches + training_launches + resume_launches + bundle_launches
                      + host_feed_launches + stream_launches + stochastic_launches
-                     + ensemble_launches + serving_stochastic_launches),
+                     + ensemble_launches + serving_stochastic_launches + variants_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches,
                              "host_feed": host_feed_launches, "stream": stream_launches,
                              "stochastic": stochastic_launches, "ensemble": ensemble_launches,
-                             "serving_stochastic": serving_stochastic_launches},
+                             "serving_stochastic": serving_stochastic_launches,
+                             "variants": variants_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -2166,9 +2439,10 @@ def main() -> int:
         "ms_b128": timing_b128["ms"], "bound_ms_b128": timing_b128["bound_ms"],
         "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms}, {
         "name": "drb_forward_bf16", "dtype": "bfloat16", **common,
-        "launches": tuned_launches + bf16_serving_launches,
+        "launches": tuned_launches + bf16_serving_launches + variants_tuned_launches,
         "launches_by_path": {"training_tuned": tuned_launches,
-                             "serving_bf16": bf16_serving_launches},
+                             "serving_bf16": bf16_serving_launches,
+                             "variants_tuned": variants_tuned_launches},
         "max_abs_err": bf16_err,
         "max_abs_err_is": "kernel vs its bf16 twin, largest over the kernel_bf16 shapes",
         "ms": bf16_timing["ms"], "plain_ms": bf16_timing["plain_ms"],

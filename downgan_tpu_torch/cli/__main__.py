@@ -11,6 +11,9 @@ the port has ``train``, ``serve``, ``export``, ``prepare-data`` and
     python -m downgan_tpu_torch.cli train ... --resume      # after a SIGTERM
     python -m downgan_tpu_torch.cli train ... --noise-channels 4       # stochastic
     python -m downgan_tpu_torch.cli train ... --generator-arch srresnet
+    python -m downgan_tpu_torch.cli train ... --freq-sep --critic-conditional \
+        --augment-flips --eof-lambda 1 --grad-accum 2 \
+        --lr-schedule cosine --lr-warmup-steps 2 --lr-decay-steps 10
     python -m downgan_tpu_torch.cli serve --checkpoint <run artifacts>/best
     python -m downgan_tpu_torch.cli export --run <run id> --ema --out bundle/
     python -m downgan_tpu_torch.cli serve --weights generator.pt
@@ -178,18 +181,24 @@ def _datasets(args: argparse.Namespace, parser: argparse.ArgumentParser, config,
 
 def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
     """Train as one tracked run; returns the :class:`Trainer`."""
-    from downgan_tpu_torch.inference import is_bundle, load_bundle
+    from downgan_tpu_torch.inference import CRITIC_FILE, is_bundle, load_bundle
     from downgan_tpu_torch.tracking import TrackingStore, define_experiment, log_hyperparams
     from downgan_tpu_torch.training.state import resolve_device
     from downgan_tpu_torch.training.trainer import Trainer
     from downgan_tpu_torch.utils.checkpoint import CheckpointManager
 
     config = _load_config(args.config)
-    overrides = {k: v for k, v in (("batch_size", args.batch_size), ("epochs", args.epochs),
-                                   ("compute_dtype", args.compute_dtype),
-                                   ("schedule", args.schedule)) if v is not None}
-    config = config.replace(hp=dataclasses.replace(config.hp, **overrides),
-                            seed=config.seed if args.seed is None else args.seed)
+    overrides = {k: getattr(args, k) for k in (
+        "batch_size", "epochs", "compute_dtype", "schedule", "lr_schedule", "lr_warmup_steps",
+        "lr_decay_steps", "lr_final_factor", "augment_flips", "grad_accum", "eof_lambda",
+        "freq_sep") if getattr(args, k) is not None}
+    try:
+        config = config.replace(hp=dataclasses.replace(config.hp, **overrides),
+                                seed=config.seed if args.seed is None else args.seed)
+    except ValueError as e:  # HyperParams' own validation of the overrides
+        parser.error(str(e))
+    if args.critic_conditional is not None:
+        config = config.replace(critic_conditional=args.critic_conditional)
     if args.generator_arch is not None:
         config = config.replace(generator_arch=args.generator_arch)
     if args.noise_channels is not None:
@@ -226,6 +235,12 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
         config = config.replace(**{k: getattr(bundle_config, k) for k in (
             "filters", "num_res_blocks", "n_covariates", "n_predictands", "coarse_size",
             "fine_size", "generator_arch", "noise_channels")})
+        has_critic = os.path.exists(os.path.join(args.warm_start, CRITIC_FILE))
+        if has_critic and config.critic_conditional != bundle_config.critic_conditional:
+            parser.error("the bundle's critic was trained with critic_conditional="
+                         f"{bundle_config.critic_conditional}; pass a matching "
+                         "--critic-conditional (or drop the bundle's critic.pt to warm-start "
+                         "the generator only)")
     device = resolve_device(args.device)
     _fp32_without_tf32()
     train_ds, test_ds = _datasets(args, parser, config, device)
@@ -430,6 +445,33 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Latent channels appended to the generator input (> 0: a "
                        "stochastic generator for probabilistic downscaling; 0: the "
                        "deterministic model); overrides the config's.")
+    train.add_argument("--lr-schedule", choices=("constant", "cosine", "linear"), default=None,
+                       help="LR decay shape (default constant = reference parity). Steps count "
+                       "each network's own optimizer updates.")
+    train.add_argument("--lr-warmup-steps", type=int, default=None,
+                       help="Linear warmup from 0 over this many updates.")
+    train.add_argument("--lr-decay-steps", type=int, default=None,
+                       help="Total updates over which cosine/linear decay runs.")
+    train.add_argument("--lr-final-factor", type=float, default=None,
+                       help="End LR as a fraction of the config's lr (default 0).")
+    train.add_argument("--augment-flips", action=argparse.BooleanOptionalAction, default=None,
+                       help="Physics-aware augmentation: random per-sample lon/lat mirror "
+                       "flips of the (coarse, fine) pair, negating the u/v wind component "
+                       "the mirror reverses (training only).")
+    train.add_argument("--grad-accum", type=int, default=None,
+                       help="Split each update's batch into this many microbatches and "
+                       "accumulate their gradients (one optimizer update; the peak "
+                       "activation memory of a microbatch).")
+    train.add_argument("--eof-lambda", type=float, default=None,
+                       help="EOF-projection regularization weight on the generator objective "
+                       "(hp.ncomp EOFs fit from the training fine fields).")
+    train.add_argument("--critic-conditional", action=argparse.BooleanOptionalAction,
+                       default=None,
+                       help="Condition the critic on the covariates: every critic input is the "
+                       "fine field with the nearest-upsampled coarse stack appended.")
+    train.add_argument("--freq-sep", action=argparse.BooleanOptionalAction, default=None,
+                       help="Frequency-separation training: the critic scores high-pass "
+                       "residuals and the content loss compares the low-pass bands.")
     train.add_argument("--device", default="cuda", help="Torch device (default cuda).")
     train.add_argument("--experiment", default="downgan-tpu", help="Experiment name.")
     train.add_argument("--run-name", default=None)

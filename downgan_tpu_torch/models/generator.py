@@ -72,8 +72,13 @@ class DenseResidualBlock(nn.Module):
         # single-tensor and foreach Adam bump the version; its fused Adam
         # does not, and training.state.make_optimizer takes foreach), or
         # when the block runs in another dtype (an fp32 and a bf16 pack of
-        # the same parameters differ).
-        key = (dtype, *((t.device, t.data_ptr(), t._version) for t in (*weights, *biases)))
+        # the same parameters differ). Inference tensors (parameters made
+        # inside torch.inference_mode()) keep no version counter: they are
+        # packed on every forward and never cached.
+        params = (*weights, *biases)
+        if any(t.is_inference() for t in params):
+            return pack_drb_weights(weights, biases, dtype)
+        key = (dtype, *((t.device, t.data_ptr(), t._version) for t in params))
         if key != self._packed_key:
             self._packed = pack_drb_weights(weights, biases, dtype)
             self._packed_key = key

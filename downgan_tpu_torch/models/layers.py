@@ -104,3 +104,12 @@ def init_torch_default_(module: nn.Module, rng: torch.Generator) -> None:
                 if p is not None:
                     draw = torch.empty(p.shape).uniform_(-bound, bound, generator=rng)
                     p.copy_(draw)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest-neighbour upsample of an NCHW batch by an integer factor:
+    (B, C, H, W) -> (B, C, H*f, W*f), a broadcast and a reshape. It lifts
+    the coarse covariates onto the fine grid for the conditional critic."""
+    b, c, h, w = x.shape
+    f = factor
+    return x[:, :, :, None, :, None].expand(b, c, h, f, w, f).reshape(b, c, h * f, w * f)

@@ -10,8 +10,14 @@ from typing import Callable, Dict, Iterable
 
 import torch
 
-from downgan_tpu_torch.ops.losses import content_loss, content_mse_loss
+from downgan_tpu_torch.ops.losses import (
+    content_loss,
+    content_mse_loss,
+    divergence_loss,
+    vorticity_loss,
+)
 from downgan_tpu_torch.ops.msssim import msssim_metric
+from downgan_tpu_torch.ops.spectral import ralsd
 
 FieldMetric = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -19,17 +25,14 @@ METRIC_REGISTRY: Dict[str, FieldMetric] = {
     "MAE": content_loss,
     "MSE": content_mse_loss,
     "MSSSIM": msssim_metric,
+    "Divergence": divergence_loss,
+    "Vorticity": vorticity_loss,
+    "RALSD": lambda real, fake: ralsd(fake, real),
 }
-# In the JAX package's registry, not yet in the port's.
-NOT_PORTED = ("Divergence", "Vorticity", "RALSD")
 
 
 def resolve_metrics(names: Iterable[str]) -> Dict[str, FieldMetric]:
     names = list(names)
-    later = [n for n in names if n in NOT_PORTED]
-    if later:
-        raise ValueError(f"metrics {later} are not ported yet: they come with a later "
-                         "slice of the port")
     unknown = [n for n in names if n != "Wass" and n not in METRIC_REGISTRY]
     if unknown:
         raise KeyError(f"unknown metrics {unknown}; registry has {sorted(METRIC_REGISTRY)}")

@@ -8,8 +8,9 @@ counter and the EMA generator, updated in place by the step
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 from torch import nn
@@ -70,45 +71,15 @@ def load_generator(config: Config, weights: Mapping[str, torch.Tensor],
     return gen
 
 
-def check_training_ported(config: Config) -> None:
-    """Raise for every training option the port has not ported yet. What
-    it runs: either generator family, deterministic or stochastic
-    (``noise_channels``), on the reference and the fused schedule
-    (``hp.schedule``) with constant-LR Adam, fp32 or bf16 compute
-    (``hp.compute_dtype``), the critic on the fine field alone, the MAE/MSE/MSSSIM/Wass metric pass
-    (on a fresh fake, or the critic update's under
-    ``hp.metrics_reuse_fake``), the critic's two forwards as one
-    (``hp.fused_critic_pass``) and the generator EMA (``hp.ema_decay``).
-
-    ``hp.fused_epoch`` and ``hp.remat`` only shape the JAX package's XLA
-    program (one ``lax.scan`` per epoch; activation rematerialization) and
-    leave the math alone, so they are accepted and ignored; the port's
-    DRB backward recomputes its block from the input in any case."""
-    hp = config.hp
-    unported = {
-        "lr_schedule != 'constant'": hp.lr_schedule != "constant",
-        "lr_warmup_steps": bool(hp.lr_warmup_steps),
-        "grad_accum > 1": hp.grad_accum > 1,
-        "freq_sep": hp.freq_sep,
-        "critic_conditional": config.critic_conditional,
-        "divergence_lambda": bool(hp.divergence_lambda),
-        "vorticity_lambda": bool(hp.vorticity_lambda),
-        "eof_lambda": bool(hp.eof_lambda),
-        "augment_flips": hp.augment_flips,
-    }
-    for name, on in unported.items():
-        if on:
-            raise ValueError(f"{name} is not ported yet: it comes with a later slice of "
-                             "the port's training")
-
-
 def make_critic(config: Config, device: str | torch.device = "cuda",
                 rng: Optional[torch.Generator] = None) -> Critic:
     """The critic for ``config`` on ``device``, computing in
     ``config.hp.compute_dtype``, its weights drawn from
     ``rng`` (default: a generator seeded with ``config.seed`` plus
-    :data:`CRITIC_SEED_OFFSET`) by torch's default-init distribution."""
-    check_training_ported(config)
+    :data:`CRITIC_SEED_OFFSET`) by torch's default-init distribution. A
+    conditional critic (``config.critic_conditional``) takes
+    ``config.critic_in_channels`` inputs: the fine field and the
+    upsampled covariates."""
     dev = resolve_device(device)
     critic = Critic(base=config.filters, fine_size=config.fine_size,
                     in_channels=config.critic_in_channels,
@@ -119,22 +90,75 @@ def make_critic(config: Config, device: str | torch.device = "cuda",
     return critic.to(dev)
 
 
+def lr_schedule_fn(hp) -> Callable[[int], float]:
+    """The learning rate as a function of a network's optimizer-update
+    count, from the ``hp`` knobs (the JAX package's ``lr_schedule_fn``,
+    ``state.py:68-92``, in float64 without optax): constant (the
+    reference's), constant after ``lr_warmup_steps`` of linear warmup from
+    0, or a cosine or linear decay from ``lr`` to ``lr * lr_final_factor``.
+    The cosine's ``lr_decay_steps`` counts the warmup too (optax's
+    ``warmup_cosine_decay_schedule``); the linear decay runs over
+    ``lr_decay_steps - lr_warmup_steps`` updates after the warmup. Both
+    hold the end value past the decay."""
+    lr, warmup, decay_steps = hp.lr, hp.lr_warmup_steps, hp.lr_decay_steps
+    end = lr * hp.lr_final_factor
+
+    def after_warmup(t: int) -> float:  # t counts updates since the warmup
+        if hp.lr_schedule == "constant":
+            return lr
+        span = decay_steps - warmup
+        frac = min(t, span) / span
+        if hp.lr_schedule == "cosine":
+            alpha = 0.0 if lr == 0.0 else end / lr
+            return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+        return (lr - end) * (1.0 - frac) + end
+
+    def schedule(count: int) -> float:
+        return lr * count / warmup if count < warmup else after_warmup(count - warmup)
+
+    return schedule
+
+
+class ScheduledAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` whose learning rate follows ``schedule`` of the
+    update count. The count is read from the Adam state's ``step`` (a CPU
+    tensor under foreach Adam, so no sync) before the update increments it,
+    as optax evaluates its schedule at the count before the update: a
+    network's first update runs at ``schedule(0)``, which is 0 under a
+    warmup. Each network counts its own updates, and a checkpoint's Adam
+    state carries the count, so a resume continues the schedule exactly."""
+
+    def __init__(self, params, schedule: Callable[[int], float], **kwargs):
+        super().__init__(params, lr=schedule(0), **kwargs)
+        self.schedule = schedule
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            count = next((int(self.state[p]["step"]) for p in group["params"]
+                          if "step" in self.state.get(p, {})), 0)
+            group["lr"] = self.schedule(count)
+        return super().step(closure)
+
+
 def make_optimizer(config: Config, module: torch.nn.Module) -> torch.optim.Adam:
     """Adam(lr, betas=(beta1, beta2), eps=1e-8) over ``module``'s
     parameters, as the JAX package's ``optax.adam`` (reference
     ``stage.py:63-64``). The two updates are the same algebra:
     ``lr * m / (1 - b1^t) / (sqrt(v) / sqrt(1 - b2^t) + eps)`` in torch is
-    ``lr * m_hat / (sqrt(v_hat) + eps)`` in optax.
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` in optax. Under an LR schedule
+    (``hp.lr_schedule``, ``hp.lr_warmup_steps``) it is a
+    :class:`ScheduledAdam` over :func:`lr_schedule_fn`.
 
     The foreach implementation, on every device: one launch per update
     over all tensors. Never the fused one: it writes the parameters without
     bumping their version counters, which the generator's DRB blocks read
     to know when to repack their weights for the kernel. (Pinning only
     ``fused=False`` would fall back to the single-tensor loop.)"""
-    check_training_ported(config)
     hp = config.hp
-    return torch.optim.Adam(module.parameters(), lr=hp.lr, betas=(hp.beta1, hp.beta2), eps=1e-8,
-                            foreach=True, fused=False)
+    kw = dict(betas=(hp.beta1, hp.beta2), eps=1e-8, foreach=True, fused=False)
+    if hp.lr_schedule == "constant" and not hp.lr_warmup_steps:
+        return torch.optim.Adam(module.parameters(), lr=hp.lr, **kw)
+    return ScheduledAdam(module.parameters(), lr_schedule_fn(hp), **kw)
 
 
 def make_ema_generator(config: Config, gen: nn.Module) -> nn.Module:

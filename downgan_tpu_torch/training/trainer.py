@@ -29,6 +29,11 @@ host-fed or streamed, EMA scoring included, scores the one fixed
 realization (``wgan.py::fixed_latent`` through ``build_eval_metrics``). So
 a checkpoint holds no latent state, and a resume draws the latents the
 uninterrupted run would have.
+
+Under ``hp.eof_lambda > 0`` the trainer fits the EOF basis of the
+generator's EOF term from the training fine fields when it is built
+(:func:`training_eof_components`, ``trainer.py:245-254`` of the JAX
+package), on every residency tier, unless one is given.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import torch
 
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.data.dataset import DeviceDataset
+from downgan_tpu_torch.data.eof import fit_eofs_per_channel
 from downgan_tpu_torch.data.feed import FeedStats, HostDataset, prefetch_batches
 from downgan_tpu_torch.inference import write_generator_bundle
 from downgan_tpu_torch.training.state import make_train_state
@@ -98,6 +104,18 @@ def full_split_metric_pass(ds: DeviceDataset | HostDataset, batch_size: int,
     return _to_host_means(sums, len(starts))
 
 
+def training_eof_components(train: DeviceDataset | HostDataset, n_components: int) -> np.ndarray:
+    """The (n_components, C, H*W) per-channel EOF stack of ``train``'s fine
+    fields, wherever they lie: a device set's NCHW tensor is brought to
+    the host and viewed NHWC (each channel flattens over (H, W) row-major in
+    both layouts), a host or streamed set's NHWC rows are read whole."""
+    if isinstance(train, DeviceDataset):
+        fine = train.fine.cpu().numpy().transpose(0, 2, 3, 1)
+    else:
+        fine = np.asarray(train.fine)
+    return fit_eofs_per_channel(fine, n_components)
+
+
 class Trainer:
     """WGAN-GP trainer over train and test sets on the device
     (``DeviceDataset``) or, on the reference schedule, in host RAM or on
@@ -123,14 +141,18 @@ class Trainer:
     it (``best_mode`` "max" or "min", default "max" for MS-SSIM), the
     serving weights (the EMA generator when ``hp.ema_decay > 0``, which is
     then also what is scored) are written as a bundle to ``best_dir``
-    (default ``<run artifacts>/best``) beside a ``best.json``."""
+    (default ``<run artifacts>/best``) beside a ``best.json``.
+
+    ``eof_components`` is the EOF basis of the ``hp.eof_lambda`` term;
+    without one the trainer fits it from ``train``
+    (``eof_fit_seconds`` then says how long that took)."""
 
     def __init__(self, config: Config, train: DeviceDataset,
                  test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda",
                  run=None, checkpoint_manager=None, save_every: Optional[int] = None,
                  print_every: Optional[int] = None, halt_on_nonfinite: bool = True,
                  track_best: Optional[str] = None, best_mode: Optional[str] = None,
-                 best_dir: Optional[str] = None):
+                 best_dir: Optional[str] = None, eof_components=None):
         self.config = config
         self.state = make_train_state(config, device)
         self.device = next(self.state.generator.parameters()).device
@@ -188,10 +210,21 @@ class Trainer:
                                  "artifact dir provides the default <artifacts>/best)")
         self.best_mode, self.best_dir = best_mode, best_dir
 
+        self.eof_fit_seconds: Optional[float] = None
+        if config.hp.eof_lambda and eof_components is None:
+            t0 = time.perf_counter()
+            eof_components = training_eof_components(train, config.hp.ncomp)
+            self.eof_fit_seconds = time.perf_counter() - t0
+            print(f"EOF basis: {eof_components.shape[0]} components per channel fit from "
+                  f"{len(train)} training fields in {self.eof_fit_seconds:.2f} s",
+                  file=sys.stderr, flush=True)
+        self.eof_components = eof_components
+
         self.epoch = 0
         self.history: List[dict] = []
         build = build_fused_round if config.hp.schedule == "fused" else build_train_step
-        self.step_fn = build(config, self.state.generator, self.state.critic)
+        self.step_fn = build(config, self.state.generator, self.state.critic,
+                             eof_components=eof_components)
         self._eval = build_eval_metrics(config)
         self.forwards = self.step_fn.forwards
         self.forwards["test"] = 0

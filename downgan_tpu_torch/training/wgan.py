@@ -40,6 +40,27 @@ threefry draws; parity tests pass the JAX latents in (``latents=``). The
 test pass scores one fixed realization, :func:`fixed_latent` of
 ``config.seed``, drawn on the host, so the card and the CPU score the same
 latent. With ``noise_channels = 0`` no latent is drawn or appended.
+
+The training variants (``wgan.py:111-295`` of the JAX package):
+- ``critic_conditional``: every critic input is the fine field with the
+  nearest-upsampled covariates appended (:func:`make_condition`), in the
+  critic update, the generator loss and the metric pass's Wass;
+- ``freq_sep``: the critic update scores high-pass residuals and the
+  generator's content loss compares low-pass bands (:func:`split_bands`);
+- ``divergence_lambda``, ``vorticity_lambda``, ``eof_lambda``: physics
+  and EOF-projection terms of the generator loss; the EOF term needs the
+  basis fit from the training fine fields (``eof_components``);
+- ``grad_accum = k``: each update's batch runs as k equal microbatches,
+  each with its own GP, alpha slice and physics std; the gradients are
+  averaged (backward of loss / k, each microbatch's graph freed before the
+  next is built) and each optimizer steps once;
+- ``augment_flips``: the step mirrors each (coarse, fine) pair by the
+  masks :func:`flip_masks` of ``(config.seed, step)`` (or ``flips=``)
+  before anything else reads the batch.
+``hp.fused_epoch`` and ``hp.remat`` only shape the JAX package's XLA
+program (one ``lax.scan`` per epoch; activation rematerialization) and
+leave the math alone, so the port accepts and ignores them; its DRB
+backward recomputes its block from the input in any case.
 """
 from __future__ import annotations
 
@@ -50,9 +71,18 @@ import torch
 from torch import nn
 
 from downgan_tpu_torch.config.config import Config
-from downgan_tpu_torch.ops.losses import content_loss, wass_loss
+from downgan_tpu_torch.models.layers import upsample_nearest
+from downgan_tpu_torch.ops.augment import make_augment
+from downgan_tpu_torch.ops.losses import (
+    content_loss,
+    divergence_loss,
+    eof_loss,
+    low_pass,
+    vorticity_loss,
+    wass_loss,
+)
 from downgan_tpu_torch.ops.metrics import resolve_metrics
-from downgan_tpu_torch.training.state import GANTrainState, check_training_ported
+from downgan_tpu_torch.training.state import GANTrainState
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -68,6 +98,32 @@ def gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,
     (grads,) = torch.autograd.grad(critic(interp).sum(), interp, create_graph=True)
     norms = torch.sqrt(grads.flatten(1).square().sum(dim=1) + eps)
     return (norms - 1.0).square().mean()
+
+
+def make_condition(config: Config) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``condition(x, coarse) -> critic input``: ``x`` itself for the
+    reference's unconditional critic or, under ``critic_conditional``, ``x``
+    with the covariates ``coarse`` nearest-upsampled to the fine grid
+    appended as channels. Real and fake share the condition, so the GP's
+    interpolation keeps it fixed."""
+    if not config.critic_conditional:
+        return lambda x, coarse: x
+    factor = config.fine_size // config.coarse_size
+    if factor * config.coarse_size != config.fine_size:
+        raise ValueError("critic_conditional requires fine_size to be an integer multiple of "
+                         f"coarse_size (got {config.fine_size}/{config.coarse_size})")
+
+    def condition(x: torch.Tensor, coarse: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, upsample_nearest(coarse, factor).to(x.dtype)], dim=1)
+
+    return condition
+
+
+def split_bands(config: Config, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) bands of ``x`` for ``freq_sep``: the ``hp.filter_size``
+    low-pass and the residual."""
+    lo = low_pass(x, config.hp.filter_size)
+    return lo, x - lo
 
 
 def critic_pair_means(critic: nn.Module, a: torch.Tensor, b: torch.Tensor,
@@ -91,12 +147,47 @@ def critic_loss(config: Config, critic: nn.Module, fake: torch.Tensor, real: tor
 
 
 def generator_loss(config: Config, gen: nn.Module, critic: nn.Module, coarse: torch.Tensor,
-                   fine: torch.Tensor) -> torch.Tensor:
+                   fine: torch.Tensor, eof_components: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """-gamma * E[C(G(coarse))] + content_lambda * L1(G(coarse), fine);
-    ``coarse`` is the generator's whole input (latent included)."""
-    fake = gen(coarse)
+    ``coarse`` is the generator's whole input (latent included), and the
+    conditional critic sees its covariates only. Under ``freq_sep`` the
+    critic scores the fake's high band and the L1 compares the low bands.
+    Plus ``divergence_lambda``, ``vorticity_lambda`` and ``eof_lambda``
+    times their terms on the whole fake; ``eof_components`` is the basis
+    :func:`eof_basis` made."""
     hp = config.hp
-    return -critic(fake).mean() * hp.gamma + hp.content_lambda * content_loss(fake, fine)
+    condition = make_condition(config)
+    cov = coarse[:, :config.n_covariates]
+    fake = gen(coarse)
+    if hp.freq_sep:
+        fake_low, fake_high = split_bands(config, fake)
+        real_low, _ = split_bands(config, fine)
+        loss = (-critic(condition(fake_high, cov)).mean() * hp.gamma
+                + hp.content_lambda * content_loss(fake_low, real_low))
+    else:
+        loss = (-critic(condition(fake, cov)).mean() * hp.gamma
+                + hp.content_lambda * content_loss(fake, fine))
+    if hp.divergence_lambda:
+        loss = loss + hp.divergence_lambda * divergence_loss(fine, fake)
+    if hp.vorticity_lambda:
+        loss = loss + hp.vorticity_lambda * vorticity_loss(fine, fake)
+    if hp.eof_lambda:
+        loss = loss + hp.eof_lambda * eof_loss(eof_components, fine, fake)
+    return loss
+
+
+def eof_basis(config: Config, eof_components, device: torch.device) -> Optional[torch.Tensor]:
+    """The leading ``hp.ncomp`` components of ``eof_components`` ((>= ncomp,
+    C, H*W) or (>= ncomp, H*W), numpy or tensor) as fp32 on ``device`` when
+    ``hp.eof_lambda > 0``, else None; raises when the term is on and no
+    components are given."""
+    if not config.hp.eof_lambda:
+        return None
+    if eof_components is None:
+        raise ValueError("hp.eof_lambda > 0 requires eof_components (fit them from the "
+                         "training fine fields with data.eof.fit_eofs_per_channel)")
+    return torch.as_tensor(eof_components)[:config.hp.ncomp].to(device, torch.float32)
 
 
 def _device_rng(entropy: Tuple[int, ...], device: torch.device) -> torch.Generator:
@@ -112,6 +203,22 @@ def gp_alpha(seed: int, step: int, batch: int, device: torch.device) -> torch.Te
     one would have."""
     return torch.rand((batch, 1, 1, 1), generator=_device_rng((seed, step), device),
                       device=device)
+
+
+_FLIP_TAG = 3  # keeps the flip stream apart from gp_alpha's and the latents'
+
+
+def flip_masks(seed: int, step: int, batch: int,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``augment_flips``' per-sample (lon, lat) bool masks (batch,) at
+    ``step``, each true with probability 1/2: drawn on ``device`` from a
+    generator seeded from ``(seed, step, tag)``, a pure function of the
+    two, as :func:`gp_alpha`. So a resumed run flips what an uninterrupted
+    one would have, and nothing is copied from the host."""
+    draws = torch.rand((2, batch), generator=_device_rng((seed, step, _FLIP_TAG), device),
+                       device=device)
+    lon, lat = draws < 0.5
+    return lon, lat
 
 
 # The generator forwards of a step that draw a training latent, by stream
@@ -176,20 +283,24 @@ def g_updates_in_window(start_step: int, n_steps: int, critic_iterations: int) -
     return max(0, (last - first) // n + 1)
 
 
-def build_metric_pass(config: Config) -> Callable[[nn.Module, torch.Tensor, torch.Tensor],
-                                                   Metrics]:
-    """``score(critic, fake, fine)``: the metric registry on ``fake``
-    against ``fine``, and Wass from the critic (its two forwards fused
-    under ``hp.fused_critic_pass``); no update, no graph."""
+def build_metric_pass(config: Config) -> Callable[..., Metrics]:
+    """``score(critic, fake, fine, coarse)``: the metric registry on
+    ``fake`` against ``fine``, and Wass from the critic on the conditioned
+    pair (its two forwards fused under ``hp.fused_critic_pass``; ``coarse``,
+    the covariates, is read only by a conditional critic); no update, no
+    graph."""
     names = config.hp.metrics_to_calculate
     fns = resolve_metrics(names)
     fused = config.hp.fused_critic_pass
+    condition = make_condition(config)
 
     @torch.no_grad()
-    def score(critic: nn.Module, fake: torch.Tensor, fine: torch.Tensor) -> Metrics:
+    def score(critic: nn.Module, fake: torch.Tensor, fine: torch.Tensor,
+              coarse: torch.Tensor) -> Metrics:
         out = {name: fn(fine, fake) for name, fn in fns.items()}
         if "Wass" in names:
-            out["Wass"] = wass_loss(*critic_pair_means(critic, fine, fake, fused))
+            out["Wass"] = wass_loss(*critic_pair_means(critic, condition(fine, coarse),
+                                                       condition(fake, coarse), fused))
         return out
 
     return score
@@ -218,7 +329,7 @@ def build_eval_metrics(config: Config) -> Callable[..., Metrics]:
     def eval_metrics(gen: nn.Module, critic: nn.Module, coarse: torch.Tensor,
                      fine: torch.Tensor, latent: Optional[torch.Tensor] = None) -> Metrics:
         z = eval_latent(coarse) if latent is None else latent
-        return score(critic, gen(with_latent(coarse, z)), fine)
+        return score(critic, gen(with_latent(coarse, z)), fine, coarse)
 
     return eval_metrics
 
@@ -228,61 +339,107 @@ def _check_modules(state: GANTrainState, gen: nn.Module, critic: nn.Module) -> N
         raise ValueError("this step was built for other modules than the state's")
 
 
-def _critic_update(config: Config, state: GANTrainState, critic: nn.Module,
-                   c_params: Sequence[torch.Tensor], fake: torch.Tensor, fine: torch.Tensor,
-                   alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One critic update on ``fake`` (made without a graph) and ``fine``;
-    returns the detached (loss, E[C(real)], E[C(fake)])."""
+def _microbatches(k: int, *tensors: torch.Tensor):
+    """The ``k`` equal microbatches of each tensor's leading axis, zipped."""
+    b = tensors[0].shape[0]
+    if b % k:
+        raise ValueError(f"batch {b} does not divide into grad_accum={k} microbatches")
+    return zip(*(t.chunk(k) for t in tensors))
+
+
+def _accumulate(k: int, losses, params: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Backward of each microbatch's (loss, *aux) from the iterable
+    ``losses`` into ``params``' gradients, scaled by 1/k (none at k=1), each
+    graph freed before the next microbatch is built; returns the detached
+    means of (loss, *aux) over the microbatches."""
+    totals = None
+    for out in losses:
+        (out[0] / k if k > 1 else out[0]).backward(inputs=params)
+        out = [t.detach() for t in out]
+        totals = out if totals is None else [a + b for a, b in zip(totals, out)]
+    return tuple(t / k for t in totals) if k > 1 else tuple(totals)
+
+
+def critic_update(config: Config, state: GANTrainState, critic: nn.Module,
+                  c_params: Sequence[torch.Tensor], fake: torch.Tensor, real: torch.Tensor,
+                  alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One critic update on the critic inputs ``fake`` (made without a
+    graph) and ``real``, over ``hp.grad_accum`` microbatches; returns the
+    detached (loss, E[C(real)], E[C(fake)])."""
+    k = config.hp.grad_accum
     state.c_opt.zero_grad(set_to_none=True)
-    c_loss, c_real, c_fake = critic_loss(config, critic, fake, fine, alpha)
-    c_loss.backward(inputs=c_params)
+    out = _accumulate(k, (critic_loss(config, critic, f, r, a)
+                          for f, r, a in _microbatches(k, fake, real, alpha)), c_params)
     state.c_opt.step()
-    return c_loss.detach(), c_real.detach(), c_fake.detach()
+    return out
 
 
-def _generator_update(config: Config, state: GANTrainState, gen: nn.Module, critic: nn.Module,
-                      g_params: Sequence[torch.Tensor], coarse: torch.Tensor,
-                      fine: torch.Tensor) -> torch.Tensor:
-    """One generator update against the current critic, then the EMA
-    update; returns the detached loss."""
+def generator_update(config: Config, state: GANTrainState, gen: nn.Module, critic: nn.Module,
+                     g_params: Sequence[torch.Tensor], coarse: torch.Tensor,
+                     fine: torch.Tensor, eof: Optional[torch.Tensor]) -> torch.Tensor:
+    """One generator update against the current critic, over
+    ``hp.grad_accum`` microbatches, then the EMA update; returns the
+    detached loss."""
+    k = config.hp.grad_accum
     state.g_opt.zero_grad(set_to_none=True)
-    g_loss = generator_loss(config, gen, critic, coarse, fine)
-    g_loss.backward(inputs=g_params)
+    (g_loss,) = _accumulate(k, ((generator_loss(config, gen, critic, c, f, eof),)
+                                for c, f in _microbatches(k, coarse, fine)), g_params)
     state.g_opt.step()
     if state.g_ema is not None:
         ema_update(config.hp.ema_decay, state.g_ema, g_params)
-    return g_loss.detach()
+    return g_loss
 
 
-def build_train_step(config: Config, gen: nn.Module,
-                     critic: nn.Module) -> Callable[..., Metrics]:
+def critic_inputs(config: Config, condition, fake: torch.Tensor, fine: torch.Tensor,
+                  coarse: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The critic update's (fake, real) inputs: high bands under
+    ``freq_sep``, conditioned on ``coarse`` under ``critic_conditional``."""
+    if config.hp.freq_sep:
+        fake, fine = split_bands(config, fake)[1], split_bands(config, fine)[1]
+    return condition(fake, coarse), condition(fine, coarse)
+
+
+def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
+                     eof_components=None) -> Callable[..., Metrics]:
     """The reference-schedule train step over ``gen`` and ``critic``:
-    ``step(state, coarse, fine, alpha=None, latents=None) -> metrics``,
-    where ``state`` is the :class:`GANTrainState` holding these two
-    modules; it updates both networks and ``state.step`` in place.
+    ``step(state, coarse, fine, alpha=None, latents=None, flips=None) ->
+    metrics``, where ``state`` is the :class:`GANTrainState` holding these
+    two modules; it updates both networks and ``state.step`` in place.
+    ``eof_components`` is the EOF basis the ``eof_lambda`` term needs
+    (:func:`eof_basis`).
 
-    ``alpha`` (B, 1, 1, 1) is, when omitted, :func:`gp_alpha` of
-    ``(config.seed, state.step)``. A stochastic generator's three latents
-    are :func:`train_latent` of ``(config.seed, state.step, stream)``, or
-    ``latents[stream]`` (B, k, h, w) for each stream of
-    :data:`LATENT_STREAMS` the step runs. ``step.forwards`` counts
-    the generator forwards it runs, by kind: ``critic_fake``, ``update``
-    and ``metric``.
+    Under ``augment_flips`` the pair is first flipped by the masks
+    :func:`flip_masks` of ``(config.seed, state.step)``, or ``flips`` (lon,
+    lat), each (B,) bool. ``alpha`` (B, 1, 1, 1) is, when omitted,
+    :func:`gp_alpha` of ``(config.seed, state.step)``. A stochastic
+    generator's three latents are :func:`train_latent` of ``(config.seed,
+    state.step, stream)``, or ``latents[stream]`` (B, k, h, w) for each
+    stream of :data:`LATENT_STREAMS` the step runs. ``step.forwards``
+    counts the generator forwards it runs, by kind: ``critic_fake``,
+    ``update`` and ``metric`` (a generator update runs ``hp.grad_accum``
+    forwards, one a microbatch).
     """
-    check_training_ported(config)
     hp = config.hp
     score = build_metric_pass(config)
+    condition = make_condition(config)
+    augment = make_augment(config) if hp.augment_flips else None
     g_params = [p for p in gen.parameters()]
     c_params = [p for p in critic.parameters()]
+    eof = eof_basis(config, eof_components, g_params[0].device)
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
 
     def step(state: GANTrainState, coarse: torch.Tensor, fine: torch.Tensor,
              alpha: Optional[torch.Tensor] = None,
-             latents: Optional[Mapping[str, torch.Tensor]] = None) -> Metrics:
+             latents: Optional[Mapping[str, torch.Tensor]] = None,
+             flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Metrics:
         _check_modules(state, gen, critic)
-        if alpha is None:
-            alpha = gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
         at_step = state.step
+        if augment is not None:
+            coarse, fine = augment(coarse, fine, *(
+                flip_masks(config.seed, at_step, fine.shape[0], fine.device)
+                if flips is None else flips))
+        if alpha is None:
+            alpha = gp_alpha(config.seed, at_step, fine.shape[0], fine.device)
 
         def g_input(stream: str) -> torch.Tensor:
             z = train_latent(config, at_step, stream, coarse) if latents is None \
@@ -293,13 +450,15 @@ def build_train_step(config: Config, gen: nn.Module,
         with torch.no_grad():
             fake = gen(g_input("critic_fake"))
         forwards["critic_fake"] += 1
-        c_loss, c_real, c_fake = _critic_update(config, state, critic, c_params, fake, fine, alpha)
+        c_loss, c_real, c_fake = critic_update(
+            config, state, critic, c_params, *critic_inputs(config, condition, fake, fine, coarse),
+            alpha)
 
         # ---- generator update on the reference schedule, post-update critic
         if state.step % hp.critic_iterations == 0:
-            g_loss = _generator_update(config, state, gen, critic, g_params, g_input("update"),
-                                       fine)
-            forwards["update"] += 1
+            g_loss = generator_update(config, state, gen, critic, g_params, g_input("update"),
+                                       fine, eof)
+            forwards["update"] += hp.grad_accum
         else:
             g_loss = torch.zeros((), device=fine.device)
         state.step += 1
@@ -312,24 +471,28 @@ def build_train_step(config: Config, gen: nn.Module,
             with torch.no_grad():
                 fake = gen(g_input("metric"))
             forwards["metric"] += 1
-        metrics.update(score(critic, fake, fine))
+        metrics.update(score(critic, fake, fine, coarse))
         return metrics
 
     step.forwards = forwards
     return step
 
 
-def build_fused_round(config: Config, gen: nn.Module,
-                      critic: nn.Module) -> Callable[..., Metrics]:
+def build_fused_round(config: Config, gen: nn.Module, critic: nn.Module,
+                      eof_components=None) -> Callable[..., Metrics]:
     """The fused n-critic round over ``gen`` and ``critic`` (``wgan.py:443-
     582``): ``fused_round(state, coarse_n, fine_n, alphas=None,
-    latents=None) -> metrics`` with inputs (n, B, C, h, w) and (n, B, P, H,
-    W), n = ``hp.critic_iterations``. It runs n critic updates on the n
-    minibatches in order, update i with alpha :func:`gp_alpha` of
-    ``(config.seed, state.step + i)`` (or ``alphas[i]``), each on a fake
-    from the round's starting generator; then one generator update on the
-    last minibatch against the post-update critic, and the EMA update.
-    ``state.step`` advances by n.
+    latents=None, flips=None) -> metrics`` with inputs (n, B, C, h, w) and
+    (n, B, P, H, W), n = ``hp.critic_iterations``. Under ``augment_flips``
+    the round's (n B) pairs are first flipped, one decision per sample, by
+    :func:`flip_masks` of ``(config.seed, state.step)`` at the round's
+    starting step, or ``flips`` (lon, lat), each (n B,) bool. It runs n
+    critic updates on the n minibatches in order, update i with alpha
+    :func:`gp_alpha` of ``(config.seed, state.step + i)`` (or
+    ``alphas[i]``), each on a fake from the round's starting generator;
+    then one generator update on the last minibatch against the
+    post-update critic, and the EMA update. ``state.step`` advances by n.
+    ``eof_components`` as :func:`build_train_step`'s.
 
     A stochastic generator's latents: critic update i's fake takes
     :func:`train_latent` at step ``state.step + i``, stream
@@ -346,21 +509,31 @@ def build_fused_round(config: Config, gen: nn.Module,
     generator update), else on a fresh fake from the updated generator.
     ``fused_round.forwards`` counts the generator forwards by kind, as
     :func:`build_train_step`'s."""
-    check_training_ported(config)
     hp = config.hp
     score = build_metric_pass(config)
+    condition = make_condition(config)
+    augment = make_augment(config) if hp.augment_flips else None
     g_params = [p for p in gen.parameters()]
     c_params = [p for p in critic.parameters()]
+    eof = eof_basis(config, eof_components, g_params[0].device)
     forwards = {"critic_fake": 0, "update": 0, "metric": 0}
 
     def fused_round(state: GANTrainState, coarse_n: torch.Tensor, fine_n: torch.Tensor,
                     alphas: Optional[torch.Tensor] = None,
-                    latents: Optional[Mapping[str, torch.Tensor]] = None) -> Metrics:
+                    latents: Optional[Mapping[str, torch.Tensor]] = None,
+                    flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Metrics:
         _check_modules(state, gen, critic)
         n = coarse_n.shape[0]
         if n != hp.critic_iterations:
             raise ValueError(f"a fused round takes critic_iterations={hp.critic_iterations} "
                              f"minibatches, got {n}")
+        if augment is not None:
+            nb = n * coarse_n.shape[1]
+            c2, f2 = augment(coarse_n.reshape(nb, *coarse_n.shape[2:]),
+                             fine_n.reshape(nb, *fine_n.shape[2:]),
+                             *(flip_masks(config.seed, state.step, nb, fine_n.device)
+                               if flips is None else flips))
+            coarse_n, fine_n = c2.reshape(coarse_n.shape), f2.reshape(fine_n.shape)
 
         def g_input(stream: str, coarse: torch.Tensor, i: Optional[int] = None) -> torch.Tensor:
             if latents is None:
@@ -377,23 +550,24 @@ def build_fused_round(config: Config, gen: nn.Module,
             with torch.no_grad():
                 fake = gen(g_input("critic_fake", coarse, i))
             forwards["critic_fake"] += 1
-            c_loss, c_real, c_fake = _critic_update(config, state, critic, c_params, fake, fine,
-                                                    alpha)
+            c_loss, c_real, c_fake = critic_update(
+                config, state, critic, c_params,
+                *critic_inputs(config, condition, fake, fine, coarse), alpha)
             losses.append(c_loss)
             reals.append(c_real)
             fakes.append(c_fake)
             state.step += 1
 
-        g_loss = _generator_update(config, state, gen, critic, g_params,
-                                   g_input("update", coarse), fine)
-        forwards["update"] += 1
+        g_loss = generator_update(config, state, gen, critic, g_params,
+                                   g_input("update", coarse), fine, eof)
+        forwards["update"] += hp.grad_accum
         metrics = {"critic_loss": torch.stack(losses).mean(), "gen_loss": g_loss,
                    "Wass": wass_loss(torch.stack(reals).mean(), torch.stack(fakes).mean())}
         if not hp.metrics_reuse_fake:
             with torch.no_grad():
                 fake = gen(g_input("metric", coarse))
             forwards["metric"] += 1
-        metrics.update(score(critic, fake, fine))
+        metrics.update(score(critic, fake, fine, coarse))
         return metrics
 
     fused_round.forwards = forwards

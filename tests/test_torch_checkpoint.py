@@ -30,7 +30,11 @@ from downgan_tpu_torch.inference import (  # noqa: E402
 from downgan_tpu_torch.models.generator import DenseResidualBlock  # noqa: E402
 from downgan_tpu_torch.ops.cuda.drb import pack_drb_weights  # noqa: E402
 from downgan_tpu_torch.tracking import TrackingStore  # noqa: E402
-from downgan_tpu_torch.training.state import load_generator, make_train_state  # noqa: E402
+from downgan_tpu_torch.training.state import (  # noqa: E402
+    load_generator,
+    make_generator,
+    make_train_state,
+)
 from downgan_tpu_torch.training.trainer import (  # noqa: E402
     NonFiniteLossError,
     Trainer,
@@ -218,16 +222,26 @@ def straight(data):
     return trainer
 
 
-@pytest.mark.parametrize("noise_channels", [0, 2], ids=["deterministic", "stochastic"])
-def test_resume_reproduces_the_uninterrupted_run(tmp_path, data, straight, capsys,
-                                                  noise_channels):
+RESUME_VARIANTS = {
+    "deterministic": {},
+    "stochastic": dict(noise_channels=2),
+    # A cosine schedule in its warmup at the resume (critic count 4 of 8):
+    # each optimizer's rate is read from its checkpointed Adam count.
+    "lr_schedule": dict(hp=dict(lr_schedule="cosine", lr_warmup_steps=8, lr_decay_steps=20)),
+}
+
+
+@pytest.mark.parametrize("variant", list(RESUME_VARIANTS))
+def test_resume_reproduces_the_uninterrupted_run(tmp_path, data, straight, capsys, variant):
     """3 epochs == 2 epochs, checkpoint, a fresh trainer resuming, 1 more:
     every tensor (EMA and Adam states included) and epoch 2's means, bit
     for bit. A stochastic generator's training latents are functions of
-    (seed, step, stream) and its test pass scores the fixed latent, so the
-    checkpoint carries them too."""
-    cfg = tiny_config(ema_decay=EMA).replace(noise_channels=noise_channels)
-    if noise_channels:
+    (seed, step, stream) and its test pass scores the fixed latent, and an
+    LR schedule's count is each Adam state's own, so the checkpoint
+    carries them too."""
+    kw = dict(RESUME_VARIANTS[variant])
+    cfg = tiny_config(ema_decay=EMA, **kw.pop("hp", {})).replace(**kw)
+    if variant != "deterministic":
         straight = trainer_of(cfg, data)
         straight.train(3)
     first = trainer_of(cfg, data, checkpoint_manager=CheckpointManager(str(tmp_path / "ck")))
@@ -239,6 +253,8 @@ def test_resume_reproduces_the_uninterrupted_run(tmp_path, data, straight, capsy
     assert record == {**straight.history[2], "seconds": record["seconds"]}
     assert_states_equal(straight.state, resumed.state)
     assert not torch.equal(straight.state.g_ema.conv1.weight, straight.state.generator.conv1.weight)
+    if variant == "lr_schedule":  # still warming up: the last critic update ran at count 5
+        assert resumed.state.c_opt.param_groups[0]["lr"] == cfg.hp.lr * 5 / 8
 
 
 def test_epochs_zero_writes_no_checkpoint(tmp_path, data):
@@ -483,12 +499,27 @@ def _apply(kind, trainer, tmp_path):
         ema_update(EMA, state.g_ema, list(state.generator.parameters()))
 
 
-@pytest.mark.parametrize("kind", ["resume", "warm_start", "ema_update", "resume_stochastic"])
+@pytest.mark.parametrize("kind", ["resume", "warm_start", "ema_update", "resume_stochastic",
+                                  "inference_mode"])
 def test_drb_packed_weights_refresh(tmp_path, data, kind):
     """The DRB blocks' packed-weight cache is keyed on each parameter's
     version: a resume, a warm start and an EMA update each change the
     key, and the next forward packs the current weights; so does the
-    resume of a stochastic generator (whose trunk is the same)."""
+    resume of a stochastic generator (whose trunk is the same). A generator
+    built inside ``torch.inference_mode()`` has inference-tensor
+    parameters, which keep no version: its blocks pack at every forward,
+    cache nothing, and give the normal build's output bit for bit."""
+    if kind == "inference_mode":
+        x = data[0].coarse[:2]
+        with torch.inference_mode():
+            gen = make_generator(tiny_config(), "cpu")
+            out, again = gen(x), gen(x)
+        assert all(p.is_inference() for p in gen.parameters())
+        assert all(b._packed_key is None and b._packed is None for b in _drb_blocks(gen))
+        with torch.no_grad():
+            want = make_generator(tiny_config(), "cpu")(x)
+        assert torch.equal(out, want) and torch.equal(again, want)
+        return
     k = 2 if kind == "resume_stochastic" else 0
     trainer = trainer_of(tiny_config(ema_decay=EMA).replace(noise_channels=k), data)
     with torch.no_grad():

@@ -87,9 +87,9 @@ def test_resolve_metrics_refuses_unknown_and_unported():
     assert list(resolve_metrics(["MAE", "Wass", "MSSSIM"])) == ["MAE", "MSSSIM"]
     with pytest.raises(KeyError, match="unknown metrics"):
         resolve_metrics(["MAE", "PSNR"])
-    for name in ("Divergence", "Vorticity", "RALSD"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            resolve_metrics(["MAE", name])
+    # the physics and spectral metrics are in the registry now
+    assert list(resolve_metrics(["Divergence", "Vorticity", "RALSD"])) == [
+        "Divergence", "Vorticity", "RALSD"]
 
 
 @pytest.mark.parametrize("conv_gain", [1.0, 2.5])

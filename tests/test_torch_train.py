@@ -2,7 +2,7 @@
 the same weights, batches and alphas (losses, metrics, the generator-update
 schedule, parameters and the EMA generator after steps 0 and 5); the synthetic set and the batch
 order, bit for bit; the Trainer's epoch loop, ``gen_loss`` rescale and test
-pass; the ``train`` CLI; and every refusal of an unported option."""
+pass; the ``train`` CLI; and the accepted XLA-program flags."""
 import copy
 import dataclasses
 import json
@@ -325,34 +325,6 @@ def test_cli_train_refuses_without_synthetic_and_without_a_card(tmp_path, capsys
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["train", "--config", tiny_config_file(tmp_path), "--synthetic", "--samples", "14",
               "--epochs", "1", "--tracking-root", str(tmp_path / "exps")])
-
-
-UNPORTED = {
-    "lr_schedule": dict(lr_schedule="cosine", lr_decay_steps=10),
-    "lr_warmup_steps": dict(lr_warmup_steps=5),
-    "grad_accum": dict(grad_accum=2),
-    "freq_sep": dict(freq_sep=True),
-    "divergence_lambda": dict(divergence_lambda=0.1),
-    "vorticity_lambda": dict(vorticity_lambda=0.1),
-    "eof_lambda": dict(eof_lambda=0.1),
-    "augment_flips": dict(augment_flips=True),
-    "metric_ralsd": dict(metrics_to_calculate=("MAE", "RALSD")),
-}
-
-
-@pytest.mark.parametrize("hp", list(UNPORTED.values()), ids=list(UNPORTED))
-def test_unported_training_options_raise(hp):
-    cfg = Config(hp=HyperParams(batch_size=B, **hp), **KW)
-    with pytest.raises(ValueError, match="not ported yet"):
-        state = make_train_state(cfg, "cpu")
-        build_train_step(cfg, state.generator, state.critic)
-
-
-@pytest.mark.parametrize("kw", [dict(critic_conditional=True)], ids=["critic_conditional"])
-def test_unported_model_options_raise(kw):
-    cfg = Config(hp=HyperParams(batch_size=B), **{**KW, **kw})
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_train_state(cfg, "cpu")
 
 
 def test_xla_program_flags_are_accepted():
