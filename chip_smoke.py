@@ -116,9 +116,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 20. variants_parity -- (after fused_parity) three florida steps at batch
                4 with every training variant on (frequency separation, the
                conditional critic, flips, the divergence, vorticity and EOF
-               terms, grad_accum 2, a cosine schedule with warmup), card
-               against CPU from the same weights, EOF basis, alphas and
-               flip masks, 48 DRB launches in every generator forward;
+               terms, grad_accum 2, a cosine schedule with warmup) and
+               critic_iterations 2, so that the generator's second update
+               runs at the full rate, card against CPU from the same
+               weights, EOF basis, alphas and flip masks, 48 DRB launches
+               in every generator forward;
 21. variants -- ``cli train --config examples/florida.json --synthetic
                --samples 1440 --epochs 1`` with every variant's flag (the
                EOF basis fit at staging), and again from a config file with
@@ -2152,15 +2154,18 @@ def phase_variants_parity(config):
     weights, data, EOF basis, alphas and flip masks (drawn on the host: a
     card generator draws other numbers than a CPU one), held to
     train_parity's tolerances; 48 DRB launches in every generator forward,
-    microbatch forwards included."""
+    microbatch forwards included. ``critic_iterations`` is 2 here, so the
+    generator updates at steps 0 and 2: the first at the warmup's lr 0, the
+    second at the full rate, which moves its weights."""
     from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
     from downgan_tpu_torch.training.state import make_train_state
     from downgan_tpu_torch.training.trainer import training_eof_components
     from downgan_tpu_torch.training.wgan import build_train_step
 
-    n_steps = 3
+    n_steps, critic_iterations = 3, 2
     cfg = config.replace(critic_conditional=True, hp=dataclasses.replace(
-        config.hp, batch_size=B_PARITY, metrics_to_calculate=PHYSICS_METRICS, **VARIANT_HP))
+        config.hp, batch_size=B_PARITY, metrics_to_calculate=PHYSICS_METRICS,
+        critic_iterations=critic_iterations, **VARIANT_HP))
     cpu_ds = DeviceDataset.from_numpy(*synthetic_dataset(n_samples=B_PARITY * n_steps, seed=16),
                                       "cpu")
     t0 = time.perf_counter()
@@ -2171,6 +2176,7 @@ def phase_variants_parity(config):
     alphas = torch.rand(n_steps, B_PARITY, 1, 1, 1, generator=host)
     flips = torch.rand(n_steps, 2, B_PARITY, generator=host) < 0.5
     states = {dev: make_train_state(cfg, dev) for dev in ("cuda", "cpu")}
+    g_init = {k: v.clone() for k, v in states["cpu"].generator.state_dict().items()}
     n_critic = sum(p.numel() for p in states["cuda"].critic.parameters())
     check(n_critic == 1_113_321, f"the conditional florida critic has {n_critic} params")
     steps = {dev: build_train_step(cfg, st.generator, st.critic, eof_components=comps)
@@ -2186,7 +2192,8 @@ def phase_variants_parity(config):
             metrics[dev].append({k: float(v) for k, v in m.items()})
             if dev == "cuda":
                 per_step.append(list(per_forward))
-    want = [[48] * 4, [48] * 2, [48] * 2]  # critic fake, 2 microbatches at step 0, metric fake
+    # critic fake, 2 generator microbatches at steps 0 and 2, metric fake
+    want = [[48] * (2 + 2 * (i % critic_iterations == 0)) for i in range(n_steps)]
     check(per_step == want, f"DRB launches per generator forward by step {per_step}, not {want}")
     metric_err = 0.0
     for i, (mc, mp) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
@@ -2196,15 +2203,19 @@ def phase_variants_parity(config):
             metric_err = max(metric_err, err / (STEP_ATOL + STEP_RTOL * abs(mp[k])))
             check(err <= STEP_ATOL + STEP_RTOL * abs(mp[k]),
                   f"variants step {i} {k}: card {mc[k]} vs CPU {mp[k]}")
-    # The generator's one update (step 0) ran at lr 0 (count 0 of the
-    # warmup): its weights stay put on both sides, and its gradient is read
-    # from Adam's first moment, (1 - beta1) * g, over the whole vector.
+    # The generator's first update (step 0) ran at lr 0 (count 0 of the
+    # warmup) and its second (step 2) at the full rate, so one update moved
+    # its weights. Its gradients are also read whole from Adam's first
+    # moment, (1 - beta1) * (beta1 * g0 + g2).
+    moved = max((states["cpu"].generator.state_dict()[k] - v).abs().max().item()
+                for k, v in g_init.items())
+    check(moved >= 0.5 * cfg.hp.lr, f"the generator's weights moved at most {moved}")
     moments = [torch.cat([st.g_opt.state[p]["exp_avg"].cpu().reshape(-1)
                           for p in st.generator.parameters()]) for st in states.values()]
     g_grad_l2 = ((moments[0] - moments[1]).norm() / moments[1].norm()).item()
     check(g_grad_l2 <= GRAD_TENSOR_TOL, f"generator gradient, card vs CPU: relative L2 {g_grad_l2}")
     param_err = {}
-    for net, updates in (("generator", 0), ("critic", n_steps)):
+    for net, updates in (("generator", 1), ("critic", n_steps)):  # updates at lr > 0
         card, cpu = (getattr(states[d], net).state_dict() for d in ("cuda", "cpu"))
         diff = torch.cat([(card[k].cpu() - cpu[k]).abs().reshape(-1) for k in cpu])
         atol = ADAM_ATOL_PER_UPDATE * updates
@@ -2219,7 +2230,8 @@ def phase_variants_parity(config):
          metrics_card=metrics["cuda"], worst_metric_err_over_tolerance=metric_err,
          metric_rtol=STEP_RTOL, metric_atol=STEP_ATOL,
          generator_grad_rel_l2_from_adam_moment=g_grad_l2, param_err=param_err,
-         adam_median_atol=ADAM_MEDIAN_ATOL, critic_lr_after=lrs[0])
+         adam_median_atol=ADAM_MEDIAN_ATOL, critic_iterations=critic_iterations,
+         generator_max_move=moved, critic_lr_after=lrs[0])
 
 
 def run_train_cli(argv, want_forwards):

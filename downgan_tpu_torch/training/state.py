@@ -145,9 +145,9 @@ def make_optimizer(config: Config, module: torch.nn.Module) -> torch.optim.Adam:
     parameters, as the JAX package's ``optax.adam`` (reference
     ``stage.py:63-64``). The two updates are the same algebra:
     ``lr * m / (1 - b1^t) / (sqrt(v) / sqrt(1 - b2^t) + eps)`` in torch is
-    ``lr * m_hat / (sqrt(v_hat) + eps)`` in optax. Under an LR schedule
-    (``hp.lr_schedule``, ``hp.lr_warmup_steps``) it is a
-    :class:`ScheduledAdam` over :func:`lr_schedule_fn`.
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` in optax. It is a
+    :class:`ScheduledAdam` over :func:`lr_schedule_fn`, which is ``lr`` at
+    every count under the reference's constant schedule.
 
     The foreach implementation, on every device: one launch per update
     over all tensors. Never the fused one: it writes the parameters without
@@ -155,10 +155,8 @@ def make_optimizer(config: Config, module: torch.nn.Module) -> torch.optim.Adam:
     to know when to repack their weights for the kernel. (Pinning only
     ``fused=False`` would fall back to the single-tensor loop.)"""
     hp = config.hp
-    kw = dict(betas=(hp.beta1, hp.beta2), eps=1e-8, foreach=True, fused=False)
-    if hp.lr_schedule == "constant" and not hp.lr_warmup_steps:
-        return torch.optim.Adam(module.parameters(), lr=hp.lr, **kw)
-    return ScheduledAdam(module.parameters(), lr_schedule_fn(hp), **kw)
+    return ScheduledAdam(module.parameters(), lr_schedule_fn(hp),
+                         betas=(hp.beta1, hp.beta2), eps=1e-8, foreach=True, fused=False)
 
 
 def make_ema_generator(config: Config, gen: nn.Module) -> nn.Module:

@@ -349,15 +349,15 @@ def _microbatches(k: int, *tensors: torch.Tensor):
 
 def _accumulate(k: int, losses, params: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Backward of each microbatch's (loss, *aux) from the iterable
-    ``losses`` into ``params``' gradients, scaled by 1/k (none at k=1), each
+    ``losses`` into ``params``' gradients, scaled by 1/k, each
     graph freed before the next microbatch is built; returns the detached
     means of (loss, *aux) over the microbatches."""
     totals = None
     for out in losses:
-        (out[0] / k if k > 1 else out[0]).backward(inputs=params)
+        (out[0] / k).backward(inputs=params)
         out = [t.detach() for t in out]
         totals = out if totals is None else [a + b for a, b in zip(totals, out)]
-    return tuple(t / k for t in totals) if k > 1 else tuple(totals)
+    return tuple(t / k for t in totals)
 
 
 def critic_update(config: Config, state: GANTrainState, critic: nn.Module,

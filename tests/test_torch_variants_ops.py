@@ -391,9 +391,20 @@ def test_scheduled_adam_steps_like_optax_adam():
 
 
 def test_constant_schedule_is_plain_adam():
+    """Under the reference's constant schedule every update runs at ``lr``,
+    as plain Adam's do: five updates of the same gradients, bit for bit."""
     cfg = Config(hp=HyperParams())
     opt = make_optimizer(cfg, torch.nn.Linear(2, 2))
-    assert type(opt) is torch.optim.Adam and opt.param_groups[0]["lr"] == cfg.hp.lr
+    assert opt.param_groups[0]["lr"] == cfg.hp.lr
+    p, q = (torch.nn.Parameter(torch.arange(6.0)) for _ in range(2))
+    ours = make_optimizer(cfg, torch.nn.ParameterList([p]))
+    plain = torch.optim.Adam([q], lr=cfg.hp.lr, betas=(cfg.hp.beta1, cfg.hp.beta2), eps=1e-8,
+                             foreach=True)
+    for g in np.random.default_rng(23).standard_normal((5, 6)).astype(np.float32):
+        p.grad, q.grad = torch.from_numpy(g.copy()), torch.from_numpy(g.copy())
+        ours.step()
+        plain.step()
+        assert torch.equal(p, q) and ours.param_groups[0]["lr"] == cfg.hp.lr
     warm = make_optimizer(Config(hp=dataclasses.replace(cfg.hp, lr_warmup_steps=2)),
                           torch.nn.Linear(2, 2))
     assert isinstance(warm, ScheduledAdam) and warm.param_groups[0]["lr"] == 0.0
