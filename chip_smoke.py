@@ -130,6 +130,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 22. variants_tuned -- ``cli train --config examples/production_tuned.json
                ... --epochs 1 --augment-flips --critic-conditional
                --grad-accum 2``: bf16 fused rounds, 768 bf16 DRB launches.
+23. dp      -- data-parallel training at florida width: (a) ``python -m
+               torch.distributed.run --nproc-per-node 1 -m
+               downgan_tpu_torch.cli train --synthetic --samples 1440
+               --epochs 1 --multihost`` (NCCL, world size 1; run as
+               ``chip_smoke.py --train-cli OUT train ...``, which holds cuDNN
+               deterministic and counts launches) against the plain command,
+               epoch means and checkpoint bit for bit; (b) two gloo ranks
+               sharing the card (``Trainer(multihost=True)``, 64 rows each of
+               a global batch of 128), six fp32 reference steps, the ranks bit
+               for bit and each within the Adam tolerances of one rank on the
+               global batch; (c) the same for two bf16 fused rounds of
+               examples/production_tuned.json. 48 DRB launches in every
+               forward of every rank; the epoch's means of 2 ranks within
+               the card step tolerances of one rank's; steps, rounds,
+               gradient all-reduces and the metric pass's gathers timed by
+               CUDA events; peak memory per rank.
 
 The kernel phases also hold the kernels at B=64 (a microbatch under
 grad_accum 2), and the generator phase holds a generator built inside
@@ -144,6 +160,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -1018,9 +1035,10 @@ def launches_per_generator_forward():
 
 
 @contextlib.contextmanager
-def after_each_train_step(hook):
+def after_each_train_step(hook, before=None):
     """Call ``hook(state, metrics)`` after every step (or fused round) of the
-    train steps the trainer builds while the block runs."""
+    train steps the trainer builds while the block runs, and ``before(state)``
+    before each, if given."""
     import downgan_tpu_torch.training.trainer as trainer_module
 
     real = {name: getattr(trainer_module, name) for name in ("build_train_step",
@@ -1031,6 +1049,8 @@ def after_each_train_step(hook):
             inner = real_build(*args, **kwargs)
 
             def step(state, *a, **k):
+                if before is not None:
+                    before(state)
                 metrics = inner(state, *a, **k)
                 hook(state, metrics)
                 return metrics
@@ -2372,8 +2392,368 @@ def phase_variants_tuned(tracking_root: Path):
     emit("variants_tuned", batch=B_TRAIN, **run)
     return run["drb_launches_bf16"]
 
+# ---- the dp phase: data-parallel training --------------------------------------
+DP_WORLD = 2  # legs (b) and (c): two gloo ranks sharing the one card
+DP_STEPS = 6  # leg (b): steps 0 and 5 update the generator
+DP_ROUNDS = 2  # leg (c): the first round of a process warms cuDNN's bf16 algorithms up
+DP_TIMEOUT_S = 120  # a collective that waits longer raises; so does a child that runs longer
+
+
+def recorded_event() -> torch.cuda.Event:
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """CUDA events before and after every step (or fused round) of the
+    train steps the trainer builds while the block runs; yields the list of
+    [start, end] pairs."""
+    pairs = []
+    with after_each_train_step(lambda state, metrics: pairs[-1].append(recorded_event()),
+                               before=lambda state: pairs.append([recorded_event()])):
+        yield pairs
+
+
+@contextlib.contextmanager
+def timed_collectives(steps):
+    """CUDA events around every call of ``parallel.dp.all_reduce_gradients``
+    (an update's gradients) and ``parallel.dp.gather_rows`` (the metric
+    pass's global batch) while the block runs; yields a dict of two lists
+    of (start, end, elements, the step it ran in, counted from 1 in
+    :func:`timed_steps`' ``steps``)."""
+    import downgan_tpu_torch.parallel.dp as dp
+
+    calls = {"all_reduce_gradients": [], "gather_rows": []}
+    real = {name: getattr(dp, name) for name in calls}
+
+    def timed(name, numel):
+        def call(arg, group=None):
+            start = recorded_event()
+            out = real[name](arg, group)
+            calls[name].append((start, recorded_event(), numel(arg), len(steps)))
+            return out
+        return call
+
+    dp.all_reduce_gradients = timed("all_reduce_gradients",
+                                    lambda params: sum(p.numel() for p in params))
+    dp.gather_rows = timed("gather_rows", lambda rows: rows.numel())
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dp, name, fn)
+
+
+def dp_timings(steps, collectives) -> dict:
+    """What :func:`timed_steps` and :func:`timed_collectives` recorded, in ms
+    (read after a synchronize), and the means past the first step (the
+    process's first step picks cuDNN's algorithms) and its collectives."""
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    out = {"step_ms": step_ms, "ms_per_step_warm": float(np.mean(step_ms[1:]))}
+    for name, key in (("all_reduce_gradients", "all_reduce"), ("gather_rows", "gather")):
+        calls = collectives[name]
+        ms = [a.elapsed_time(b) for a, b, _, _ in calls]
+        warm = [t for t, (_, _, _, at) in zip(ms, calls) if at > 1]
+        out.update({f"{key}_ms": ms,
+                    f"{key}_ms_per_call_warm": float(np.mean(warm)) if warm else None,
+                    f"{key}_ms_per_step_warm": sum(warm) / (len(step_ms) - 1) if warm else None,
+                    f"{key}_elements": sorted({n for _, _, n, _ in calls})})
+    return out
+
+
+def train_cli_child(out_path: str, argv) -> int:
+    """``chip_smoke.py --train-cli OUT train ...``, run alone or under
+    torchrun by :func:`phase_dp`: ``cli train`` with ``argv`` in this
+    process, cuDNN deterministic (so two runs are comparable bit for bit),
+    the DRB launches of every generator forward counted from 0 just before
+    and read just after, steps and gradient all-reduces timed by CUDA
+    events; rank 0 writes what it measured to ``OUT`` as JSON."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.parallel.mesh import in_group, rank, world_size
+
+    torch.backends.cudnn.deterministic = True
+    with launches_per_generator_forward() as per_forward, timed_steps() as steps, \
+            timed_collectives(steps) as collectives:
+        reset_launch_counts()  # the path's run starts here
+        trainer = cli_main(argv)
+        torch.cuda.synchronize()
+        launches = drb_forward.launches  # ... and ends here
+    if rank() == 0:
+        Path(out_path).write_text(json.dumps({
+            "history": trainer.history, "forwards": dict(trainer.forwards),
+            "drb_launches": launches, "launches_per_forward": sorted(set(per_forward)),
+            "n_forwards": len(per_forward), "world": world_size(), "multihost": trainer.multihost,
+            "device": str(trainer.device), "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            **dp_timings(steps, collectives)}))
+    if in_group():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_child(cmd, timeout_s: int) -> float:
+    """Run ``cmd`` from the checkout's root in a session of its own; a child
+    that fails or outlives ``timeout_s`` fails the phase (its whole process
+    group is killed). Returns its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{cmd[:6]}... outlived {timeout_s} s")
+    check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{out[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def checkpoint_tensors(path: Path) -> dict:
+    """Every tensor of a checkpoint file by name, and the step."""
+    from downgan_tpu_torch.utils.checkpoint import load_params
+
+    out = {}
+
+    def walk(prefix, obj):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(f"{prefix}.{k}", v)
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(f"{prefix}.{i}", v)
+        elif isinstance(obj, (torch.Tensor, int, float)):
+            out[prefix[1:]] = torch.as_tensor(obj)
+
+    walk("", load_params(str(path)))
+    return out
+
+
+def dp_cli_leg(workdir: Path, smi: str) -> int:
+    """Leg (a): ``cli train --multihost`` at world size 1 over NCCL, launched
+    by ``python -m torch.distributed.run --nproc-per-node 1``, against the
+    plain ``cli train`` with the same flags: the epoch record and the final
+    checkpoint (both networks, both Adam states, the step) bit for bit. At
+    one rank a SUM all-reduce and a division by 1 are exact."""
+    base = ["train", "--config", str(ROOT / "examples" / "florida.json"), "--synthetic",
+            "--samples", "1440", "--epochs", "1", "--tracking-root", str(workdir / "tracking")]
+    runs = {}
+    for name, launcher, extra in (
+            ("torchrun", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "1"], ["--multihost"]),
+            ("plain", [sys.executable], [])):
+        out = workdir / f"{name}.json"
+        cmd = [*launcher, str(ROOT / "chip_smoke.py"), "--train-cli", str(out), *base,
+               "--checkpoint-dir", str(workdir / f"ckpt_{name}"), *extra]
+        wall_s = run_child(cmd, 3 * DP_TIMEOUT_S)
+        runs[name] = {**json.loads(out.read_text()), "wall_s": wall_s}
+    dp, plain = runs["torchrun"], runs["plain"]
+    check(dp["multihost"] and dp["world"] == 1 and not plain["multihost"],
+          f"leg (a) ran multihost={dp['multihost']} world={dp['world']}")
+    for run in (dp, plain):
+        check(run["launches_per_forward"] == [48] and run["n_forwards"] == sum(run["forwards"].values())
+              and run["drb_launches"] == 48 * run["n_forwards"],
+              f"DRB launches per generator forward {run['launches_per_forward']}")
+    means_unequal = [f"{sp}.{k}" for a, b in zip(dp["history"], plain["history"])
+                     for sp in ("train", "test") for k in a[sp] if a[sp][k] != b[sp][k]]
+    want, got = (checkpoint_tensors(workdir / f"ckpt_{n}" / "0.pt") for n in ("plain", "torchrun"))
+    check(set(want) == set(got), "the two checkpoints hold different tensors")
+    tensors_unequal = sorted(k for k in want if not torch.equal(want[k], got[k]))
+    check(len(dp["history"]) == len(plain["history"]) == 1 and not means_unequal
+          and not tensors_unequal,
+          f"torchrun --multihost at world size 1 vs plain cli train: means {means_unequal}, "
+          f"tensors {tensors_unequal[:5]}")
+    emit("dp", leg="a_cli_world1_nccl", card=smi,
+         command="python -m torch.distributed.run --standalone --nproc-per-node 1 -m "
+         "downgan_tpu_torch.cli " + " ".join(base[:8]) + " --multihost --checkpoint-dir DIR "
+         "(through chip_smoke.py --train-cli, which holds cuDNN deterministic and counts)",
+         held="bit_identical", checkpoint_tensors=len(want), epoch=dp["history"],
+         generator_forwards=dp["forwards"], drb_launches=dp["drb_launches"],
+         drb_launches_per_forward=48,
+         ms_per_step_warm_nccl=dp["ms_per_step_warm"], step_ms_nccl=dp["step_ms"],
+         ms_per_step_warm_plain=plain["ms_per_step_warm"], step_ms_plain=plain["step_ms"],
+         **{k: v for k, v in dp.items() if k.startswith(("all_reduce_", "gather_"))},
+         peak_memory_bytes={"torchrun": dp["peak_memory_bytes"], "plain": plain["peak_memory_bytes"]},
+         wall_s={"torchrun": dp["wall_s"], "plain": plain["wall_s"]})
+    return dp["drb_launches"]
+
+
+def dp_gloo_configs() -> dict:
+    """Legs (b) and (c): (config, synthetic samples) at global batch 128:
+    six reference-schedule steps of examples/florida.json in fp32, and two
+    fused rounds of examples/production_tuned.json in bf16."""
+    from downgan_tpu_torch.config.config import Config
+
+    florida = Config.from_json((ROOT / "examples" / "florida.json").read_text())
+    tuned = tuned_config(B_TRAIN, "bfloat16")
+    return {"b_reference_fp32": (florida, DP_STEPS * B_TRAIN),
+            "c_tuned_bf16": (tuned, DP_ROUNDS * tuned.hp.critic_iterations * B_TRAIN)}
+
+
+def dp_train(config, n_samples: int, multihost: bool) -> dict:
+    """One epoch of ``Trainer(config, multihost=multihost)`` on cuda:0 over
+    ``n_samples`` synthetic florida samples (no test set), the DRB launches of
+    every generator forward counted from 0 just before the epoch and read
+    just after, steps and all-reduces timed; returns what it measured and
+    the final state on the CPU."""
+    from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.training.trainer import Trainer
+
+    coarse, fine = synthetic_dataset(
+        n_samples=n_samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
+        n_covariates=config.n_covariates, n_predictands=config.n_predictands, seed=config.seed)
+    ds = DeviceDataset.from_numpy(coarse, fine, "cuda:0")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with launches_per_generator_forward() as per_forward, timed_steps() as steps, \
+            timed_collectives(steps) as collectives:
+        trainer = Trainer(config, ds, None, device="cuda:0", multihost=multihost)
+        reset_launch_counts()  # the path's run starts here
+        trainer.train(1)
+        torch.cuda.synchronize()
+        launches = [drb_forward.launches, drb_forward.launches_bf16]  # ... and ends here
+    return {"state": {k: v.cpu() for k, v in flat_state(trainer).items()},
+            "history": trainer.history, "forwards": dict(trainer.forwards),
+            "launches": launches, "launches_per_forward": sorted(set(per_forward)),
+            "n_forwards": len(per_forward), "rows": B_TRAIN // trainer.world,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            **dp_timings(steps, collectives)}
+
+
+def dp_rank(rank: int, world: int, store: str, workdir: str) -> None:
+    """One gloo rank of legs (b) and (c), spawned by :func:`phase_dp`: joins
+    over a file store as local rank 0 of the one card (NCCL refuses two ranks
+    on one device) and trains both legs; writes ``workdir/rank<rank>.pt``."""
+    from downgan_tpu_torch.ops.cuda.drb import library_path, load_library
+    from downgan_tpu_torch.parallel.multihost import initialize
+
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(f"file://{store}", world, rank, backend="gloo",
+               timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    torch.distributed.barrier()  # both ranks reach the build together
+    t0 = time.perf_counter()
+    found = library_path().exists()
+    load_library()
+    out = {"build": {"found_on_disk": found, "seconds": time.perf_counter() - t0}}
+    out.update({leg: dp_train(config, n, multihost=True)
+                for leg, (config, n) in dp_gloo_configs().items()})
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def dp_weight_report(got: dict, want: dict, updates: dict, median_atol: float) -> dict:
+    """Both networks' parameters of a rank against the one-rank run: the
+    worst element within ADAM_ATOL_PER_UPDATE per update the network took,
+    the median element within ``median_atol``."""
+    report = {}
+    for part, n_upd in updates.items():
+        keys = [k for k in want if k.startswith(f"{part}.")]
+        worst = max((got[k].double() - want[k].double()).abs().max().item() for k in keys)
+        median = float(torch.cat([(got[k].double() - want[k].double()).abs().flatten()
+                                  for k in keys]).median())
+        report[part] = {"max_abs_diff": worst, "limit": ADAM_ATOL_PER_UPDATE * n_upd,
+                        "median_abs_diff": median, "median_limit": median_atol}
+        check(worst <= ADAM_ATOL_PER_UPDATE * n_upd and median <= median_atol,
+              f"{part}: 2 ranks vs one rank {report[part]}")
+    return report
+
+
+def phase_dp(smi: str):
+    """Data-parallel training at florida width: (a) the CLI at world size 1
+    over NCCL against the plain CLI, bit for bit; (b) two gloo ranks sharing
+    the card, six reference-schedule fp32 steps at global batch 128 (64 rows
+    a rank) through ``Trainer(multihost=True)``, the ranks bit for bit and
+    each against one rank on the global batch; (c) (b) on the tuned
+    configuration, two bf16 fused rounds. Returns the fp32 and the bf16 DRB
+    launches of the data-parallel runs."""
+    import torch.multiprocessing as mp
+
+    from downgan_tpu_torch.ops.cuda.drb import library_path
+    from downgan_tpu_torch.training.wgan import g_updates_in_window
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        workdir = Path(tmp)
+        fp32_launches = dp_cli_leg(workdir, smi)
+        # The two ranks find no build of drb.cu and build it at once, each
+        # into a temporary file of its own renamed into place; this process
+        # keeps the library it has loaded.
+        library_path().unlink()
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(DP_WORLD, str(workdir / "store"), str(workdir)), nprocs=DP_WORLD,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=True) for r in range(DP_WORLD)]
+    check(library_path().exists(), "no build of drb.cu after the ranks built it")
+    emit("dp", leg="concurrent_build", card=smi, ranks=[r["build"] for r in ranks],
+         library=str(library_path().relative_to(ROOT)))
+    bf16_launches = 0
+    for leg, (config, n_samples) in dp_gloo_configs().items():
+        one = dp_train(config, n_samples, multihost=False)
+        r0, r1 = (r[leg] for r in ranks)
+        unequal = sorted(k for k in r0["state"] if not torch.equal(r0["state"][k], r1["state"][k]))
+        check(not unequal and r0["history"][0]["train"] == r1["history"][0]["train"],
+              f"leg {leg}: the two ranks differ: {unequal[:5]}")
+        for r in (r0, r1):
+            check(r["launches_per_forward"] == [48] and r["n_forwards"] == sum(r["forwards"].values())
+                  and r["forwards"] == one["forwards"],
+                  f"leg {leg}: DRB launches per forward {r['launches_per_forward']}, "
+                  f"forwards {r['forwards']} (one rank: {one['forwards']})")
+        hp = config.hp
+        if hp.schedule == "fused":  # a round: n critic updates, one generator update
+            updates = {"generator": DP_ROUNDS, "critic": DP_ROUNDS * hp.critic_iterations}
+            median_atol = BF16_MEDIAN_ATOL
+        else:
+            updates = {"generator": g_updates_in_window(0, DP_STEPS, hp.critic_iterations),
+                       "critic": DP_STEPS}
+            median_atol = ADAM_MEDIAN_ATOL
+        report = dp_weight_report(r0["state"], one["state"], updates, median_atol)
+        bf16 = config.hp.compute_dtype == "bfloat16"
+        launches = sum(r["launches"][1 if bf16 else 0] for r in (r0, r1))
+        check(launches == 48 * (r0["n_forwards"] + r1["n_forwards"]),
+              f"leg {leg}: {launches} {'bf16 ' if bf16 else ''}DRB launches")
+        if bf16:
+            bf16_launches += launches
+        else:
+            fp32_launches += launches
+        # The epoch's means of every step's metrics: the field metrics score
+        # the global batch on both sides, so MS-SSIM's normalization is the
+        # same; the ranks' fakes differ from one rank's by cuDNN's rounding
+        # at B=64 against B=128, as a card step from a CPU step (train_parity).
+        rtol, atol = (BF16_STEP_RTOL, BF16_STEP_ATOL) if bf16 else (STEP_RTOL, STEP_ATOL)
+        means = {k: {"two_ranks": r0["history"][0]["train"][k], "one_rank": v}
+                 for k, v in one["history"][0]["train"].items()}
+        far = {k: m for k, m in means.items()
+               if not abs(m["two_ranks"] - m["one_rank"]) <= atol + rtol * abs(m["one_rank"])}
+        check(not far, f"leg {leg}: epoch means of 2 ranks vs one rank beyond rtol {rtol} "
+              f"atol {atol}: {far}")
+        emit("dp", leg=leg, card=smi, world=DP_WORLD, backend="gloo (CUDA tensors through host "
+             "memory)", global_batch=B_TRAIN, rows_per_rank=r0["rows"],
+             schedule=hp.schedule, compute_dtype=hp.compute_dtype,
+             held={"ranks": "bit_identical", "vs_one_rank": report},
+             generator_forwards=r0["forwards"],
+             drb_launches_per_rank=[r["launches"][1 if bf16 else 0] for r in (r0, r1)],
+             drb_launches_per_forward=48, train_means=means,
+             train_means_tolerance={"rtol": rtol, "atol": atol},
+             step="round" if hp.schedule == "fused" else "step",
+             ms_per_step_warm_per_rank=[r["ms_per_step_warm"] for r in (r0, r1)],
+             ms_per_step_warm_one_rank=one["ms_per_step_warm"],
+             step_ms_per_rank=[r["step_ms"] for r in (r0, r1)], step_ms_one_rank=one["step_ms"],
+             **{f"{k}_per_rank": [r[k] for r in (r0, r1)] for k in r0
+                if k.startswith(("all_reduce_", "gather_")) and not k.endswith("_elements")},
+             all_reduce_elements=r0["all_reduce_elements"], gather_elements=r0["gather_elements"],
+             peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in (r0, r1)],
+             peak_memory_bytes_one_rank=one["peak_memory_bytes"],
+             spawn_and_both_legs_s=spawn_s)
+    return fp32_launches, bf16_launches
+
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--train-cli":
+        return train_cli_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
@@ -2427,6 +2807,8 @@ def main() -> int:
         variants_tuned_launches = phase_variants_tuned(Path(tracking_root))
     check(variants_launches > 0 and variants_tuned_launches > 0,
           "a training-variant path launched no DRB kernel")
+    dp_launches, dp_bf16_launches = phase_dp(smi)
+    check(dp_launches > 0 and dp_bf16_launches > 0, "a data-parallel path launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
               "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
@@ -2435,13 +2817,14 @@ def main() -> int:
         "name": "drb_forward", "dtype": "float32", **common,
         "launches": (serving_launches + training_launches + resume_launches + bundle_launches
                      + host_feed_launches + stream_launches + stochastic_launches
-                     + ensemble_launches + serving_stochastic_launches + variants_launches),
+                     + ensemble_launches + serving_stochastic_launches + variants_launches
+                     + dp_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches,
                              "host_feed": host_feed_launches, "stream": stream_launches,
                              "stochastic": stochastic_launches, "ensemble": ensemble_launches,
                              "serving_stochastic": serving_stochastic_launches,
-                             "variants": variants_launches},
+                             "variants": variants_launches, "dp": dp_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -2451,10 +2834,12 @@ def main() -> int:
         "ms_b128": timing_b128["ms"], "bound_ms_b128": timing_b128["bound_ms"],
         "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms}, {
         "name": "drb_forward_bf16", "dtype": "bfloat16", **common,
-        "launches": tuned_launches + bf16_serving_launches + variants_tuned_launches,
+        "launches": (tuned_launches + bf16_serving_launches + variants_tuned_launches
+                     + dp_bf16_launches),
         "launches_by_path": {"training_tuned": tuned_launches,
                              "serving_bf16": bf16_serving_launches,
-                             "variants_tuned": variants_tuned_launches},
+                             "variants_tuned": variants_tuned_launches,
+                             "dp_tuned": dp_bf16_launches},
         "max_abs_err": bf16_err,
         "max_abs_err_is": "kernel vs its bf16 twin, largest over the kernel_bf16 shapes",
         "ms": bf16_timing["ms"], "plain_ms": bf16_timing["plain_ms"],

@@ -14,6 +14,8 @@ the port has ``train``, ``serve``, ``export``, ``prepare-data`` and
     python -m downgan_tpu_torch.cli train ... --freq-sep --critic-conditional \
         --augment-flips --eof-lambda 1 --grad-accum 2 \
         --lr-schedule cosine --lr-warmup-steps 2 --lr-decay-steps 10
+    python -m torch.distributed.run --nproc-per-node 8 -m downgan_tpu_torch.cli \
+        train --multihost --checkpoint-dir ckpt ...   # data-parallel, a rank per card
     python -m downgan_tpu_torch.cli serve --checkpoint <run artifacts>/best
     python -m downgan_tpu_torch.cli export --run <run id> --ema --out bundle/
     python -m downgan_tpu_torch.cli serve --weights generator.pt
@@ -28,7 +30,12 @@ Without ``--synthetic``, ``train`` stages the config's data: the
 preprocessed NetCDFs (``already_preprocessed``, written by
 ``prepare-data``) or the raw ones, onto the device; with ``--host-feed``
 into host RAM, fed batch by batch; with ``--stream`` left on disk in the
-preprocessed files and read batch by batch.
+preprocessed files and read batch by batch. With ``--multihost`` every
+rank of the job runs the same command (under torchrun, or with
+``--coordinator``/``--num-processes``/``--process-id``) and trains
+data-parallel on its own card: ``hp.batch_size`` is the global batch, rank
+0 tracks the run and writes the checkpoints into the shared
+``--checkpoint-dir``.
 """
 from __future__ import annotations
 
@@ -179,14 +186,47 @@ def _datasets(args: argparse.Namespace, parser: argparse.ArgumentParser, config,
     return residency(ct, ft), residency(cv, fv)
 
 
+def _join_ranks(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
+    """Join the job under ``--multihost``; refuse the ways a multi-card run
+    would quietly train on one card or as N lone runs."""
+    from downgan_tpu_torch.parallel.mesh import in_group
+    from downgan_tpu_torch.parallel.multihost import initialize
+
+    if args.multihost:
+        if args.checkpoint_dir is None:
+            parser.error("--multihost requires --checkpoint-dir (a directory every rank reads: "
+                         "rank 0 writes the checkpoints and every rank restores from them)")
+        initialize(args.coordinator, args.num_processes, args.process_id)
+        if not in_group() and args.num_processes != 1:
+            parser.error("--multihost was requested but no process group formed (no torchrun "
+                         "environment and no --coordinator). Launch with python -m "
+                         "torch.distributed.run, pass --coordinator/--num-processes/"
+                         "--process-id, or --num-processes 1 for a single-process run.")
+        return
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        parser.error("this process is one rank of a job of WORLD_SIZE="
+                     f"{os.environ['WORLD_SIZE']}: pass --multihost, or each rank trains alone")
+    if (args.mesh and torch.device(args.device).type == "cuda"
+            and torch.cuda.device_count() > 1 and not in_group()):
+        parser.error(f"{torch.cuda.device_count()} cards are visible and one process trains on "
+                     "one card: train data-parallel on all of them with python -m "
+                     "torch.distributed.run --nproc-per-node "
+                     f"{torch.cuda.device_count()} -m downgan_tpu_torch.cli train --multihost "
+                     "--checkpoint-dir DIR ..., or pass --no-mesh to train on one card")
+
+
 def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
     """Train as one tracked run; returns the :class:`Trainer`."""
     from downgan_tpu_torch.inference import CRITIC_FILE, is_bundle, load_bundle
+    from downgan_tpu_torch.parallel.mesh import in_group, rank
+    from downgan_tpu_torch.parallel.multihost import local_device
     from downgan_tpu_torch.tracking import TrackingStore, define_experiment, log_hyperparams
     from downgan_tpu_torch.training.state import resolve_device
     from downgan_tpu_torch.training.trainer import Trainer
     from downgan_tpu_torch.utils.checkpoint import CheckpointManager
 
+    _join_ranks(args, parser)
+    primary = rank() == 0
     config = _load_config(args.config)
     overrides = {k: getattr(args, k) for k in (
         "batch_size", "epochs", "compute_dtype", "schedule", "lr_schedule", "lr_warmup_steps",
@@ -241,16 +281,20 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
                          f"{bundle_config.critic_conditional}; pass a matching "
                          "--critic-conditional (or drop the bundle's critic.pt to warm-start "
                          "the generator only)")
-    device = resolve_device(args.device)
+    device = resolve_device(local_device(args.device))
     _fp32_without_tf32()
     train_ds, test_ds = _datasets(args, parser, config, device)
 
-    store = TrackingStore(args.tracking_root)
-    exp_id = define_experiment(store, args.experiment, tag=config.experiment_tag)
-    run = store.create_run(exp_id, run_name=args.run_name).start()
-    log_hyperparams(run, config)
-    with open(run.artifact_path("config.json"), "w") as f:
-        f.write(config.to_json())
+    # Under --multihost rank 0 tracks the run; every rank checkpoints into
+    # the shared --checkpoint-dir (rank 0 writes).
+    run = None
+    if primary:
+        store = TrackingStore(args.tracking_root)
+        exp_id = define_experiment(store, args.experiment, tag=config.experiment_tag)
+        run = store.create_run(exp_id, run_name=args.run_name).start()
+        log_hyperparams(run, config)
+        with open(run.artifact_path("config.json"), "w") as f:
+            f.write(config.to_json())
     max_ckpt = config.max_checkpoints if args.max_checkpoints is None else args.max_checkpoints
     ckpt = CheckpointManager(
         args.checkpoint_dir or os.path.join(run.artifact_dir, "checkpoints"),
@@ -260,7 +304,8 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
         trainer = Trainer(config, train_ds, test_ds, device=device, run=run,
                           checkpoint_manager=ckpt, save_every=args.save_every,
                           print_every=args.print_every, track_best=args.track_best,
-                          best_mode=args.best_mode)
+                          best_mode=args.best_mode,
+                          multihost=args.multihost and in_group())
         resumed = trainer.maybe_resume() if args.resume else False
         if args.warm_start and not resumed:
             _, g_weights, c_weights = load_bundle(args.warm_start)
@@ -268,20 +313,23 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
         trainer.train()
         # KILLED is MLflow's status for a run stopped from outside; the full
         # state is checkpointed either way.
-        run.end("KILLED" if trainer.preempted else "FINISHED")
+        if run is not None:
+            run.end("KILLED" if trainer.preempted else "FINISHED")
     except BaseException:
-        run.end("FAILED")
+        if run is not None:
+            run.end("FAILED")
         raise
     finally:
         ckpt.close()
         if args.stream:
             train_ds.close()
             test_ds.close()
-    if trainer.preempted:
-        print(f"preempted after epoch {trainer.epoch - 1}: checkpoint saved; re-run with "
-              "--resume to continue the exact trajectory", file=sys.stderr, flush=True)
-    print(f"run {run.run_id} finished; artifacts in {run.artifact_dir}", file=sys.stderr,
-          flush=True)
+    if run is not None:
+        if trainer.preempted:
+            print(f"preempted after epoch {trainer.epoch - 1}: checkpoint saved; re-run with "
+                  "--resume to continue the exact trajectory", file=sys.stderr, flush=True)
+        print(f"run {run.run_id} finished; artifacts in {run.artifact_dir}", file=sys.stderr,
+              flush=True)
     return trainer
 
 
@@ -472,7 +520,27 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--freq-sep", action=argparse.BooleanOptionalAction, default=None,
                        help="Frequency-separation training: the critic scores high-pass "
                        "residuals and the content loss compares the low-pass bands.")
-    train.add_argument("--device", default="cuda", help="Torch device (default cuda).")
+    train.add_argument("--device", default="cuda",
+                       help="Torch device (default cuda: under --multihost, this rank's card).")
+    train.add_argument("--mesh", action=argparse.BooleanOptionalAction, default=True,
+                       help="Data-parallel over every visible card. One process trains on "
+                       "one card, so with more than one card visible and no --multihost "
+                       "this is refused with the torchrun command to use; --no-mesh trains "
+                       "on one card.")
+    train.add_argument("--multihost", action="store_true",
+                       help="Data-parallel training, one process per card: join the job "
+                       "(torchrun's environment, or --coordinator/--num-processes/"
+                       "--process-id), take this rank's rows of every global batch, average "
+                       "gradients across the ranks; rank 0 tracks the run and writes the "
+                       "checkpoints. Run the same command on every rank. Requires "
+                       "--checkpoint-dir (a path every rank reads).")
+    train.add_argument("--coordinator", default=None,
+                       help="host:port of rank 0 (or a tcp:// or file:// URL) for --multihost "
+                       "(omit under torchrun).")
+    train.add_argument("--num-processes", type=int, default=None,
+                       help="Ranks in the job for --multihost (omit under torchrun).")
+    train.add_argument("--process-id", type=int, default=None,
+                       help="This process's rank for --multihost (omit under torchrun).")
     train.add_argument("--experiment", default="downgan-tpu", help="Experiment name.")
     train.add_argument("--run-name", default=None)
     train.add_argument("--tracking-root", default="experiments")

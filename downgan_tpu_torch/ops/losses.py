@@ -4,11 +4,13 @@ accumulates them on the device. Channel 0 is u and channel 1 is v; dim 2
 is lat (y) and dim 3 is lon (x).
 
 Every standard deviation here is the population one (``correction=0``), as
-``jnp.std``: ``torch.std`` defaults to the unbiased one.
+``jnp.std``: ``torch.std`` defaults to the unbiased one. The terms that
+divide by one take its function as ``std``: under data parallelism the
+train step passes the global batch's (``parallel/dp.py::global_std``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,28 +39,39 @@ def _finite_differences(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return dudy, dvdx
 
 
-def _normalized_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """MSE between ``a`` and ``b``, each divided by its own population std."""
-    return (a / a.std(correction=0) - b / b.std(correction=0)).square().mean()
+def population_std(x: torch.Tensor) -> torch.Tensor:
+    """The population std of all of ``x``'s elements (``jnp.std``)."""
+    return x.std(correction=0)
 
 
-def divergence_loss(hr: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
+Std = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _normalized_mse(a: torch.Tensor, b: torch.Tensor, std: Std) -> torch.Tensor:
+    """MSE between ``a`` and ``b``, each divided by its own std."""
+    return (a / std(a) - b / std(b)).square().mean()
+
+
+def divergence_loss(hr: torch.Tensor, fake: torch.Tensor,
+                    std: Std = population_std) -> torch.Tensor:
     """MSE between std-normalized divergence fields (``losses.py:51-63``;
     golden value 0.0018 on the reference's Gaussian fixture)."""
     dudy_r, dvdx_r = _finite_differences(hr)
     dudy_f, dvdx_f = _finite_differences(fake)
-    return _normalized_mse(dudy_r + dvdx_r, dudy_f + dvdx_f)
+    return _normalized_mse(dudy_r + dvdx_r, dudy_f + dvdx_f, std)
 
 
-def vorticity_loss(hr: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
+def vorticity_loss(hr: torch.Tensor, fake: torch.Tensor,
+                   std: Std = population_std) -> torch.Tensor:
     """MSE between std-normalized vorticity fields (``losses.py:66-78``;
     golden value 0.00144)."""
     dudy_r, dvdx_r = _finite_differences(hr)
     dudy_f, dvdx_f = _finite_differences(fake)
-    return _normalized_mse(dvdx_r - dudy_r, dvdx_f - dudy_f)
+    return _normalized_mse(dvdx_r - dudy_r, dvdx_f - dudy_f, std)
 
 
-def eof_loss(components: torch.Tensor, hr: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
+def eof_loss(components: torch.Tensor, hr: torch.Tensor, fake: torch.Tensor,
+             std: Std = population_std) -> torch.Tensor:
     """MSE between std-normalized EOF projections of real and fake
     (``losses.py:81-101``). ``components`` is (n_comp, H*W), shared by
     every channel, or (n_comp, C, H*W); the fields are flattened over
@@ -68,7 +81,7 @@ def eof_loss(components: torch.Tensor, hr: torch.Tensor, fake: torch.Tensor) -> 
     eq = "bcp,kp->bck" if components.ndim == 2 else "bcp,kcp->bck"
     proj_r = torch.einsum(eq, hr_flat, components)
     proj_f = torch.einsum(eq, fake_flat, components)
-    return _normalized_mse(proj_f, proj_r)
+    return _normalized_mse(proj_f, proj_r, std)
 
 
 def low_pass(x: torch.Tensor, filter_size: int = 5) -> torch.Tensor:

@@ -19,8 +19,27 @@ checkpointed; then a test pass over every test sample
 it selects a best epoch; the best bundle on an improvement; a checkpoint
 every ``save_every`` epochs. SIGTERM stops the loop at the next epoch
 boundary with the full state checkpointed, and :meth:`Trainer.maybe_resume`
-continues the exact trajectory. The multi-host branch, grid plots and
-TensorBoard are not ported yet.
+continues the exact trajectory. Grid plots and TensorBoard are not ported
+yet.
+
+Data-parallel training (``multihost``, the JAX package's multi-host
+branch, ``trainer.py:125-186``): one process per card in a process group
+(``parallel.multihost.initialize``). Every rank builds the same seeded
+state, and rank 0's is broadcast to the others
+(``parallel.mesh.replicate_state``). Each rank takes its contiguous rows of
+every global batch of the shared permutation: gathered on its device from
+a replicated ``DeviceDataset`` (``parallel.dp.device_batches``, whatever
+``hp.fused_epoch`` says), or read alone from a ``HostDataset`` or
+``StreamDataset`` through ``prefetch_batches``. The step averages the
+gradients and the metrics across the ranks, so every rank ends each step
+with the same weights and the same means, and ``halt_on_nonfinite``
+decides alike everywhere. The test pass runs whole on every rank (the same
+weights and batches, so the same means as one process). Tracking, printed
+lines and best bundles come from rank 0; checkpoints are written by rank 0
+between barriers and restored by every rank. The stop at an epoch boundary
+after a SIGTERM is agreed by all ranks (any rank preempted: all stop at the
+same epoch). The EOF basis is fit on every rank and rank 0's is broadcast,
+so the ranks use the same bits whatever LAPACK's threads did.
 
 A stochastic generator (``config.noise_channels > 0``) needs nothing of the
 loop: the step draws its training latents as functions of ``(seed, step,
@@ -53,8 +72,19 @@ from downgan_tpu_torch.data.dataset import DeviceDataset
 from downgan_tpu_torch.data.eof import fit_eofs_per_channel
 from downgan_tpu_torch.data.feed import FeedStats, HostDataset, prefetch_batches
 from downgan_tpu_torch.inference import write_generator_bundle
+from downgan_tpu_torch.parallel.dp import GroupSync, device_batches
+from downgan_tpu_torch.parallel.mesh import (
+    batch_rows,
+    broadcast_tensors,
+    in_group,
+    rank,
+    replicate_state,
+    rows_of,
+    world_size,
+)
 from downgan_tpu_torch.training.state import make_train_state
 from downgan_tpu_torch.training.wgan import (
+    LOCAL_SYNC,
     build_eval_metrics,
     build_fused_round,
     build_train_step,
@@ -145,17 +175,34 @@ class Trainer:
 
     ``eof_components`` is the EOF basis of the ``hp.eof_lambda`` term;
     without one the trainer fits it from ``train``
-    (``eof_fit_seconds`` then says how long that took)."""
+    (``eof_fit_seconds`` then says how long that took).
+
+    ``multihost`` trains data-parallel over the ranks of the job's process
+    group (module docstring); None turns it on when the group has more
+    than one rank. Each rank passes the same config and sets
+    (``hp.batch_size`` is the global batch and must divide over the ranks)
+    and its own ``device``; ``run`` counts on rank 0 only."""
 
     def __init__(self, config: Config, train: DeviceDataset,
                  test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda",
                  run=None, checkpoint_manager=None, save_every: Optional[int] = None,
                  print_every: Optional[int] = None, halt_on_nonfinite: bool = True,
                  track_best: Optional[str] = None, best_mode: Optional[str] = None,
-                 best_dir: Optional[str] = None, eof_components=None):
+                 best_dir: Optional[str] = None, eof_components=None,
+                 multihost: Optional[bool] = None):
         self.config = config
+        self.multihost = world_size() > 1 if multihost is None else multihost
+        if self.multihost and not in_group():
+            raise ValueError("multihost training needs a process group: call "
+                             "parallel.multihost.initialize first")
+        # A trainer that is not data-parallel takes whole batches, even in a group.
+        self.rank, self.world = (rank(), world_size()) if self.multihost else (0, 1)
+        self._primary = rank() == 0
+        rows_of(config.hp.batch_size, self.rank, self.world)  # refuses a batch that does not divide
         self.state = make_train_state(config, device)
         self.device = next(self.state.generator.parameters()).device
+        if self.multihost:
+            replicate_state(self.state)
         for name, ds in (("train", train), ("test", test)):
             if isinstance(ds, DeviceDataset) and ds.device != self.device:
                 raise ValueError(f"the {name} set lies on {ds.device}, the trainer on {self.device}")
@@ -175,7 +222,9 @@ class Trainer:
             raise ValueError(f"{len(train)} training samples make no batch of "
                              f"{config.hp.batch_size}")
         self.train_ds, self.test_ds = train, test
-        self.run, self.ckpt = run, checkpoint_manager
+        # Tracking comes from rank 0 only; every rank checkpoints (rank 0
+        # writes) and tracks the best value (rank 0 writes the bundle).
+        self.run, self.ckpt = (run if self._primary else None), checkpoint_manager
         self.save_every = config.hp.save_every if save_every is None else save_every
         self.print_every = config.hp.print_every if print_every is None else print_every
         if self.save_every < 1 or self.print_every < 1:
@@ -205,7 +254,7 @@ class Trainer:
                 raise ValueError(f"best_mode must be 'max' or 'min', got {best_mode!r}")
             if best_dir is None and run is not None:
                 best_dir = os.path.join(run.artifact_dir, "best")
-            if best_dir is None:
+            if best_dir is None and self._primary:
                 raise ValueError("track_best needs best_dir (or a tracked run whose "
                                  "artifact dir provides the default <artifacts>/best)")
         self.best_mode, self.best_dir = best_mode, best_dir
@@ -214,17 +263,21 @@ class Trainer:
         if config.hp.eof_lambda and eof_components is None:
             t0 = time.perf_counter()
             eof_components = training_eof_components(train, config.hp.ncomp)
+            if self.multihost:
+                basis = torch.from_numpy(eof_components)
+                broadcast_tensors([basis], self.device)
+                eof_components = basis.numpy()
             self.eof_fit_seconds = time.perf_counter() - t0
-            print(f"EOF basis: {eof_components.shape[0]} components per channel fit from "
-                  f"{len(train)} training fields in {self.eof_fit_seconds:.2f} s",
-                  file=sys.stderr, flush=True)
+            self._say(f"EOF basis: {eof_components.shape[0]} components per channel fit from "
+                      f"{len(train)} training fields in {self.eof_fit_seconds:.2f} s")
         self.eof_components = eof_components
 
         self.epoch = 0
         self.history: List[dict] = []
         build = build_fused_round if config.hp.schedule == "fused" else build_train_step
         self.step_fn = build(config, self.state.generator, self.state.critic,
-                             eof_components=eof_components)
+                             eof_components=eof_components,
+                             sync=GroupSync() if self.multihost else LOCAL_SYNC)
         self._eval = build_eval_metrics(config)
         self.forwards = self.step_fn.forwards
         self.forwards["test"] = 0
@@ -246,7 +299,7 @@ class Trainer:
         last = self.ckpt.latest_step()
         self.state.load_state_dict(self.ckpt.restore(last))
         self.epoch = last + 1
-        if self.track_best:
+        if self.track_best and self.best_dir is not None:  # rank 0's, across ranks
             best_json = os.path.join(self.best_dir, "best.json")
             if os.path.exists(best_json):
                 with open(best_json) as f:
@@ -254,8 +307,7 @@ class Trainer:
                 if rec.get("metric") == self.track_best and rec.get("mode") == self.best_mode:
                     self.best_value = float(rec["value"])
                     self.best_epoch = int(rec.get("epoch", -1))
-        print(f"resumed from checkpoint of epoch {last}; continuing at epoch {self.epoch}",
-              file=sys.stderr, flush=True)
+        self._say(f"resumed from checkpoint of epoch {last}; continuing at epoch {self.epoch}")
         return True
 
     def warm_start(self, g_weights: Mapping[str, torch.Tensor],
@@ -270,8 +322,13 @@ class Trainer:
         if c_weights is not None:
             self.state.critic.load_state_dict(c_weights)
         what = "generator+critic" if c_weights is not None else "generator"
-        print(f"warm start: {what} params loaded; optimizer state and step counter start fresh",
-              file=sys.stderr, flush=True)
+        self._say(f"warm start: {what} params loaded; optimizer state and step counter start "
+                  "fresh")
+
+    def _say(self, message: str) -> None:
+        """A status line on stderr, from rank 0 only."""
+        if self._primary:
+            print(message, file=sys.stderr, flush=True)
 
     # -- epoch internals ---------------------------------------------------
     def _epoch_rng(self) -> np.random.Generator:
@@ -287,28 +344,21 @@ class Trainer:
         start = self.state.step
         sums: Dict[str, torch.Tensor] = {}
         if self._host_fed:
+            # Each rank reads only its rows of every global batch.
             stats = FeedStats()
             self.feed_stats.append(stats)
-            for coarse, fine in prefetch_batches(self.train_ds, perm, self.device, stats=stats):
+            rows = batch_rows(perm, self.rank, self.world, axis=-1)
+            for coarse, fine in prefetch_batches(self.train_ds, rows, self.device, stats=stats):
                 _add(sums, self.step_fn(self.state, coarse, fine))
             return self._train_means(start, len(perm), sums)
-        fused = hp.schedule == "fused"
-        if fused:
-            n_c = hp.critic_iterations
-            rounds = len(perm) // n_c
-            if rounds == 0:
-                raise ValueError(f"dataset too small: {len(perm)} steps/epoch < "
-                                 f"critic_iterations={n_c} needed per fused round")
-            perm = perm[:rounds * n_c].reshape(rounds, n_c, hp.batch_size)
-        perm = torch.from_numpy(perm).to(self.device, torch.long)
-        for idx in perm:
-            coarse, fine = self.train_ds.gather(idx.reshape(-1))
-            if fused:
-                coarse, fine = (t.reshape(*idx.shape, *t.shape[1:]) for t in (coarse, fine))
+        n = 0
+        for coarse, fine in device_batches(self.config, self.train_ds, perm, self.rank,
+                                           self.world):
             _add(sums, self.step_fn(self.state, coarse, fine))
-        if fused:
-            return len(perm), _to_host_means(sums, len(perm))
-        return self._train_means(start, len(perm), sums)
+            n += 1
+        if hp.schedule == "fused":
+            return n, _to_host_means(sums, n)
+        return self._train_means(start, n, sums)
 
     def _train_means(self, start: int, n: int, sums: Dict[str, torch.Tensor]
                      ) -> tuple[int, Dict[str, float]]:
@@ -355,6 +405,8 @@ class Trainer:
                 val > self.best_value if self.best_mode == "max" else val < self.best_value):
             return
         self.best_value, self.best_epoch = float(val), self.epoch
+        if not self._primary:
+            return
         serving = self.state.g_ema if use_ema else self.state.generator
         write_generator_bundle(self.best_dir, self.config, serving.state_dict())
         with open(os.path.join(self.best_dir, "best.json"), "w") as f:
@@ -385,6 +437,17 @@ class Trainer:
             return True, signal.signal(signal.SIGTERM, on_term)
         except ValueError:  # an embedded interpreter that refuses handlers
             return False, None
+
+    def _should_stop(self) -> bool:
+        """Whether to stop at this epoch boundary: this process was sent
+        SIGTERM or, across ranks, any rank was (a SUM all-reduce of the
+        flags), so every rank stops at the same epoch and meets the final
+        checkpoint's barriers."""
+        if self.multihost:
+            flag = torch.tensor([float(self.preempted)], device=self.device)
+            torch.distributed.all_reduce(flag)
+            self.preempted = bool(flag.item() > 0)
+        return self.preempted
 
     # -- main loop ---------------------------------------------------------
     def train(self, epochs: Optional[int] = None) -> List[dict]:
@@ -423,7 +486,7 @@ class Trainer:
             # Checked straight after the train epoch: within a preemption's
             # grace period the test pass and the best bundle would take the
             # time the checkpoint needs.
-            stopping = self.preempted
+            stopping = self._should_stop()
             if not stopping and self.test_ds is not None and len(self.test_ds) > 0:
                 means = self.run_test_pass()
                 record["test"] = {k: v for k, v in means.items() if not k.endswith(EMA_SUFFIX)}
@@ -435,16 +498,15 @@ class Trainer:
                     self._update_best(record.get("test_ema", record["test"]))
             if self.ckpt is not None and self.epoch % self.save_every == 0:
                 self.ckpt.save(self.epoch, self.state)
-            if self.epoch % self.print_every == 0:
+            if self._primary and self.epoch % self.print_every == 0:
                 print(json.dumps(record), flush=True)
             self.history.append(record)
             self.epoch += 1
             # Checked again, so a SIGTERM that lands during the test pass or
             # the save stops here rather than after one more train epoch.
-            if stopping or self.preempted:
+            if stopping or self._should_stop():
                 tail = ("full state checkpointed; resume continues the exact trajectory"
                         if self.ckpt is not None else
                         "no checkpoint manager configured; state NOT saved")
-                print(f"preempted (SIGTERM): stopping after epoch {self.epoch - 1}; {tail}",
-                      file=sys.stderr, flush=True)
+                self._say(f"preempted (SIGTERM): stopping after epoch {self.epoch - 1}; {tail}")
                 break

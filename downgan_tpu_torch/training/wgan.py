@@ -57,6 +57,25 @@ The training variants (``wgan.py:111-295`` of the JAX package):
 - ``augment_flips``: the step mirrors each (coarse, fine) pair by the
   masks :func:`flip_masks` of ``(config.seed, step)`` (or ``flips=``)
   before anything else reads the batch.
+Data parallelism (``parallel/dp.py``): both builders take ``sync``, the
+ranks' agreement. In one process it is :data:`LOCAL_SYNC`, rank 0 of 1,
+and changes nothing. Across ranks each rank runs the step on its
+contiguous rows of the global batch; every update's gradients are averaged
+across the ranks once, after its last microbatch's backward and before the
+optimizer steps (``sync.gradients``), and the step's metrics are the
+ranks' mean (``sync.metrics``). Per-sample randomness follows its sample,
+not its rank: the GP's alphas, the flip masks and the latents are drawn for
+the global batch from ``(seed, step, ...)`` and each rank takes its rows
+(:func:`rank_rows`), and ``alpha``/``alphas``/``latents``/``flips`` given
+to a step are for the global batch too. Statistics of the whole batch
+are the global batch's: the metric pass scores the fields of every rank's
+rows (``sync.gather``), so MS-SSIM's min-max normalization and RALSD's
+mean spectrum see the global batch, and the physics terms divide by the
+std over every rank's rows (``sync.std``, differentiable; under
+``grad_accum``, over microbatch i of every rank). So a run's numbers do not
+depend on how many ranks share its batch beyond rounding, as in the JAX
+package, where the key is replicated and GSPMD shards the draw and the
+reductions.
 ``hp.fused_epoch`` and ``hp.remat`` only shape the JAX package's XLA
 program (one ``lax.scan`` per epoch; activation rematerialization) and
 leave the math alone, so the port accepts and ignores them; its DRB
@@ -78,6 +97,7 @@ from downgan_tpu_torch.ops.losses import (
     divergence_loss,
     eof_loss,
     low_pass,
+    population_std,
     vorticity_loss,
     wass_loss,
 )
@@ -85,6 +105,41 @@ from downgan_tpu_torch.ops.metrics import resolve_metrics
 from downgan_tpu_torch.training.state import GANTrainState
 
 Metrics = Dict[str, torch.Tensor]
+
+
+class LocalSync:
+    """The agreement of a lone process: rank 0 of 1, gradients and metrics
+    left as they are, its rows the whole batch. ``parallel.dp.GroupSync`` is
+    the one across ranks."""
+
+    rank, world = 0, 1
+
+    def gradients(self, params: Sequence[torch.Tensor]) -> None:
+        """Average ``params``' gradients across the ranks (here: nothing)."""
+
+    def metrics(self, metrics: Metrics) -> Metrics:
+        """The ranks' mean of each metric (here: ``metrics`` itself)."""
+        return metrics
+
+    def gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows in rank order: the global batch (here: ``rows``)."""
+        return rows
+
+    def std(self, x: torch.Tensor) -> torch.Tensor:
+        """The population std of ``x``'s elements over every rank."""
+        return population_std(x)
+
+
+LOCAL_SYNC = LocalSync()
+
+
+def rank_rows(draw: torch.Tensor, sync, axis: int = 0) -> torch.Tensor:
+    """``sync``'s rank's contiguous rows of ``draw``, a draw for the global
+    batch along ``axis``; all of it at world size 1."""
+    if sync.world == 1:
+        return draw
+    n = draw.shape[axis] // sync.world
+    return draw.narrow(axis, sync.rank * n, n)
 
 
 def gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,
@@ -147,15 +202,16 @@ def critic_loss(config: Config, critic: nn.Module, fake: torch.Tensor, real: tor
 
 
 def generator_loss(config: Config, gen: nn.Module, critic: nn.Module, coarse: torch.Tensor,
-                   fine: torch.Tensor, eof_components: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   fine: torch.Tensor, eof_components: Optional[torch.Tensor] = None,
+                   std=population_std) -> torch.Tensor:
     """-gamma * E[C(G(coarse))] + content_lambda * L1(G(coarse), fine);
     ``coarse`` is the generator's whole input (latent included), and the
     conditional critic sees its covariates only. Under ``freq_sep`` the
     critic scores the fake's high band and the L1 compares the low bands.
     Plus ``divergence_lambda``, ``vorticity_lambda`` and ``eof_lambda``
-    times their terms on the whole fake; ``eof_components`` is the basis
-    :func:`eof_basis` made."""
+    times their terms on the whole fake, each normalized by ``std`` (the
+    batch's population std; the global batch's across ranks);
+    ``eof_components`` is the basis :func:`eof_basis` made."""
     hp = config.hp
     condition = make_condition(config)
     cov = coarse[:, :config.n_covariates]
@@ -169,11 +225,11 @@ def generator_loss(config: Config, gen: nn.Module, critic: nn.Module, coarse: to
         loss = (-critic(condition(fake, cov)).mean() * hp.gamma
                 + hp.content_lambda * content_loss(fake, fine))
     if hp.divergence_lambda:
-        loss = loss + hp.divergence_lambda * divergence_loss(fine, fake)
+        loss = loss + hp.divergence_lambda * divergence_loss(fine, fake, std)
     if hp.vorticity_lambda:
-        loss = loss + hp.vorticity_lambda * vorticity_loss(fine, fake)
+        loss = loss + hp.vorticity_lambda * vorticity_loss(fine, fake, std)
     if hp.eof_lambda:
-        loss = loss + hp.eof_lambda * eof_loss(eof_components, fine, fake)
+        loss = loss + hp.eof_lambda * eof_loss(eof_components, fine, fake, std)
     return loss
 
 
@@ -228,20 +284,24 @@ _LATENT_TAG = 2  # keeps the latent streams apart from gp_alpha's (seed, step)
 FIXED_LATENT_TAG = 0x5E11  # the JAX package's fixed-realization tag (eval_noise_rng, spatial.py)
 
 
-def train_latent(config: Config, step: int, stream: str,
-                 coarse: torch.Tensor) -> Optional[torch.Tensor]:
+def train_latent(config: Config, step: int, stream: str, coarse: torch.Tensor,
+                 sync=LOCAL_SYNC) -> Optional[torch.Tensor]:
     """The training latent (B, k, h, w) for ``coarse`` (B, C, h, w) of the
     generator forward ``stream`` (one of :data:`LATENT_STREAMS`) at
     ``step``, N(0, 1) in ``coarse``'s dtype, drawn on ``coarse``'s device
     from a generator seeded from ``(config.seed, step, stream)``: a pure
-    function of the three. None for a deterministic generator."""
+    function of the three. Under data parallelism ``coarse`` is a rank's
+    rows: the latent is drawn for the global batch and the rank takes its
+    rows. None for a deterministic generator."""
     k = config.noise_channels
     if not k:
         return None
     b, _, h, w = coarse.shape
     rng = _device_rng((config.seed, step, _LATENT_TAG, LATENT_STREAMS.index(stream)),
                       coarse.device)
-    return torch.randn((b, k, h, w), generator=rng, device=coarse.device, dtype=coarse.dtype)
+    z = torch.randn((b * sync.world, k, h, w), generator=rng, device=coarse.device,
+                    dtype=coarse.dtype)
+    return rank_rows(z, sync)
 
 
 def fixed_latent(config: Config, shape: Tuple[int, int, int, int]) -> np.ndarray:
@@ -283,12 +343,14 @@ def g_updates_in_window(start_step: int, n_steps: int, critic_iterations: int) -
     return max(0, (last - first) // n + 1)
 
 
-def build_metric_pass(config: Config) -> Callable[..., Metrics]:
+def build_metric_pass(config: Config, sync=LOCAL_SYNC) -> Callable[..., Metrics]:
     """``score(critic, fake, fine, coarse)``: the metric registry on
     ``fake`` against ``fine``, and Wass from the critic on the conditioned
     pair (its two forwards fused under ``hp.fused_critic_pass``; ``coarse``,
     the covariates, is read only by a conditional critic); no update, no
-    graph."""
+    graph. Across ``sync``'s ranks the registry scores the global batch
+    (every rank's rows of ``fake`` and ``fine``, the same values on every
+    rank) and Wass this rank's rows."""
     names = config.hp.metrics_to_calculate
     fns = resolve_metrics(names)
     fused = config.hp.fused_critic_pass
@@ -297,7 +359,8 @@ def build_metric_pass(config: Config) -> Callable[..., Metrics]:
     @torch.no_grad()
     def score(critic: nn.Module, fake: torch.Tensor, fine: torch.Tensor,
               coarse: torch.Tensor) -> Metrics:
-        out = {name: fn(fine, fake) for name, fn in fns.items()}
+        whole_fine, whole_fake = sync.gather(fine), sync.gather(fake)
+        out = {name: fn(whole_fine, whole_fake) for name, fn in fns.items()}
         if "Wass" in names:
             out["Wass"] = wass_loss(*critic_pair_means(critic, condition(fine, coarse),
                                                        condition(fake, coarse), fused))
@@ -347,43 +410,50 @@ def _microbatches(k: int, *tensors: torch.Tensor):
     return zip(*(t.chunk(k) for t in tensors))
 
 
-def _accumulate(k: int, losses, params: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+def _accumulate(k: int, losses, params: Sequence[torch.Tensor],
+                sync=LOCAL_SYNC) -> Tuple[torch.Tensor, ...]:
     """Backward of each microbatch's (loss, *aux) from the iterable
     ``losses`` into ``params``' gradients, scaled by 1/k, each
-    graph freed before the next microbatch is built; returns the detached
-    means of (loss, *aux) over the microbatches."""
+    graph freed before the next microbatch is built, then the gradients
+    averaged across the ranks once (``sync.gradients``); returns the
+    detached means of (loss, *aux) over this rank's microbatches."""
     totals = None
     for out in losses:
         (out[0] / k).backward(inputs=params)
         out = [t.detach() for t in out]
         totals = out if totals is None else [a + b for a, b in zip(totals, out)]
+    sync.gradients(params)
     return tuple(t / k for t in totals)
 
 
 def critic_update(config: Config, state: GANTrainState, critic: nn.Module,
                   c_params: Sequence[torch.Tensor], fake: torch.Tensor, real: torch.Tensor,
-                  alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  alpha: torch.Tensor, sync=LOCAL_SYNC
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One critic update on the critic inputs ``fake`` (made without a
-    graph) and ``real``, over ``hp.grad_accum`` microbatches; returns the
-    detached (loss, E[C(real)], E[C(fake)])."""
+    graph) and ``real``, over ``hp.grad_accum`` microbatches, its gradients
+    averaged across ``sync``'s ranks; returns the detached (loss,
+    E[C(real)], E[C(fake)]) of this rank's rows."""
     k = config.hp.grad_accum
     state.c_opt.zero_grad(set_to_none=True)
     out = _accumulate(k, (critic_loss(config, critic, f, r, a)
-                          for f, r, a in _microbatches(k, fake, real, alpha)), c_params)
+                          for f, r, a in _microbatches(k, fake, real, alpha)), c_params, sync)
     state.c_opt.step()
     return out
 
 
 def generator_update(config: Config, state: GANTrainState, gen: nn.Module, critic: nn.Module,
                      g_params: Sequence[torch.Tensor], coarse: torch.Tensor,
-                     fine: torch.Tensor, eof: Optional[torch.Tensor]) -> torch.Tensor:
+                     fine: torch.Tensor, eof: Optional[torch.Tensor],
+                     sync=LOCAL_SYNC) -> torch.Tensor:
     """One generator update against the current critic, over
-    ``hp.grad_accum`` microbatches, then the EMA update; returns the
-    detached loss."""
+    ``hp.grad_accum`` microbatches, its gradients averaged across
+    ``sync``'s ranks, then the EMA update; returns the detached loss of this
+    rank's rows."""
     k = config.hp.grad_accum
     state.g_opt.zero_grad(set_to_none=True)
-    (g_loss,) = _accumulate(k, ((generator_loss(config, gen, critic, c, f, eof),)
-                                for c, f in _microbatches(k, coarse, fine)), g_params)
+    (g_loss,) = _accumulate(k, ((generator_loss(config, gen, critic, c, f, eof, sync.std),)
+                                for c, f in _microbatches(k, coarse, fine)), g_params, sync)
     state.g_opt.step()
     if state.g_ema is not None:
         ema_update(config.hp.ema_decay, state.g_ema, g_params)
@@ -400,7 +470,7 @@ def critic_inputs(config: Config, condition, fake: torch.Tensor, fine: torch.Ten
 
 
 def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
-                     eof_components=None) -> Callable[..., Metrics]:
+                     eof_components=None, sync=LOCAL_SYNC) -> Callable[..., Metrics]:
     """The reference-schedule train step over ``gen`` and ``critic``:
     ``step(state, coarse, fine, alpha=None, latents=None, flips=None) ->
     metrics``, where ``state`` is the :class:`GANTrainState` holding these
@@ -418,9 +488,13 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
     counts the generator forwards it runs, by kind: ``critic_fake``,
     ``update`` and ``metric`` (a generator update runs ``hp.grad_accum``
     forwards, one a microbatch).
+
+    ``sync`` is the ranks' agreement (module docstring; ``step.sync``):
+    under data parallelism ``coarse`` and ``fine`` are this rank's rows,
+    and ``alpha``, ``latents`` and ``flips`` stay the global batch's.
     """
     hp = config.hp
-    score = build_metric_pass(config)
+    score = build_metric_pass(config, sync)
     condition = make_condition(config)
     augment = make_augment(config) if hp.augment_flips else None
     g_params = [p for p in gen.parameters()]
@@ -434,16 +508,18 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
              flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Metrics:
         _check_modules(state, gen, critic)
         at_step = state.step
+        global_b = fine.shape[0] * sync.world
         if augment is not None:
-            coarse, fine = augment(coarse, fine, *(
-                flip_masks(config.seed, at_step, fine.shape[0], fine.device)
-                if flips is None else flips))
+            if flips is None:
+                flips = flip_masks(config.seed, at_step, global_b, fine.device)
+            coarse, fine = augment(coarse, fine, *(rank_rows(m, sync) for m in flips))
         if alpha is None:
-            alpha = gp_alpha(config.seed, at_step, fine.shape[0], fine.device)
+            alpha = gp_alpha(config.seed, at_step, global_b, fine.device)
+        alpha = rank_rows(alpha, sync)
 
         def g_input(stream: str) -> torch.Tensor:
-            z = train_latent(config, at_step, stream, coarse) if latents is None \
-                else latents[stream]
+            z = train_latent(config, at_step, stream, coarse, sync) if latents is None \
+                else rank_rows(latents[stream], sync)
             return with_latent(coarse, z)
 
         # ---- critic update; no gradient reaches the generator
@@ -452,12 +528,12 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
         forwards["critic_fake"] += 1
         c_loss, c_real, c_fake = critic_update(
             config, state, critic, c_params, *critic_inputs(config, condition, fake, fine, coarse),
-            alpha)
+            alpha, sync)
 
         # ---- generator update on the reference schedule, post-update critic
         if state.step % hp.critic_iterations == 0:
             g_loss = generator_update(config, state, gen, critic, g_params, g_input("update"),
-                                       fine, eof)
+                                       fine, eof, sync)
             forwards["update"] += hp.grad_accum
         else:
             g_loss = torch.zeros((), device=fine.device)
@@ -472,14 +548,15 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
                 fake = gen(g_input("metric"))
             forwards["metric"] += 1
         metrics.update(score(critic, fake, fine, coarse))
-        return metrics
+        return sync.metrics(metrics)
 
     step.forwards = forwards
+    step.sync = sync
     return step
 
 
 def build_fused_round(config: Config, gen: nn.Module, critic: nn.Module,
-                      eof_components=None) -> Callable[..., Metrics]:
+                      eof_components=None, sync=LOCAL_SYNC) -> Callable[..., Metrics]:
     """The fused n-critic round over ``gen`` and ``critic`` (``wgan.py:443-
     582``): ``fused_round(state, coarse_n, fine_n, alphas=None,
     latents=None, flips=None) -> metrics`` with inputs (n, B, C, h, w) and
@@ -508,9 +585,12 @@ def build_fused_round(config: Config, gen: nn.Module, critic: nn.Module,
     critic update's fake under ``hp.metrics_reuse_fake`` (made before the
     generator update), else on a fresh fake from the updated generator.
     ``fused_round.forwards`` counts the generator forwards by kind, as
-    :func:`build_train_step`'s."""
+    :func:`build_train_step`'s, and so is ``sync``: under data parallelism
+    the stacks hold this rank's rows on their axis 1, and ``alphas``,
+    ``latents`` and ``flips`` stay the global batch's (the flips (n B_global,)
+    in (n, B_global) order)."""
     hp = config.hp
-    score = build_metric_pass(config)
+    score = build_metric_pass(config, sync)
     condition = make_condition(config)
     augment = make_augment(config) if hp.augment_flips else None
     g_params = [p for p in gen.parameters()]
@@ -527,39 +607,42 @@ def build_fused_round(config: Config, gen: nn.Module, critic: nn.Module,
         if n != hp.critic_iterations:
             raise ValueError(f"a fused round takes critic_iterations={hp.critic_iterations} "
                              f"minibatches, got {n}")
+        global_b = coarse_n.shape[1] * sync.world
         if augment is not None:
             nb = n * coarse_n.shape[1]
+            if flips is None:
+                flips = flip_masks(config.seed, state.step, n * global_b, fine_n.device)
             c2, f2 = augment(coarse_n.reshape(nb, *coarse_n.shape[2:]),
                              fine_n.reshape(nb, *fine_n.shape[2:]),
-                             *(flip_masks(config.seed, state.step, nb, fine_n.device)
-                               if flips is None else flips))
+                             *(rank_rows(m.reshape(n, global_b), sync, axis=1).reshape(nb)
+                               for m in flips))
             coarse_n, fine_n = c2.reshape(coarse_n.shape), f2.reshape(fine_n.shape)
 
         def g_input(stream: str, coarse: torch.Tensor, i: Optional[int] = None) -> torch.Tensor:
             if latents is None:
-                z = train_latent(config, state.step, stream, coarse)
+                z = train_latent(config, state.step, stream, coarse, sync)
             else:
-                z = latents[stream] if i is None else latents[stream][i]
+                z = rank_rows(latents[stream] if i is None else latents[stream][i], sync)
             return with_latent(coarse, z)
 
         losses, reals, fakes = [], [], []
         for i in range(n):
             coarse, fine = coarse_n[i], fine_n[i]
-            alpha = (gp_alpha(config.seed, state.step, fine.shape[0], fine.device)
-                     if alphas is None else alphas[i])
+            alpha = rank_rows(gp_alpha(config.seed, state.step, global_b, fine.device)
+                              if alphas is None else alphas[i], sync)
             with torch.no_grad():
                 fake = gen(g_input("critic_fake", coarse, i))
             forwards["critic_fake"] += 1
             c_loss, c_real, c_fake = critic_update(
                 config, state, critic, c_params,
-                *critic_inputs(config, condition, fake, fine, coarse), alpha)
+                *critic_inputs(config, condition, fake, fine, coarse), alpha, sync)
             losses.append(c_loss)
             reals.append(c_real)
             fakes.append(c_fake)
             state.step += 1
 
         g_loss = generator_update(config, state, gen, critic, g_params,
-                                   g_input("update", coarse), fine, eof)
+                                   g_input("update", coarse), fine, eof, sync)
         forwards["update"] += hp.grad_accum
         metrics = {"critic_loss": torch.stack(losses).mean(), "gen_loss": g_loss,
                    "Wass": wass_loss(torch.stack(reals).mean(), torch.stack(fakes).mean())}
@@ -568,7 +651,8 @@ def build_fused_round(config: Config, gen: nn.Module, critic: nn.Module,
                 fake = gen(g_input("metric", coarse))
             forwards["metric"] += 1
         metrics.update(score(critic, fake, fine, coarse))
-        return metrics
+        return sync.metrics(metrics)
 
     fused_round.forwards = forwards
+    fused_round.sync = sync
     return fused_round

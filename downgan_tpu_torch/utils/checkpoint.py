@@ -8,6 +8,12 @@ flushed to disk and renamed into place, so a crash mid-save leaves the
 previous checkpoints whole. Files are read with
 ``torch.load(weights_only=True)``: a checkpoint holds tensors, numbers,
 strings, lists and dicts, never a pickled object.
+
+Across ranks (``parallel/``) the state is the same on every rank and the
+directory is shared: every rank calls :meth:`CheckpointManager.save`, rank
+0 writes, and all of them meet at a barrier before and after, so each sees
+the same files and returns the same answer; every rank restores from the
+directory.
 """
 from __future__ import annotations
 
@@ -16,6 +22,9 @@ import re
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from downgan_tpu_torch.parallel.mesh import in_group, rank
 
 _STEP_FILE = re.compile(r"(\d+)\.pt")
 
@@ -39,15 +48,24 @@ class CheckpointManager:
     def save(self, step: int, state, force: bool = False) -> bool:
         """Write ``state.state_dict()`` as ``step``. As Orbax: without
         ``force`` a step at or below the latest one is skipped (returns
-        False); ``force`` saves it, but never over an existing step."""
+        False); ``force`` saves it, but never over an existing step. In a
+        process group every rank calls it and rank 0 writes."""
+        # Every rank decides from the same listing: the directory changes
+        # only inside save, between the barriers of the previous call.
         steps = self.all_steps()
         if force and step in steps:
             raise ValueError(f"a checkpoint of step {step} already exists in {self.directory}")
         if not force and steps and steps[-1] >= step:
             return False
-        os.makedirs(self.directory, exist_ok=True)
-        save_params(self._path(step), state.state_dict())
-        self._prune()
+        collective = in_group()
+        if collective:
+            dist.barrier()  # every rank has listed the directory before rank 0 changes it
+        if rank() == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            save_params(self._path(step), state.state_dict())
+            self._prune()
+        if collective:
+            dist.barrier()  # the file is whole before any rank reads the directory again
         return True
 
     def _prune(self) -> None:
