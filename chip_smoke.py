@@ -108,6 +108,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                requests equal to direct calls bit for bit (the fixed latent
                in each request's own block layout) and a domain request (the
                whole-domain latent) equal to the direct tiler's;
+    generate -- batch generation (``cli generate``'s loop): the training
+               phase's checkpoint restored through ``generate``'s source
+               resolution, 1,440 synthetic samples through
+               ``generate_fields_iter`` (10 chunks of 150, a 90-row tail, 480
+               DRB launches) equal to ``generate_fields`` bit for bit; the
+               streamed writer's block source (``generated_blocks``) equal to
+               the in-memory result bit for bit, plain, tiled with
+               ``--tile-rows 16`` and a 4-member ensemble of the stochastic
+               generator (the block source needs no h5py: no file is written); 4
+               samples against the CPU; ms per chunk and patches/s, and the
+               parts of a chunk (copy in, forward, copy out) by CUDA events;
+               the same in bf16 from the training_tuned run;
+    evaluate -- ``cli evaluate`` in-process: the training phase's
+               checkpoint over 1,440 synthetic samples (12 batches, 48 DRB
+               launches each); at 144 samples the same against the command on
+               the CPU, the resume phase's EMA run with ``--ema``, the
+               exported bundle (``--weights-only``: no Wass, the warning on
+               stderr) and ``--ensemble 4`` on the stochastic run; the
+               seconds of each command's synthetic set, state and pass;
+    tiles_split -- ``tiled_sr_inference(devices=["cuda:0", "cuda:0"])``
+               against one device on 8 samples of 32x112, deterministic and
+               stochastic, bit for bit, and a ``BatchingSRModel`` over two
+               replicas against one;
 19. srresnet -- ``cli train ... --epochs 1 --generator-arch srresnet`` (the
                SRResNet family, 115,414 params, no DRB and so no
                hand-written kernel), a timed round, its forward against the
@@ -1233,7 +1256,8 @@ def phase_training(tracking_root: Path):
                       "ms_per_update_step": float(np.mean(update_ms)),
                       "ms_per_critic_only_step": float(np.mean(critic_ms)),
                       "peak_memory_bytes": peak_bytes,
-                      "peak_memory_above_start_bytes": peak_bytes - start_bytes}
+                      "peak_memory_above_start_bytes": peak_bytes - start_bytes}, \
+        trainer.ckpt.directory
 
 
 def tuned_config(batch: int, compute_dtype: str):
@@ -1835,8 +1859,9 @@ def phase_resume(config, rng, smi: str):
                      "load_s": load_s, "of_which_file_read_s": read_s,
                      "clock": "host, after torch.cuda.synchronize()"},
          resumed_round_ms=rounds, ema_update_ms=ema_update_ms)
-    tmp.cleanup()
-    return launches, bundle_launches, runs["plain"][0]
+    # The EMA run stays on disk for the evaluate phase (main removes it).
+    return launches, bundle_launches, runs["plain"][0], (tmp, runs["ema"][0].ckpt.directory,
+                                                         root / "florida_ema.json")
 
 
 def phase_host_feed(device_run, smi: str):
@@ -2751,6 +2776,345 @@ def phase_dp(smi: str):
     return fp32_launches, bf16_launches
 
 
+GEN_SAMPLES = 1440  # the generate and evaluate phases' series: 9 chunks of 150 and a 90 tail
+GEN_TILE_DOMAIN = (8, 56, 112)  # a series of taller domains for --tile-rows 16 (4 bands each)
+GEN_MEMBERS = 4
+SPLIT_DOMAIN = (8, 32, 112)  # tiles_split: 2 bands a sample, 16 tiles, 2 dispatches of 8
+
+
+def restore_like_generate(checkpoint: str):
+    """``(config, weights)`` of ``checkpoint`` through ``cli generate``'s own
+    source resolution."""
+    from downgan_tpu_torch.cli.__main__ import _resolve_source, build_parser
+
+    parser = build_parser()
+    return _resolve_source(parser.parse_args(["generate", "--checkpoint", checkpoint]), parser)
+
+
+def synthetic_coarse(config, n: int) -> np.ndarray:
+    from downgan_tpu_torch.data.dataset import synthetic_dataset
+
+    return synthetic_dataset(n_samples=n, coarse_size=config.coarse_size,
+                             fine_size=config.fine_size, n_covariates=config.n_covariates,
+                             n_predictands=config.n_predictands, seed=config.seed)[0]
+
+
+def chunk_parts_ms(config, weights, coarse, chunk: int, repeats: int = 5) -> dict:
+    """One chunk of the generate loop with CUDA events between its parts:
+    the host block's copy to the card (pageable, as the loop does), the
+    forward and the copy back; the median over ``repeats``."""
+    from downgan_tpu_torch.training.state import load_generator
+
+    gen = load_generator(config, weights, "cuda")
+    block = np.ascontiguousarray(coarse[:chunk], np.float32)
+    parts = {"h2d": [], "forward": [], "d2h": []}
+    with torch.inference_mode():
+        for _ in range(repeats + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            x = torch.from_numpy(block).to("cuda")
+            ev[1].record()
+            y = gen(x.permute(0, 3, 1, 2).contiguous())
+            ev[2].record()
+            y.permute(0, 2, 3, 1).cpu()
+            ev[3].record()
+            torch.cuda.synchronize()
+            for k, (a, b) in zip(parts, zip(ev, ev[1:])):
+                parts[k].append(a.elapsed_time(b))
+    parts = {k: float(np.median(v[1:])) for k, v in parts.items()}  # the first warms up
+    total = sum(parts.values())
+    return {"ms": parts, "share": {k: v / total for k, v in parts.items()},
+            "bytes_to_card": block.nbytes,
+            "bytes_to_host": chunk * config.n_predictands * config.fine_size ** 2 * 4}
+
+
+def generate_leg(config, weights, coarse, dtype_label: str):
+    """The generate loop over ``coarse`` with the DRB launches counted from 0:
+    ``generate_fields_iter`` (timed by the host clock, each chunk ending in
+    its copy back), then held bit for bit to ``generate_fields``."""
+    from downgan_tpu_torch.inference import generate_fields, generate_fields_iter
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    chunk = config.chunk_size
+    n_chunks = -(-len(coarse) // chunk)
+    torch.cuda.synchronize()
+    reset_launch_counts()  # the generate path's run starts here
+    blocks, stamps, events = [], [time.perf_counter()], [recorded_event()]
+    for block in generate_fields_iter(config, weights, coarse):  # each ends in its copy back
+        blocks.append(block)
+        stamps.append(time.perf_counter())
+        events.append(recorded_event())
+    launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
+    torch.cuda.synchronize()
+    seconds = stamps[-1] - stamps[0]
+    steady_ms = 1e3 * np.diff(stamps[1:-1])  # the full chunks after the first
+    steady_events_ms = [a.elapsed_time(b) for a, b in zip(events[1:-2], events[2:-1])]
+    want = (48 * n_chunks, 48 * n_chunks if dtype_label == "bfloat16" else 0)
+    check(launches == want, f"generate ({dtype_label}): {launches} (all, bf16) DRB launches, "
+          f"not {want} for {n_chunks} chunks")
+    check([s for s, _ in blocks] == list(range(0, len(coarse), chunk))
+          and blocks[-1][1].shape[0] == len(coarse) - chunk * (n_chunks - 1),
+          f"generate ({dtype_label}): blocks {[(s, b.shape[0]) for s, b in blocks]}")
+    fields = np.concatenate([b for _, b in blocks])
+    check(fields.shape == (len(coarse), config.fine_size, config.fine_size, config.n_predictands)
+          and np.isfinite(fields).all(), f"generate ({dtype_label}): fields {fields.shape}")
+    check(np.array_equal(fields, generate_fields(config, weights, coarse)),
+          f"generate ({dtype_label}): the iterator's blocks differ from generate_fields")
+    return fields, launches[1] if dtype_label == "bfloat16" else launches[0], {
+        "chunks": n_chunks, "chunk": chunk, "tail": len(coarse) - chunk * (n_chunks - 1),
+        "seconds": seconds, "patches_per_s": len(coarse) / seconds,
+        "first_chunk_ms_with_model_build": 1e3 * (stamps[1] - stamps[0]),
+        "ms_per_chunk_samples": steady_ms.tolist(), "ms_per_chunk": float(np.median(steady_ms)),
+        "patches_per_s_steady": chunk / float(np.median(steady_ms)) * 1e3,
+        "clock": "host, each chunk ending in its copy to the host",
+        "ms_per_chunk_events_samples": steady_events_ms,
+        "ms_per_chunk_events": float(np.median(steady_events_ms)),
+        "fields_bytes_to_host": fields.nbytes}
+
+
+def phase_generate(training_ckpt: str, tuned_ckpt: str, stochastic, smi: str):
+    """Batch generation at florida width (``cli generate``'s loop): the
+    ``training`` phase's checkpoint restored as ``cli generate`` restores
+    it, 1,440 synthetic samples through ``generate_fields_iter`` (10
+    dispatches, a 90-row tail) held to ``generate_fields`` bit for bit;
+    the streamed writer's block source (``generated_blocks``) held to the
+    in-memory result bit for bit: plain, tiled with ``--tile-rows 16`` and a
+    4-member ensemble of the ``stochastic`` phase's generator; 4 samples
+    against the CPU; the same in bf16 from the ``training_tuned`` run. Times
+    by the host clock (chunks end in their copy back) and CUDA events (the
+    parts of one chunk). Returns the fp32 and the bf16 DRB launches."""
+    from downgan_tpu_torch.inference import generate_ensemble, generate_fields, generated_blocks
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.parallel.spatial import tiled_sr_inference
+
+    config, weights = restore_like_generate(training_ckpt)
+    check(config.filters == 16 and config.num_res_blocks == 16 and config.chunk_size == B_MAIN
+          and sum(v.numel() for v in weights.values()) == 1_696_514,
+          "the training phase's checkpoint is not the florida generator")
+    coarse = synthetic_coarse(config, GEN_SAMPLES)
+    fields, fp32_launches, timing = generate_leg(config, weights, coarse, "float32")
+    parts = chunk_parts_ms(config, weights, coarse, config.chunk_size)
+    cpu = generate_fields(config, weights, coarse[:4], device="cpu")
+    cpu_err = float(np.abs(fields[:4] - cpu).max())
+    check(np.allclose(fields[:4], cpu, atol=GEN_ATOL, rtol=GEN_RTOL),
+          f"generate: card vs CPU on 4 samples {cpu_err}")
+
+    modes = {}
+    reset_launch_counts()  # the streamed block source's runs start here
+    streamed = np.concatenate([b for _, _, b in generated_blocks(config, weights, coarse)])
+    modes["plain"] = bool(np.array_equal(streamed, fields))
+    tiles_in = np.random.default_rng(5).standard_normal((*GEN_TILE_DOMAIN, 7)).astype(np.float32)
+    tiling = dict(tile_rows=16, overlap=8)
+    streamed = list(generated_blocks(config, weights, tiles_in, chunk_size=3, **tiling))
+    whole = tiled_sr_inference(config, weights, tiles_in, **tiling)
+    modes["tiled"] = bool(np.array_equal(np.concatenate([b for _, _, b in streamed]), whole))
+    sto_cfg = stochastic.config
+    sto_weights = {k: v.detach().cpu() for k, v in stochastic.state.generator.state_dict().items()}
+    members_in = coarse[:2 * B_MAIN]
+    by_member = {}
+    for m, s, b in generated_blocks(sto_cfg, sto_weights, members_in, n_members=GEN_MEMBERS):
+        by_member.setdefault(m, []).append(b)
+    ensemble = generate_ensemble(sto_cfg, sto_weights, members_in, GEN_MEMBERS)
+    modes["ensemble"] = bool(np.array_equal(
+        np.stack([np.concatenate(by_member[m]) for m in range(GEN_MEMBERS)]), ensemble))
+    torch.cuda.synchronize()
+    stream_launches = drb_forward.launches  # ... and end here (the in-memory references included)
+    check(all(modes.values()), f"streamed blocks vs in memory, bit for bit: {modes}")
+    check({m for m, _, _ in streamed} == {None} and not np.array_equal(ensemble[0], ensemble[1]),
+          "tiled blocks carry a member, or the ensemble's members are equal")
+
+    bf16_config, bf16_weights = restore_like_generate(tuned_ckpt)
+    check(bf16_config.hp.compute_dtype == "bfloat16", "the tuned run's logged config is not bf16")
+    bf16_fields, bf16_launches, bf16_timing = generate_leg(bf16_config, bf16_weights, coarse,
+                                                           "bfloat16")
+    bf16_parts = chunk_parts_ms(bf16_config, bf16_weights, coarse, bf16_config.chunk_size)
+    bf16_cpu = generate_fields(bf16_config, bf16_weights, coarse[:4], device="cpu")
+    bf16_err = float(np.abs(bf16_fields[:4] - bf16_cpu).max() / np.abs(bf16_cpu).max())
+    check(bf16_err <= GEN_BF16_REL, f"generate bf16: card vs CPU on 4 samples {bf16_err} of "
+          "the largest magnitude")
+    emit("generate", card=smi, source="generate --checkpoint <the training phase's checkpoints>",
+         samples=GEN_SAMPLES, fp32=timing, fp32_chunk_parts=parts,
+         drb_launches=fp32_launches, drb_launches_per_forward=48,
+         max_abs_err_vs_cpu_4=cpu_err, atol=GEN_ATOL, rtol=GEN_RTOL,
+         streamed_bit_for_bit=modes, streamed_modes={
+             "plain": f"{GEN_SAMPLES} samples", "tiled": f"{list(GEN_TILE_DOMAIN)} coarse, "
+             "--tile-rows 16 --overlap 8, chunks of 3",
+             "ensemble": f"{GEN_MEMBERS} members of the stochastic phase's generator over "
+             f"{len(members_in)} samples"},
+         streamed_and_reference_drb_launches=stream_launches,
+         bf16={"source": "generate --checkpoint <the training_tuned run's checkpoints>",
+               **bf16_timing, "chunk_parts": bf16_parts, "drb_launches_bf16": bf16_launches,
+               "max_err_vs_cpu_4_of_largest": bf16_err, "tolerance": GEN_BF16_REL})
+    return fp32_launches + stream_launches, bf16_launches
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Host seconds of every call, while the block runs, of each
+    ``(module, name)`` in ``targets`` (the card synchronized after each
+    call), summed by name."""
+    seconds = {name: 0.0 for _, name in targets}
+    saved = [(module, name, getattr(module, name)) for module, name in targets]
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[name] += time.perf_counter() - t0
+        return wrapper
+
+    for module, name, fn in saved:
+        setattr(module, name, timed(name, fn))
+    try:
+        yield seconds
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def run_evaluate(argv, want_forwards: int):
+    """``cli evaluate argv`` in-process with the DRB launches counted from 0
+    (48 in each of ``want_forwards`` generator forwards); returns its JSON
+    line's dict, what it printed on stderr, the launches and the seconds
+    (the whole command, and its synthetic set, state and metric pass)."""
+    import io
+
+    import downgan_tpu_torch.data.dataset as dataset
+    import downgan_tpu_torch.training.state as state
+    import downgan_tpu_torch.training.trainer as trainer
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    parts = [(dataset, "synthetic_dataset"), (state, "make_train_state"),
+             (state, "load_generator"), (trainer, "full_split_metric_pass")]
+    with launches_per_generator_forward() as per_forward, contextlib.redirect_stderr(err), \
+            timed_calls(parts) as part_s:
+        reset_launch_counts()  # the evaluate path's run starts here
+        t0 = time.perf_counter()
+        result = cli_main(["evaluate", *argv])
+        torch.cuda.synchronize()
+        seconds = {"command": time.perf_counter() - t0, **part_s}
+        launches = drb_forward.launches  # ... and ends here
+    check(len(per_forward) == want_forwards and set(per_forward) == {48}
+          and launches == 48 * want_forwards,
+          f"evaluate {argv}: {launches} DRB launches over {len(per_forward)} forwards, "
+          f"not 48 in each of {want_forwards}")
+    check(all(np.isfinite(v) for v in result.values() if isinstance(v, float)),
+          f"evaluate {argv}: {result}")
+    return result, err.getvalue(), launches, seconds
+
+
+def phase_evaluate(training_ckpt: str, ema_run, stochastic_ckpt: str, workdir: Path, smi: str):
+    """``cli evaluate`` at florida width, in-process: the ``training``
+    phase's checkpoint over 1,440 synthetic samples (12 batches of 128, a
+    32-row tail, Wass from the checkpoint's critic); then at 144 samples the
+    same checkpoint, held to the same command on the CPU, the ``resume``
+    phase's EMA run with ``--ema``, the exported bundle (no Wass, the
+    warning on stderr) and a 4-member ensemble of the ``stochastic`` run.
+    Returns the DRB launches."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+
+    batches = -(-GEN_SAMPLES // B_TRAIN)
+    runs, launches = {}, 0
+    out = workdir / "evaluate.json"
+    result, _, n, seconds = run_evaluate(["--checkpoint", training_ckpt, "--out", str(out),
+                                          "--synthetic", "--samples", str(GEN_SAMPLES)], batches)
+    check(json.loads(out.read_text()) == result and result["n_samples"] == GEN_SAMPLES
+          and {"MAE", "MSE", "MSSSIM", "Wass"} <= result.keys(), f"evaluate: {result}")
+    runs["checkpoint"], launches = {"result": result, "seconds": seconds}, launches + n
+    # The other runs at 144 samples (2 batches, a 16-row tail): each command
+    # makes its synthetic set anew on the host.
+    small = ["--synthetic", "--samples", "144"]
+    small_batches = -(-144 // B_TRAIN)
+    card, _, n, seconds = run_evaluate(["--checkpoint", training_ckpt, *small], small_batches)
+    runs["checkpoint_144"], launches = {"result": card, "seconds": seconds}, launches + n
+    ema_ckpt, ema_config = ema_run
+    result, _, n, seconds = run_evaluate(["--checkpoint", ema_ckpt, "--config", str(ema_config),
+                                          "--ema", *small], small_batches)
+    runs["ema"], launches = {"result": result, "seconds": seconds}, launches + n
+    bundle = cli_main(["export", "--checkpoint", training_ckpt, "--out", str(workdir / "bundle")])
+    result, stderr, n, seconds = run_evaluate(["--checkpoint", bundle, "--weights-only", *small],
+                                              small_batches)
+    check("Wass" not in result and "dropping the Wass metric" in stderr
+          and result["MAE"] == card["MAE"],
+          f"evaluate --weights-only: {result}, stderr {stderr!r}")
+    runs["weights_only"], launches = {"result": result, "seconds": seconds,
+                                      "stderr": stderr.strip()}, launches + n
+    ens_forwards = small_batches + GEN_MEMBERS * -(-144 // B_MAIN)
+    result, _, n, seconds = run_evaluate(["--checkpoint", stochastic_ckpt, "--ensemble",
+                                          str(GEN_MEMBERS), *small], ens_forwards)
+    check(result["n_members"] == GEN_MEMBERS and result["spread"] > 0, f"ensemble: {result}")
+    runs["ensemble"], launches = {"result": result, "seconds": seconds}, launches + n
+    t0 = time.perf_counter()
+    cpu = cli_main(["evaluate", "--checkpoint", training_ckpt, *small, "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    far = {k: (card[k], v) for k, v in cpu.items() if isinstance(v, float)
+           and not abs(card[k] - v) <= STEP_ATOL + STEP_RTOL * abs(v)}
+    check(not far, f"evaluate at 144 samples, card vs CPU beyond rtol {STEP_RTOL} atol "
+          f"{STEP_ATOL}: {far}")
+    emit("evaluate", card=smi, samples=GEN_SAMPLES, batch=B_TRAIN, batches=batches, runs=runs,
+         vs_cpu_144={"card": card, "cpu": cpu, "rtol": STEP_RTOL, "atol": STEP_ATOL,
+                     "cpu_seconds": cpu_s},
+         drb_launches=launches, drb_launches_per_forward=48)
+    return launches
+
+
+def phase_tiles_split(training_ckpt: str, stochastic, smi: str):
+    """Tiles split over replicas: ``tiled_sr_inference(devices=["cuda:0",
+    "cuda:0"])`` against ``devices=["cuda:0"]`` on 8 samples of 32x112,
+    deterministic (the training run) and stochastic, bit for bit (the
+    replicas run cuDNN's convolutions at half the batch, with the
+    algorithms cuDNN picks), and a ``BatchingSRModel(devices=[...] * 2)``
+    domain request against the one-device model. Returns the DRB launches
+    of the split runs."""
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.parallel.spatial import effective_fold, tiled_sr_inference
+    from downgan_tpu_torch.serving import BatchingSRModel, SRModel
+
+    config, weights = restore_like_generate(training_ckpt)
+    nets = {"deterministic": (config, weights),
+            "stochastic": (stochastic.config, {k: v.detach().cpu() for k, v in
+                                               stochastic.state.generator.state_dict().items()})}
+    x = np.random.default_rng(7).standard_normal((*SPLIT_DOMAIN, 7)).astype(np.float32)
+    kw = dict(tile_rows=16, overlap=8, tiles_per_dispatch=8)
+    dispatches = -(-SPLIT_DOMAIN[0] * 2 // effective_fold(8, 2))
+    report, launches = {}, 0
+    for name, (cfg, sd) in nets.items():
+        one = tiled_sr_inference(cfg, sd, x, devices=["cuda:0"], **kw)
+        reset_launch_counts()  # the split path's run starts here
+        two = tiled_sr_inference(cfg, sd, x, devices=["cuda:0"] * 2, **kw)
+        torch.cuda.synchronize()
+        n = drb_forward.launches  # ... and ends here
+        check(n == 48 * 2 * dispatches, f"tiles_split {name}: {n} DRB launches")
+        launches += n
+        report[name] = {"bit_for_bit": bool(np.array_equal(one, two)),
+                        "max_abs_diff": float(np.abs(one - two).max())}
+        check(report[name]["bit_for_bit"], f"tiles_split {name}: two replicas differ from one "
+              f"by {report[name]['max_abs_diff']}")
+    cfg, sd = nets["deterministic"]
+    direct = SRModel(cfg, sd, batch_size=B_MAIN)
+    served = BatchingSRModel(cfg, sd, batch_size=B_MAIN, devices=["cuda:0"] * 2)
+    try:
+        got = served.generate_domain(x, **kw)
+        served_dispatches = served.stats()["dispatches"]
+    finally:
+        served.close()
+    want = direct.generate_domain(x, **kw)
+    check(np.array_equal(got, want) and served_dispatches == dispatches,
+          f"BatchingSRModel over 2 replicas: {float(np.abs(got - want).max())}, "
+          f"{served_dispatches} dispatches")
+    emit("tiles_split", card=smi, domain=list(SPLIT_DOMAIN), tiling=kw,
+         replicas=["cuda:0", "cuda:0"], dispatches=dispatches, nets=report,
+         batching_model_bit_for_bit=True, drb_launches=launches)
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--train-cli":
         return train_cli_child(sys.argv[2], sys.argv[3:])
@@ -2778,14 +3142,19 @@ def main() -> int:
     phase_train_parity(config)
     phase_fused_parity()
     phase_variants_parity(config)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as tracking_root:
-        training_launches, training_summary = phase_training(Path(tracking_root))
-        check(training_launches > 0, "the training path launched no DRB kernel")
-        tuned_launches, tuned, trained = phase_training_tuned(Path(tracking_root))
-        bf16_serving_launches = phase_serving_bf16(tuned, trained, rng)
+    # The training runs stay on disk for the generate and evaluate phases.
+    training_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_training_")
+    tracking_root = Path(training_dir.name)
+    training_launches, training_summary, training_ckpt = phase_training(tracking_root)
+    check(training_launches > 0, "the training path launched no DRB kernel")
+    tuned_launches, tuned, trained = phase_training_tuned(tracking_root)
+    bf16_serving_launches = phase_serving_bf16(tuned, trained, rng)
+    tuned_ckpt = tuned.ckpt.directory
+    del tuned, trained
     check(tuned_launches > 0 and bf16_serving_launches > 0,
           "the tuned training or bf16 serving path launched no bf16 DRB kernel")
-    resume_launches, bundle_launches, device_run = phase_resume(config, rng, smi)
+    resume_launches, bundle_launches, device_run, (resume_dir, *ema_run) = phase_resume(
+        config, rng, smi)
     check(resume_launches > 0 and bundle_launches > 0,
           "the resume or bundle-serving path launched no DRB kernel")
     host_feed_launches = phase_host_feed(device_run, smi)
@@ -2798,10 +3167,19 @@ def main() -> int:
                                                            training_summary, smi)
         ensemble_launches = phase_ensemble(stochastic, smi)
         serving_stochastic_launches = phase_serving_stochastic(stochastic, rng, smi)
+        generate_launches, generate_bf16_launches = phase_generate(training_ckpt, tuned_ckpt,
+                                                                   stochastic, smi)
+        evaluate_launches = phase_evaluate(training_ckpt, ema_run, stochastic.ckpt.directory,
+                                           Path(tracking_root), smi)
+        split_launches = phase_tiles_split(training_ckpt, stochastic, smi)
         del stochastic
+        training_dir.cleanup()
+        resume_dir.cleanup()
         phase_srresnet(config, rng, Path(tracking_root), smi)
     check(stochastic_launches > 0 and ensemble_launches > 0 and serving_stochastic_launches > 0,
           "a stochastic path launched no DRB kernel")
+    check(generate_launches > 0 and generate_bf16_launches > 0 and evaluate_launches > 0
+          and split_launches > 0, "a batch inference path launched no DRB kernel")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tracking_root:
         variants_launches = phase_variants(Path(tracking_root), training_summary)
         variants_tuned_launches = phase_variants_tuned(Path(tracking_root))
@@ -2817,13 +3195,15 @@ def main() -> int:
         "name": "drb_forward", "dtype": "float32", **common,
         "launches": (serving_launches + training_launches + resume_launches + bundle_launches
                      + host_feed_launches + stream_launches + stochastic_launches
-                     + ensemble_launches + serving_stochastic_launches + variants_launches
-                     + dp_launches),
+                     + ensemble_launches + serving_stochastic_launches + generate_launches
+                     + evaluate_launches + split_launches + variants_launches + dp_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches,
                              "host_feed": host_feed_launches, "stream": stream_launches,
                              "stochastic": stochastic_launches, "ensemble": ensemble_launches,
                              "serving_stochastic": serving_stochastic_launches,
+                             "generate": generate_launches, "evaluate": evaluate_launches,
+                             "tiles_split": split_launches,
                              "variants": variants_launches, "dp": dp_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
@@ -2834,10 +3214,11 @@ def main() -> int:
         "ms_b128": timing_b128["ms"], "bound_ms_b128": timing_b128["bound_ms"],
         "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms}, {
         "name": "drb_forward_bf16", "dtype": "bfloat16", **common,
-        "launches": (tuned_launches + bf16_serving_launches + variants_tuned_launches
-                     + dp_bf16_launches),
+        "launches": (tuned_launches + bf16_serving_launches + generate_bf16_launches
+                     + variants_tuned_launches + dp_bf16_launches),
         "launches_by_path": {"training_tuned": tuned_launches,
                              "serving_bf16": bf16_serving_launches,
+                             "generate_bf16": generate_bf16_launches,
                              "variants_tuned": variants_tuned_launches,
                              "dp_tuned": dp_bf16_launches},
         "max_abs_err": bf16_err,

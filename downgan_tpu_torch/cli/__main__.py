@@ -1,6 +1,6 @@
 """Command line of the port (counterpart of ``downgan_tpu/cli/__main__.py``;
-the port has ``train``, ``serve``, ``export``, ``prepare-data`` and
-``prepare-covariates``)::
+the port has ``train``, ``serve``, ``export``, ``generate``, ``evaluate``,
+``prepare-data`` and ``prepare-covariates``)::
 
     python -m downgan_tpu_torch.cli train --config examples/florida.json \
         --synthetic --samples 1440 --epochs 2 --track-best MSSSIM
@@ -19,13 +19,20 @@ the port has ``train``, ``serve``, ``export``, ``prepare-data`` and
     python -m downgan_tpu_torch.cli serve --checkpoint <run artifacts>/best
     python -m downgan_tpu_torch.cli export --run <run id> --ema --out bundle/
     python -m downgan_tpu_torch.cli serve --weights generator.pt
+    python -m downgan_tpu_torch.cli generate --run <run id> --streamed --tile-rows 16
+    python -m downgan_tpu_torch.cli generate --checkpoint <bundle> --synthetic --ensemble 8
+    python -m downgan_tpu_torch.cli evaluate --run <run id> --ema --ensemble 8
 
 ``train`` tracks each run under ``--tracking-root`` (the JAX package's
 layout, ``tracking/store.py``) and checkpoints the full train state every
-epoch into ``<run artifacts>/checkpoints``. ``serve`` and ``export`` take
-a bundle or trainer checkpoint directory (``--checkpoint``), a tracked run
-(``--run``) or, for ``serve``, a generator state dict (``--weights``, a
-bundle's ``generator.pt`` or the JAX package's ``export-torch`` file).
+epoch into ``<run artifacts>/checkpoints``. ``serve``, ``export``,
+``generate`` and ``evaluate`` take a bundle or trainer checkpoint directory
+(``--checkpoint``), a tracked run (``--run``) or, for ``serve``, a
+generator state dict (``--weights``, a bundle's ``generator.pt`` or the JAX
+package's ``export-torch`` file; ``generate``/``evaluate`` take it as
+``--checkpoint F --weights-only``). ``generate`` writes NetCDF through
+``h5py``; with more than one card visible, its tiles and ``serve``'s
+domain requests split over all of them.
 Without ``--synthetic``, ``train`` stages the config's data: the
 preprocessed NetCDFs (``already_preprocessed``, written by
 ``prepare-data``) or the raw ones, onto the device; with ``--host-feed``
@@ -66,14 +73,17 @@ def _fp32_without_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _resolve_source(args: argparse.Namespace, parser: argparse.ArgumentParser):
-    """``--weights``/``--checkpoint``/``--run`` -> ``(config, generator
-    weights)``. A bundle brings its own config and ``--run`` the one the run
-    logged; a trainer checkpoint directory inside a run's artifacts picks up
-    the logged ``config.json`` beside it; an explicit ``--config`` wins
-    over all of them. Contradictory flags are usage errors."""
-    from downgan_tpu_torch.inference import (GENERATOR_FILE, RestoreUsageError, is_bundle,
-                                             resolve_run_checkpoint, restore_generator_params)
+def _source(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """``--weights``/``--checkpoint``/``--run`` -> ``(config, path,
+    weights_only, run)``: the file or checkpoint directory to restore from,
+    whether it holds one set of generator weights (``--weights``, a
+    bundle, or ``--checkpoint`` with ``--weights-only``), and the tracked
+    run under ``--run``. A bundle brings its own config and ``--run`` the
+    one the run logged; a trainer checkpoint directory inside a run's
+    artifacts picks up the logged ``config.json`` beside it; an explicit
+    ``--config`` wins over all of them. Contradictory flags are usage
+    errors."""
+    from downgan_tpu_torch.inference import GENERATOR_FILE, is_bundle, resolve_run_checkpoint
 
     weights = getattr(args, "weights", None)
     sources = [s for s in (weights, args.checkpoint, args.run) if s is not None]
@@ -81,7 +91,7 @@ def _resolve_source(args: argparse.Namespace, parser: argparse.ArgumentParser):
         flags = "--weights, --checkpoint or --run" if hasattr(args, "weights") else \
             "--checkpoint or --run"
         parser.error(f"pass exactly one of {flags}")
-    config_file = None
+    config_file = run = None
     if weights is not None:
         path, weights_only = weights, True
     elif is_bundle(args.checkpoint):
@@ -91,18 +101,42 @@ def _resolve_source(args: argparse.Namespace, parser: argparse.ArgumentParser):
         run, path, _ = resolve_run_checkpoint(args.tracking_root, args.run)
         weights_only, config_file = False, os.path.join(run.artifact_dir, "config.json")
     else:
-        path, weights_only = args.checkpoint, False
+        path, weights_only = args.checkpoint, getattr(args, "weights_only", False)
         config_file = os.path.join(os.path.dirname(os.path.abspath(path)), "config.json")
     if args.config:
         config = _load_config(args.config)
     else:
         config = _load_config(config_file if config_file and os.path.exists(config_file)
                               else None)
+    return config, path, weights_only, run
+
+
+def _restore(path: str, weights_only: bool, args: argparse.Namespace,
+             parser: argparse.ArgumentParser):
+    """The generator weights at ``path`` (``--epoch``, ``--ema``), with the
+    flag contradictions as usage errors."""
+    from downgan_tpu_torch.inference import RestoreUsageError, restore_generator_params
+
     try:
-        return config, restore_generator_params(path, step=args.epoch, weights_only=weights_only,
-                                                use_ema=args.ema)
+        return restore_generator_params(path, step=args.epoch, weights_only=weights_only,
+                                        use_ema=args.ema)
     except RestoreUsageError as e:
         parser.error(str(e))
+
+
+def _resolve_source(args: argparse.Namespace, parser: argparse.ArgumentParser):
+    """:func:`_source`'s config and the generator weights it restores."""
+    config, path, weights_only, _ = _source(args, parser)
+    return config, _restore(path, weights_only, args, parser)
+
+
+def _devices(args: argparse.Namespace):
+    """Every visible card when ``--device`` is a card and more than one is
+    visible (the JAX package meshes every local device), else ``None``:
+    ``--device`` alone."""
+    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() > 1:
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return None
 
 
 def _serve(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
@@ -112,17 +146,20 @@ def _serve(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
     _fp32_without_tf32()
     # 0 = uncapped; a literal 0-byte cap would refuse every domain request.
     out_cap = (args.max_domain_output_mb << 20) if args.max_domain_output_mb else (1 << 62)
+    # Domain requests split their tiles over every visible card (--mesh).
+    devices = _devices(args) if args.mesh else None
     if args.coalesce:
         model = BatchingSRModel(config, weights, batch_size=args.serving_batch,
                                 max_wait_ms=args.max_wait_ms,
-                                max_domain_output_bytes=out_cap, device=args.device)
+                                max_domain_output_bytes=out_cap, device=args.device,
+                                devices=devices)
     else:
         model = SRModel(config, weights, batch_size=args.serving_batch,
-                        max_domain_output_bytes=out_cap, device=args.device)
+                        max_domain_output_bytes=out_cap, device=args.device, devices=devices)
     server = serve_model(model, args.host, args.port)
     print(f"SR inference on http://{args.host}:{server.server_address[1]} "
-          f"(batch {model.batch}, coalesce={args.coalesce}, device {model.device})",
-          flush=True)
+          f"(batch {model.batch}, coalesce={args.coalesce}, device {model.device}"
+          f"{f', domain tiles over {len(devices)} cards' if devices else ''})", flush=True)
     try:
         server.serve_forever()
     finally:
@@ -145,6 +182,18 @@ def _export(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
     return out
 
 
+def _require_preprocessed(config, parser: argparse.ArgumentParser, other: str = "") -> None:
+    """A usage error that names ``prepare-data`` when any of the config's
+    four preprocessed files is missing (``other``: another way out)."""
+    from downgan_tpu_torch.data.staging import preprocessed_path
+
+    missing = [p for p in (preprocessed_path(config, kind, split) for kind in ("coarse", "fine")
+                           for split in ("train", "test")) if not os.path.exists(p)]
+    if missing:
+        parser.error(f"no preprocessed data: {', '.join(missing)} missing; run `prepare-data` "
+                     f"with this config first, {other}or pass --synthetic")
+
+
 def _datasets(args: argparse.Namespace, parser: argparse.ArgumentParser, config, device):
     """The train and test sets of ``train``: the synthetic set split 90/10
     (as the JAX package's ``train --synthetic``) or the config's data, on
@@ -153,8 +202,7 @@ def _datasets(args: argparse.Namespace, parser: argparse.ArgumentParser, config,
     ``prepare-data``."""
     from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
     from downgan_tpu_torch.data.feed import HostDataset
-    from downgan_tpu_torch.data.staging import (generate_train_test_coarse_fine,
-                                                load_preprocessed, preprocessed_path)
+    from downgan_tpu_torch.data.staging import generate_train_test_coarse_fine, load_preprocessed
     from downgan_tpu_torch.data.stream import StreamDataset
 
     def residency(coarse, fine):
@@ -170,12 +218,8 @@ def _datasets(args: argparse.Namespace, parser: argparse.ArgumentParser, config,
         split = int(0.9 * args.samples)
         return residency(coarse[:split], fine[:split]), residency(coarse[split:], fine[split:])
     if args.stream or config.already_preprocessed:
-        missing = [p for p in (preprocessed_path(config, kind, split) for kind in ("coarse", "fine")
-                               for split in ("train", "test")) if not os.path.exists(p)]
-        if missing:
-            parser.error(f"no preprocessed data: {', '.join(missing)} missing; run "
-                         "`prepare-data` with this config first, set already_preprocessed "
-                         "false to stage its raw files, or pass --synthetic")
+        _require_preprocessed(config, parser, "set already_preprocessed false to stage its "
+                              "raw files, ")
     if args.stream:
         return (StreamDataset.from_preprocessed(config, "train"),
                 StreamDataset.from_preprocessed(config, "test"))
@@ -333,6 +377,167 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
     return trainer
 
 
+def _generate(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
+    """Generate fields from a trained generator into a NetCDF (the
+    reference's ``gen_fake_ds.py``); returns the file's path."""
+    import numpy as np
+
+    from downgan_tpu_torch.inference import (generate_ensemble, generate_fields,
+                                             generate_to_netcdf, rebuild_coarse_covariates,
+                                             write_generated_netcdf)
+    from downgan_tpu_torch.parallel.spatial import tiled_sr_inference
+
+    if args.ensemble and args.tile_rows:
+        parser.error("--ensemble and --tile-rows are mutually exclusive (tiled domains "
+                     "generate one member per call; loop members with different runs if needed)")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        parser.error("generate writes NetCDF through h5py, which is not installed here")
+    config, path, weights_only, run = _source(args, parser)
+    if args.ensemble and config.noise_channels <= 0:
+        parser.error("--ensemble needs a stochastic generator (trained with "
+                     "Config.noise_channels > 0); this model is deterministic")
+    out = args.out or (os.path.join(run.artifact_dir, "generated_ds.nc") if run is not None
+                       else "generated.nc")
+    times = lats = lons = None
+    if args.synthetic:
+        from downgan_tpu_torch.data.dataset import synthetic_dataset
+
+        coarse, _ = synthetic_dataset(
+            n_samples=args.samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
+            n_covariates=config.n_covariates, n_predictands=config.n_predictands,
+            seed=config.seed)
+    elif args.raw_covariates:
+        from downgan_tpu_torch.data.staging import load_fine_coords
+
+        # The fine crop's coordinates, as the reference's generated dataset
+        # carries them (gen_fake_ds.py:86-90, 162).
+        coarse, times = rebuild_coarse_covariates(config, subset=args.subset)
+        lats, lons = load_fine_coords(config)
+    else:
+        from downgan_tpu_torch.data.staging import load_preprocessed, load_preprocessed_coords
+
+        _require_preprocessed(config, parser, "pass --raw-covariates, ")
+        ct, _, cv, _ = load_preprocessed(config)
+        coarse = ct if args.subset == "train" else cv
+        lats, lons = load_preprocessed_coords(config)
+    if args.ema and weights_only:
+        parser.error("--ema needs the full-train-state checkpoint layout; weights-only "
+                     "checkpoints hold one set of params")
+    weights = _restore(path, weights_only, args, parser)
+    if times is not None:
+        times = np.asarray(times)
+        if times.dtype.kind == "M":  # datetime64 -> epoch seconds
+            times = times.astype("datetime64[s]").astype("float64")
+    # True coordinates only where their length is the generated grid's (a
+    # model whose upsampling differs from the data's scale factor).
+    sf = 2 ** config.num_upsample
+    if lats is not None and len(lats) != coarse.shape[1] * sf:
+        lats = None
+    if lons is not None and len(lons) != coarse.shape[2] * sf:
+        lons = None
+    _fp32_without_tf32()
+    # Tiles split over every visible card, as the JAX command meshes them.
+    devices = _devices(args) if args.tile_rows else None
+    tiling = dict(tile_rows=args.tile_rows, overlap=args.overlap, tile_cols=args.tile_cols,
+                  tiles_per_dispatch=args.tiles_per_dispatch)
+    if args.streamed:
+        generate_to_netcdf(out, config, weights, coarse, times=times, lats=lats, lons=lons,
+                           n_members=args.ensemble, device=args.device, devices=devices, **tiling)
+        what = (f"{coarse.shape[0]} generated fields x {args.ensemble} members"
+                if args.ensemble else f"{coarse.shape[0]} generated fields")
+        print(f"wrote {what} to {out} (streamed)", flush=True)
+        return out
+    if args.tile_rows:
+        fields = tiled_sr_inference(config, weights, coarse, device=args.device, devices=devices,
+                                    **tiling)
+    elif args.ensemble:
+        fields = generate_ensemble(config, weights, coarse, args.ensemble, device=args.device)
+    else:
+        fields = generate_fields(config, weights, coarse, device=args.device)
+    write_generated_netcdf(out, fields, times=times, lats=lats, lons=lons)
+    what = (f"{fields.shape[1]} generated fields x {fields.shape[0]} members"
+            if fields.ndim == 5 else f"{fields.shape[0]} generated fields")
+    print(f"wrote {what} to {out}", flush=True)
+    return out
+
+
+def _evaluate(args: argparse.Namespace, parser: argparse.ArgumentParser) -> dict:
+    """The test-set metric pass from a checkpoint: the config's metrics
+    over every sample of a split (the ragged tail its own batch), printed
+    as one JSON line; returns that line's dict."""
+    import numpy as np
+
+    from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.training.state import make_critic, make_train_state, resolve_device
+    from downgan_tpu_torch.training.trainer import full_split_metric_pass
+    from downgan_tpu_torch.training.wgan import build_eval_metrics
+
+    config, path, weights_only, _ = _source(args, parser)
+    if weights_only and "Wass" in config.hp.metrics_to_calculate:
+        print("warning: --weights-only checkpoints carry no critic; dropping the Wass metric",
+              file=sys.stderr, flush=True)
+        config = config.replace(hp=dataclasses.replace(config.hp, metrics_to_calculate=tuple(
+            m for m in config.hp.metrics_to_calculate if m != "Wass")))
+    if args.ensemble and config.noise_channels <= 0:
+        parser.error("--ensemble needs a stochastic generator (trained with "
+                     "Config.noise_channels > 0); this model is deterministic")
+    if args.synthetic:
+        coarse, fine = synthetic_dataset(
+            n_samples=args.samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
+            n_covariates=config.n_covariates, n_predictands=config.n_predictands,
+            seed=config.seed)
+    else:
+        from downgan_tpu_torch.data.staging import load_preprocessed
+
+        _require_preprocessed(config, parser)
+        ct, ft, cv, fv = load_preprocessed(config)
+        coarse, fine = (ct, ft) if args.split == "train" else (cv, fv)
+    device = resolve_device(args.device)
+    _fp32_without_tf32()
+    ds = DeviceDataset.from_numpy(coarse, fine, device)
+    if weights_only:
+        if args.ema:
+            parser.error("--ema needs the full-train-state checkpoint layout; weights-only "
+                         "checkpoints hold one set of params")
+        from downgan_tpu_torch.training.state import load_generator
+
+        gen, critic, step = load_generator(config, _restore(path, True, args, parser),
+                                           device), make_critic(config, device), 0
+    else:
+        from downgan_tpu_torch.utils.checkpoint import CheckpointManager
+
+        try:
+            saved = CheckpointManager(path).restore(args.epoch)
+        except FileNotFoundError as e:
+            parser.error(str(e))
+        if args.ema and saved["g_ema"] is None:
+            parser.error("--ema requires an EMA-trained run (hp.ema_decay > 0)")
+        state = make_train_state(config, device)
+        state.load_state_dict(saved)
+        gen, critic, step = state.g_ema if args.ema else state.generator, state.critic, state.step
+    gen.eval()
+    critic.eval()
+    eval_metrics = build_eval_metrics(config)
+    means = full_split_metric_pass(ds, config.hp.batch_size,
+                                   lambda c, f: eval_metrics(gen, critic, c, f))
+    result = {"split": "synthetic" if args.synthetic else args.split, "n_samples": len(ds),
+              "step": int(step), **{k: round(v, 6) for k, v in means.items()}}
+    if args.ensemble:
+        from downgan_tpu_torch.inference import ensemble_metrics
+
+        ens = ensemble_metrics(config, gen.state_dict(), np.asarray(coarse, np.float32),
+                               np.asarray(fine, np.float32), args.ensemble, device=device)
+        result.update({k: round(v, 6) if isinstance(v, float) else v for k, v in ens.items()})
+    line = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line)
+    print(line, flush=True)
+    return result
+
+
 def _region_config(args: argparse.Namespace):
     config = _load_config(args.config)
     return config if args.region is None else config.replace(region=args.region)
@@ -446,8 +651,68 @@ def build_parser() -> argparse.ArgumentParser:
                        help="How long the coalescer lingers for stragglers.")
     serve.add_argument("--max-domain-output-mb", type=_non_negative_int, default=1024,
                        help="413 cap on a domain request's estimated output; 0 = uncapped.")
+    serve.add_argument("--mesh", action=argparse.BooleanOptionalAction, default=True,
+                       help="Split domain-request tiles over every visible card (more than "
+                       "one; the fields are those of one card).")
     serve.add_argument("--device", default="cuda", help="Torch device (default cuda).")
     serve.set_defaults(func=_serve)
+
+    generate = sub.add_parser(
+        "generate", help="Generate super-resolved fields from a trained generator and write "
+        "them to a NetCDF (needs h5py).")
+    _add_source_args(generate, "generate")
+    generate.add_argument("--weights-only", action="store_true",
+                          help="--checkpoint is a generator weights file (generator.pt).")
+    generate.add_argument("-o", "--out", default=None,
+                          help="Output NetCDF (default: generated.nc, or "
+                          "<run artifacts>/generated_ds.nc under --run).")
+    generate.add_argument("--synthetic", action="store_true",
+                          help="Generate from synthetic covariates.")
+    generate.add_argument("--raw-covariates", action="store_true",
+                          help="Rebuild the standardized coarse covariates from the raw NetCDFs "
+                          "(gen_fake_ds.py:92-144) instead of reading the preprocessed files.")
+    generate.add_argument("--subset", choices=("train", "test"), default="test",
+                          help="Which year-mask subset to generate for, raw or preprocessed.")
+    generate.add_argument("--samples", type=int, default=100, help="Synthetic sample count.")
+    generate.add_argument("--tile-rows", type=int, default=0,
+                          help="Overlap-tile the lat axis for domains taller than the training "
+                          "patch (0 = whole-field forward); the tiles split over every visible "
+                          "card.")
+    generate.add_argument("--overlap", type=int, default=8, help="Tile context rows per side.")
+    generate.add_argument("--tile-cols", type=int, default=0,
+                          help="Also overlap-tile the lon axis (0 = whole-width bands).")
+    generate.add_argument("--tiles-per-dispatch", type=int, default=8,
+                          help="Tiles folded into one generator dispatch.")
+    generate.add_argument("--ensemble", type=int, default=0,
+                          help="Generate this many members of a stochastic generator "
+                          "(Config.noise_channels > 0); the NetCDF gains a leading member "
+                          "dimension. Incompatible with tiling.")
+    generate.add_argument("--streamed", action="store_true",
+                          help="Write each generated chunk straight into the NetCDF (host memory "
+                          "constant in the series length; the same file as without it). "
+                          "Composes with --tile-rows and --ensemble.")
+    generate.add_argument("--device", default="cuda", help="Torch device (default cuda).")
+    generate.set_defaults(func=_generate)
+
+    evaluate = sub.add_parser(
+        "evaluate", help="The test-set metric pass from a checkpoint over a whole split, "
+        "printed as one JSON line.")
+    _add_source_args(evaluate, "evaluate")
+    evaluate.add_argument("--weights-only", action="store_true",
+                          help="--checkpoint is a generator weights file; the Wass metric needs "
+                          "the critic and is dropped with a warning.")
+    evaluate.add_argument("--synthetic", action="store_true",
+                          help="Evaluate on the synthetic dataset.")
+    evaluate.add_argument("--samples", type=int, default=128, help="Synthetic sample count.")
+    evaluate.add_argument("--split", choices=("train", "test"), default="test",
+                          help="Which preprocessed split to evaluate.")
+    evaluate.add_argument("--out", default=None,
+                          help="Also write the JSON line to this file.")
+    evaluate.add_argument("--ensemble", type=int, default=0,
+                          help="Also score a K-member ensemble of a stochastic generator: fair "
+                          "CRPS, spread, ensemble-mean and member MAE.")
+    evaluate.add_argument("--device", default="cuda", help="Torch device (default cuda).")
+    evaluate.set_defaults(func=_evaluate)
 
     export = sub.add_parser(
         "export", help="Write a servable generator bundle (generator.pt + config.json) "
@@ -594,7 +859,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Run one subcommand; returns what it returns (``train``: the
-    Trainer; ``export``: the bundle directory; ``prepare-data`` and
+    Trainer; ``export``: the bundle directory; ``generate``: the NetCDF's
+    path; ``evaluate``: its JSON line as a dict; ``prepare-data`` and
     ``prepare-covariates``: the paths written)."""
     parser = build_parser()
     args = parser.parse_args(argv)

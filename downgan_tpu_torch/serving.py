@@ -32,13 +32,14 @@ import math
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from downgan_tpu_torch.config.config import Config
-from downgan_tpu_torch.parallel.spatial import count_tiled_dispatches, tiled_generate
+from downgan_tpu_torch.parallel.spatial import (count_tiled_dispatches, generator_replicas,
+                                                tiled_generate)
 from downgan_tpu_torch.training.state import load_generator
 from downgan_tpu_torch.training.wgan import fixed_latent
 
@@ -51,16 +52,22 @@ class SRModel:
     """The generator on one device with fixed-batch padding; thread-safe.
 
     ``weights`` is a reference-layout generator state dict (what
-    ``export-torch`` writes)."""
+    ``export-torch`` writes). Patch requests run on ``device``. Domain
+    requests split each dispatch's tiles over a replica on each of
+    ``devices`` (default: the patch generator alone), as the JAX package's
+    ``mesh=`` shards them; the fields are those of one device."""
 
     def __init__(self, config: Config, weights: Mapping[str, torch.Tensor],
                  batch_size: int = 0, max_request_samples: int = 8192,
                  max_domain_output_bytes: int = 1 << 30,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 devices: Optional[Sequence[str | torch.device]] = None):
         self.config = config
         self.batch = batch_size or config.chunk_size
         self._gen = load_generator(config, weights, device)
         self.device = next(self._gen.parameters()).device
+        self._replicas = ([self._gen] if devices is None
+                          else generator_replicas(config, weights, devices))
         # A stochastic generator serves the fixed latent (wgan.fixed_latent):
         # row i of every serving-batch block gets row i of this one block,
         # laid out per request (_augment), so a request coalesced with other
@@ -169,11 +176,11 @@ class SRModel:
         n_tiles = b * -(-h // tile_rows) * (-(-w // tile_cols) if tile_cols else 1)
         tiles_per_dispatch = min(tiles_per_dispatch, n_tiles)
         with self._lock:
-            out = tiled_generate(self._gen, self.config, np.asarray(coarse, np.float32),
+            out = tiled_generate(self._replicas, self.config, np.asarray(coarse, np.float32),
                                  tile_rows=tile_rows, overlap=overlap, tile_cols=tile_cols,
                                  tiles_per_dispatch=tiles_per_dispatch)
             self.dispatch_count += count_tiled_dispatches(
-                b, h, w, tile_rows, tile_cols, tiles_per_dispatch)
+                b, h, w, tile_rows, tile_cols, tiles_per_dispatch, len(self._replicas))
         self._record(b, time.perf_counter() - t0)
         return out
 
@@ -210,11 +217,12 @@ class BatchingSRModel(SRModel):
     def __init__(self, config: Config, weights: Mapping[str, torch.Tensor],
                  batch_size: int = 0, max_request_samples: int = 8192,
                  max_wait_ms: float = 5.0, max_domain_output_bytes: int = 1 << 30,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 devices: Optional[Sequence[str | torch.device]] = None):
         super().__init__(config, weights, batch_size=batch_size,
                          max_request_samples=max_request_samples,
                          max_domain_output_bytes=max_domain_output_bytes,
-                         device=device)
+                         device=device, devices=devices)
         self.max_wait_ms = max_wait_ms
         self._queue: "list[tuple[np.ndarray, list, threading.Event]]" = []
         self._cv = threading.Condition()

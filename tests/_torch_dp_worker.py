@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 
 import numpy as np
 import torch
@@ -18,6 +19,29 @@ from downgan_tpu_torch.training.state import make_train_state
 from downgan_tpu_torch.training.wgan import LOCAL_SYNC, build_fused_round, build_train_step
 
 TIMEOUT = datetime.timedelta(seconds=120)  # a rank that hangs fails the test
+# The whole spawned job (alone it takes 10-20 s on one worker): ranks still
+# running then are killed and the test fails, instead of holding the suite.
+SPAWN_TIMEOUT_S = 300
+
+
+def spawn(fn, args: tuple, nprocs: int, timeout_s: float = SPAWN_TIMEOUT_S) -> None:
+    """``torch.multiprocessing.spawn(fn, args, nprocs)`` with a deadline: a
+    rank's exception is raised here, and ranks still running after
+    ``timeout_s`` seconds are terminated and raise ``TimeoutError``."""
+    import torch.multiprocessing as mp
+
+    context = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = time.monotonic() + timeout_s
+    while not context.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() < deadline:
+            continue
+        alive = [p.pid for p in context.processes if p.is_alive()]
+        for p in context.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in context.processes:
+            p.join(10)
+        raise TimeoutError(f"spawned ranks {alive} still running after {timeout_s} s")
 
 
 def join(rank: int, world: int, store: str, device: str) -> None:

@@ -1,10 +1,26 @@
-"""Shared pieces of the port's parity tests (tests/test_torch_*.py): the
-same generator weights on both sides, made by numpy."""
+"""Shared pieces of the port's tests (tests/test_torch_*.py): the
+``one_thread`` fixture, and the same generator weights on both sides of a
+parity test, made by numpy. JAX is imported inside the functions that need
+it, so the card's ``-m cuda`` legs, which run without JAX, import this file
+too."""
 import numpy as np
+import pytest
+import torch
 
-from downgan_tpu.training.state import make_models
-from downgan_tpu.utils.port_weights import port_generator
 from downgan_tpu_torch.training.state import make_generator
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tests (a module takes it by
+    importing this fixture). The suite runs test files in parallel worker
+    processes, and torch's default of one thread per core in each of them
+    oversubscribes the cores many times over. It also fixes the order of
+    torch's CPU reductions, which depends on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def flax_generator(jcfg, cfg, seed=0):
@@ -12,6 +28,9 @@ def flax_generator(jcfg, cfg, seed=0):
     torch-default-init values drawn by numpy and laid out by the JAX
     package's own ``port_generator`` (no flax init to compile). ``cfg`` is
     the port's config of the same model."""
+    from downgan_tpu.training.state import make_models
+    from downgan_tpu.utils.port_weights import port_generator
+
     gen, _ = make_models(jcfg)
     shapes = {k: tuple(v.shape) for k, v in make_generator(cfg, "cpu").state_dict().items()}
     rng = np.random.default_rng(seed)
@@ -29,6 +48,7 @@ def flax_critic(jcfg, seed=0, conv_gain=1.0):
     the JAX package's own ``port_critic``; also that torch-layout dict.
     ``conv_gain`` scales the conv weights: at the default init the signal
     shrinks ~6x in variance per conv, and the scores hardly depend on x."""
+    from downgan_tpu.training.state import make_models
     from downgan_tpu.utils.port_weights import port_critic
     from downgan_tpu_torch.models.critic import Critic
 
@@ -101,7 +121,6 @@ def jax_flips(rng, step, b):
     lat) bool (b,): bernoulli(0.5) of the two halves of
     fold_in(fold_in(rng, step), 1) (``ops/augment.py::random_flip_pair``)."""
     import jax
-    import torch
 
     keys = jax.random.split(jax.random.fold_in(jax.random.fold_in(rng, step), 1))
     return tuple(torch.from_numpy(np.array(jax.random.bernoulli(k, 0.5, (b, 1, 1, 1))).reshape(b))

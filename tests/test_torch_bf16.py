@@ -54,7 +54,7 @@ from downgan_tpu_torch.utils.port_weights import (  # noqa: E402
     generator_state_dict_from_flax,
 )
 
-from _torch_parity import flax_critic, flax_generator  # noqa: E402
+from _torch_parity import flax_critic, flax_generator, one_thread  # noqa: E402,F401
 
 BF16 = torch.bfloat16
 # One conv: both sides sum in fp32; the port rounds once (<= 1/2 ulp), flax

@@ -43,21 +43,12 @@ from downgan_tpu_torch.training.trainer import (  # noqa: E402
 from downgan_tpu_torch.training.wgan import build_train_step, ema_update, gp_alpha  # noqa: E402
 from downgan_tpu_torch.utils.checkpoint import CheckpointManager, load_params  # noqa: E402
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(filters=8, num_res_blocks=1, coarse_size=16, fine_size=128)
 B = 2
 EMA = 0.5  # moves the EMA far enough in a few updates to tell it from the live weights
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs test files in parallel worker
-    processes, and torch's default of one thread per core in each of them
-    oversubscribes the cores many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def tiny_config(**hp):

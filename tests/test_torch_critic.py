@@ -18,7 +18,7 @@ from downgan_tpu_torch.models.critic import Critic  # noqa: E402
 from downgan_tpu_torch.training.state import make_critic, make_generator  # noqa: E402
 from downgan_tpu_torch.utils.port_weights import critic_state_dict_from_flax  # noqa: E402
 
-from _torch_parity import flax_critic  # noqa: E402
+from _torch_parity import flax_critic, one_thread  # noqa: E402,F401
 
 # fp32 on both sides; each score sums 4,096 fc1 products of conv outputs
 # summed in another order.

@@ -32,14 +32,7 @@ from downgan_tpu_torch.data.dataset import DeviceDataset  # noqa: E402
 from downgan_tpu_torch.data.feed import HostDataset  # noqa: E402
 from downgan_tpu_torch.data.stream import StreamDataset  # noqa: E402
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs test files in parallel workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_parity import one_thread  # noqa: E402,F401
 
 
 def assert_same(a, b):

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-mp = pytest.importorskip("torch.multiprocessing")
+pytest.importorskip("torch.multiprocessing")
 
 from downgan_tpu_torch.cli.__main__ import main  # noqa: E402
 from downgan_tpu_torch.config.config import Config, HyperParams  # noqa: E402
@@ -24,6 +24,8 @@ from downgan_tpu_torch.parallel import multihost  # noqa: E402
 from downgan_tpu_torch.parallel.mesh import batch_rows, rows_of  # noqa: E402
 
 import _torch_dp_worker as worker  # noqa: E402
+
+from _torch_parity import one_thread  # noqa: E402,F401
 
 B, WORLD = 8, 2
 # The port's own step tolerances (tests/test_torch_train.py): losses and
@@ -116,7 +118,7 @@ def jax_case():
 def spawn(fn, tmp, *args):
     """Run ``fn(rank, WORLD, store, tmp, *args)`` in WORLD spawned processes;
     returns each rank's results."""
-    mp.spawn(fn, args=(WORLD, str(tmp / "store"), str(tmp), *args), nprocs=WORLD, join=True)
+    worker.spawn(fn, (WORLD, str(tmp / "store"), str(tmp), *args), WORLD)
     return [torch.load(tmp / f"rank{r}.pt", weights_only=True) for r in range(WORLD)]
 
 

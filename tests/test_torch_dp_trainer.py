@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-mp = pytest.importorskip("torch.multiprocessing")
+pytest.importorskip("torch.multiprocessing")
 
 from downgan_tpu_torch.cli.__main__ import main  # noqa: E402
 from downgan_tpu_torch.config.config import Config, HyperParams  # noqa: E402
 
 import _torch_dp_worker as worker  # noqa: E402
+
+from _torch_parity import one_thread  # noqa: E402,F401
 
 WORLD = 2
 PATHS = ("device", "host_feed")
@@ -35,8 +37,8 @@ def trained(tmp_path_factory):
     config_path.write_text(Config(
         coarse_size=8, fine_size=32, filters=8, num_res_blocks=1,
         hp=HyperParams(batch_size=8, metrics_to_calculate=("MAE", "MSE", "Wass"))).to_json())
-    mp.spawn(worker.trainer_cases, args=(WORLD, str(tmp / "store"), str(tmp), str(config_path)),
-             nprocs=WORLD, join=True)
+    worker.spawn(worker.trainer_cases, (WORLD, str(tmp / "store"), str(tmp), str(config_path)),
+                 WORLD)
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=True) for r in range(WORLD)]
     one = main(worker.train_argv(str(config_path), str(tmp / "ckpt_one"), str(tmp / "track_one"),
                                  2, host_feed=False))

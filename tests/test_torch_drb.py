@@ -31,6 +31,8 @@ from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
 )
 from downgan_tpu_torch.training.state import make_optimizer  # noqa: E402
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 ATOL = 1e-5  # fp32 on both sides; sums of at most 720 products in another order
 CASES = [(f, b, h, w) for f in (8, 16) for b in (1, 3, 4) for (h, w) in ((16, 16), (12, 20))]
 # Interpret-mode Pallas compiles each shape for seconds: every F, B and

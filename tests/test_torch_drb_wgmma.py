@@ -45,6 +45,8 @@ from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     packed_size,
 )
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 TILE, HALO = 16, 5
 M_TILE, GUARD = 64, 64  # wgmma's M; zero positions after the frame's last plane
 SBO, M_OUT = 6, 48      # core-matrix step (positions); output positions per M-tile

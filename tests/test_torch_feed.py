@@ -19,14 +19,7 @@ from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset  # n
 from downgan_tpu_torch.data.feed import FeedStats, HostDataset, prefetch_batches  # noqa: E402
 from downgan_tpu_torch.training.trainer import Trainer, full_split_metric_pass  # noqa: E402
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs test files in parallel workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_parity import one_thread  # noqa: E402,F401
 
 
 def tiny_config(**hp) -> Config:

@@ -44,7 +44,7 @@ from downgan_tpu_torch.utils.port_weights import (  # noqa: E402
     generator_state_dict_from_flax,
 )
 
-from _torch_parity import flax_critic, flax_generator  # noqa: E402
+from _torch_parity import flax_critic, flax_generator, one_thread  # noqa: E402,F401
 
 B, N_CRITIC, ROUNDS = 2, 5, 2
 KW = dict(filters=8, num_res_blocks=1, coarse_size=8, fine_size=64)

@@ -22,7 +22,7 @@ from downgan_tpu_torch.config.config import Config, HyperParams  # noqa: E402
 from downgan_tpu_torch.training.state import load_generator, make_generator  # noqa: E402
 from downgan_tpu_torch.utils.port_weights import generator_state_dict_from_flax  # noqa: E402
 
-from _torch_parity import flax_generator  # noqa: E402
+from _torch_parity import flax_generator, one_thread  # noqa: E402,F401
 
 # The tolerance of the reference-parity tests (tests/test_import_torch.py).
 ATOL, RTOL = 2e-5, 1e-5

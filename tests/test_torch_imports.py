@@ -8,6 +8,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "downgan_tpu")
 FILES = (sorted((ROOT / "downgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -22,7 +22,7 @@ from downgan_tpu_torch.ops.metrics import resolve_metrics  # noqa: E402
 from downgan_tpu_torch.training.wgan import gradient_penalty  # noqa: E402
 from downgan_tpu_torch.utils.port_weights import critic_state_dict_from_flax  # noqa: E402
 
-from _torch_parity import flax_critic  # noqa: E402
+from _torch_parity import flax_critic, one_thread  # noqa: E402,F401
 
 # fp32 on both sides, sums in another order. MS-SSIM is a product of five
 # scale terms, each a mean of 10^2..10^4 ratios of blurred moments.

@@ -39,7 +39,7 @@ from downgan_tpu_torch.serving import (  # noqa: E402
 from downgan_tpu_torch.training.state import make_generator  # noqa: E402
 from downgan_tpu_torch.utils.port_weights import generator_state_dict_from_flax  # noqa: E402
 
-from _torch_parity import flax_generator  # noqa: E402
+from _torch_parity import flax_generator, one_thread  # noqa: E402,F401
 
 ATOL, RTOL = 2e-5, 1e-5  # fp32 on both sides, convs summed in another order
 KW = dict(coarse_size=8, fine_size=64, filters=8, num_res_blocks=1, chunk_size=4)

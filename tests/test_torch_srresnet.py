@@ -37,6 +37,8 @@ from downgan_tpu_torch.utils.port_weights import (  # noqa: E402
     srresnet_state_dict_from_flax,
 )
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 KW = dict(generator_arch="srresnet", filters=8, coarse_size=8, fine_size=32)
 # fp32 on both sides, convs (9x9: 648 terms a sum) summed in another order.
 ATOL, RTOL = 2e-5, 1e-5
@@ -45,15 +47,6 @@ ATOL, RTOL = 2e-5, 1e-5
 # output (the rule tests/test_torch_drb.py holds the bf16 DRB gradients to);
 # the two round their bf16 statistics and convolutions in another order.
 BF16_VS_REFERENCE_ERROR = 1.25
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread (the suite runs files in parallel processes)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def configs(num_res_blocks=1, noise_channels=0, compute_dtype="float32"):

@@ -62,7 +62,7 @@ from downgan_tpu_torch.utils.port_weights import (  # noqa: E402
     generator_state_dict_from_flax,
 )
 
-from _torch_parity import flax_critic, flax_generator  # noqa: E402
+from _torch_parity import flax_critic, flax_generator, one_thread  # noqa: E402,F401
 
 B, K, N_CRITIC = 2, 2, 2
 KW = dict(filters=8, num_res_blocks=1, coarse_size=8, fine_size=32, noise_channels=K,
@@ -78,15 +78,6 @@ STEP_ATOL = 1e-5
 # A fused round holds two critic updates: tests/test_torch_fused.py's
 # bound for rounds, every element within 2 * lr, the median within 1e-6.
 ROUND_ATOL = 2 * 2.5e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread (the suite runs files in parallel processes)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def configs(**hp):

@@ -39,6 +39,8 @@ from downgan_tpu_torch.tracking import (  # noqa: E402
 from downgan_tpu_torch.training.state import load_generator  # noqa: E402
 from downgan_tpu_torch.training.trainer import Trainer  # noqa: E402
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 KW = dict(filters=8, num_res_blocks=1, coarse_size=16, fine_size=128)
 # The flax and the port generator on the same weights: fp32 on both sides,
 # sums in another order.
@@ -49,24 +51,19 @@ FIELD_ATOL = 1e-5
 def port_run(tmp_path_factory):
     """Two epochs of the port's Trainer with EMA and --track-best MSSSIM,
     as a tracked run of the port's store."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # the suite's workers share the cores
-    try:
-        root = str(tmp_path_factory.mktemp("tracking"))
-        cfg = Config(hp=HyperParams(batch_size=2, critic_iterations=2, ema_decay=0.5), **KW)
-        coarse, fine = synthetic_dataset(n_samples=7, seed=8)
-        store = TrackingStore(root)
-        run = store.create_run(define_experiment(store, "parity", tag="port run"),
-                               run_name="port").start()
-        log_hyperparams(run, cfg)
-        write_tags(run, "written by the port")
-        trainer = Trainer(cfg, DeviceDataset.from_numpy(coarse[:4], fine[:4], "cpu"),
-                          DeviceDataset.from_numpy(coarse[4:], fine[4:], "cpu"), device="cpu",
-                          run=run, track_best="MSSSIM")
-        trainer.train(2)
-        run.end("FINISHED")
-    finally:
-        torch.set_num_threads(threads)
+    root = str(tmp_path_factory.mktemp("tracking"))
+    cfg = Config(hp=HyperParams(batch_size=2, critic_iterations=2, ema_decay=0.5), **KW)
+    coarse, fine = synthetic_dataset(n_samples=7, seed=8)
+    store = TrackingStore(root)
+    run = store.create_run(define_experiment(store, "parity", tag="port run"),
+                           run_name="port").start()
+    log_hyperparams(run, cfg)
+    write_tags(run, "written by the port")
+    trainer = Trainer(cfg, DeviceDataset.from_numpy(coarse[:4], fine[:4], "cpu"),
+                      DeviceDataset.from_numpy(coarse[4:], fine[4:], "cpu"), device="cpu",
+                      run=run, track_best="MSSSIM")
+    trainer.train(2)
+    run.end("FINISHED")
     return root, run, trainer
 
 

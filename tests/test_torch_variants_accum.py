@@ -30,7 +30,7 @@ from downgan_tpu_torch.training.wgan import (  # noqa: E402
     generator_loss,
 )
 
-from _torch_parity import jax_alpha, jax_flips, paired_states, port_weights_of  # noqa: E402
+from _torch_parity import jax_alpha, jax_flips, one_thread, paired_states, port_weights_of  # noqa: E402,F401
 
 KW = dict(filters=8, num_res_blocks=1, coarse_size=8, fine_size=64)
 DATA = dict(coarse_size=8, fine_size=64)
@@ -45,15 +45,6 @@ STEP0_ATOL, ADAM_ATOL, MEDIAN_ATOL = 1e-5, 2 * LR, 1e-6
 ACCUM_B, N_STEPS = 4, 6
 ACCUM_HP = dict(batch_size=ACCUM_B, grad_accum=2, lr_schedule="cosine", lr_warmup_steps=2,
                 lr_decay_steps=6, lr_final_factor=0.1, metrics_to_calculate=METRICS)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_checkpoint.py."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def nchw(a):

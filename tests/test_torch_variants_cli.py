@@ -17,6 +17,8 @@ from downgan_tpu_torch.config.config import Config, HyperParams  # noqa: E402
 from downgan_tpu_torch.inference import write_generator_bundle  # noqa: E402
 from downgan_tpu_torch.training.state import ScheduledAdam, make_train_state  # noqa: E402
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 KW = dict(filters=8, num_res_blocks=1, coarse_size=8, fine_size=64)
 B = 2
 # 64x64 is too small for MS-SSIM's five levels.
@@ -24,15 +26,6 @@ METRICS = ("MAE", "MSE", "Wass")
 VARIANT_FLAGS = ["--freq-sep", "--critic-conditional", "--augment-flips", "--eof-lambda", "1",
                  "--grad-accum", "2", "--lr-schedule", "cosine", "--lr-warmup-steps", "2",
                  "--lr-decay-steps", "10"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_checkpoint.py."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def config_file(tmp_path, name="tiny.json", critic_conditional=False, **hp):

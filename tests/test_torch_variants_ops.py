@@ -45,17 +45,7 @@ from downgan_tpu_torch.training.trainer import training_eof_components  # noqa: 
 from downgan_tpu_torch.training.wgan import flip_masks, make_condition  # noqa: E402
 from downgan_tpu_torch.utils.port_weights import critic_state_dict_from_flax  # noqa: E402
 
-from _torch_parity import flax_critic, jax_flips  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs test files in parallel worker
-    processes (as tests/test_torch_checkpoint.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_parity import flax_critic, jax_flips, one_thread  # noqa: E402,F401
 
 
 # fp32 on both sides, reductions in another order: 1e-5 relative (the

@@ -24,7 +24,7 @@ from downgan_tpu_torch.data.dataset import synthetic_dataset  # noqa: E402
 from downgan_tpu_torch.training.state import make_train_state  # noqa: E402
 from downgan_tpu_torch.training.wgan import build_fused_round, build_train_step  # noqa: E402
 
-from _torch_parity import jax_alpha, jax_flips, paired_states, port_weights_of  # noqa: E402
+from _torch_parity import jax_alpha, jax_flips, one_thread, paired_states, port_weights_of  # noqa: E402,F401
 
 B, N_STEPS = 2, 6  # steps 0 and 5 update the generator
 KW = dict(filters=8, num_res_blocks=1, coarse_size=8, fine_size=64, critic_conditional=True)
@@ -39,15 +39,6 @@ HP = dict(batch_size=B, freq_sep=True, augment_flips=True, divergence_lambda=1.0
 # near-zero gradient into O(lr)) and the median within 1e-6.
 METRIC_RTOL, METRIC_ATOL = 1e-6, 5e-6
 STEP0_ATOL, ADAM_ATOL, MEDIAN_ATOL = 1e-5, 2 * 2.5e-4, 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_checkpoint.py."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def nchw(a):
