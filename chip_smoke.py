@@ -14,7 +14,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                compiler's register report (and fails on a spill);
 3. kernel   -- the fp32 DRB kernel against its plain PyTorch twin on the card
                (TF32 off), at the generator's shapes, domain bands, images of
-               several 16x16 tiles (halo'd on every side, ragged) and F=8;
+               several 16x16 tiles (halo'd on every side, ragged), F=8 and
+               the halo-extended bands the spatial phase gives it;
                at B=150 (serving), B=128 (training) and a domain band it
                times the kernel, the twin and the cuDNN five-conv chain
                beside the kernel's bound (the 3xTF32 tensor-core floor, or
@@ -169,6 +170,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                the card step tolerances of one rank's; steps, rounds,
                gradient all-reduces and the metric pass's gathers timed by
                CUDA events; peak memory per rank.
+24. spatial -- halo-exchange spatial sharding at florida width and depth:
+               four gloo ranks sharing the card as a 2 x 2 (data, spatial)
+               grid. (a) ``sharded_generator_apply`` at B=150 over 2 shards
+               (8 coarse rows a rank, DRB bands of 13 rows) and 4 (4 rows,
+               halos from two neighbours), 48 DRB launches a forward a rank
+               on halo-extended bands, against the unsharded forward (bit
+               for bit expected; else within 1e-5, the first stage that
+               differs named); (b) at B=32 over 2 shards against the
+               unsharded networks: the sharded generator's parameter
+               gradients of a scalar of its output (the DRB backward over
+               the bands, the halos' adjoints), and ``sharded_critic_apply``,
+               the GP and its parameter gradients (the double backward
+               through the collectives); (c) six steps of ``build_spatial_train_step`` at
+               B=32 over 2 ranks, bit for bit across the ranks, each within
+               the Adam tolerances of one process's ``build_train_step``:
+               ms per step and per update step, ms and count of halo
+               exchanges, gathers, row sums and gradient sums, peak memory
+               per rank beside one process's; (d) two steps of
+               ``build_dp_spatial_train_step`` on the grid against 2-rank
+               data parallelism on the same global batch of 32.
 
 The kernel phases also hold the kernels at B=64 (a microbatch under
 grad_accum 2), and the generator phase holds a generator built inside
@@ -478,7 +499,12 @@ def phase_kernel(rng, peaks):
     shapes = [(1, 16, 16, 16), (3, 16, 16, 16), (B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16),
               (B_MICRO, 16, 16, 16), (8, 16, 32, 56),
               (8, 16, 32, 112), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112),
-              (1, 16, 37, 53), (1, 8, 40, 24)]
+              (1, 16, 37, 53), (1, 8, 40, 24),
+              # phase spatial's halo-extended DRB bands of florida's 16 coarse
+              # rows: 13 rows over 2 shards, 9 and 13 over 4 (leg a, B=150),
+              # 13 in legs b and c (B=32) and d (16 samples a data replica)
+              (SP_B_FORWARD, 16, 13, 16), (SP_B_FORWARD, 16, 9, 16), (SP_B_STEP, 16, 13, 16),
+              (SP_B_STEP // SP_GRID[0], 16, 13, 16)]
     timed = {(B_MAIN, 16, 16, 16): None, (B_TRAIN, 16, 16, 16): None, (8, 16, 32, 112): None}
     errors = {}
     with torch.inference_mode():
@@ -1032,21 +1058,24 @@ def phase_train_parity(config):
 @contextlib.contextmanager
 def launches_per_generator_forward():
     """Each generator forward's own DRB kernel launches, in call order, while
-    the block runs (forward hooks on every ``Generator``)."""
+    the block runs (forward hooks on every ``Generator`` and
+    ``ShardedGenerator``)."""
     from torch.nn.modules.module import (register_module_forward_hook,
                                          register_module_forward_pre_hook)
 
     from downgan_tpu_torch.models.generator import Generator
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.parallel.spatial import ShardedGenerator
 
     pending, per_forward = [], []
+    kinds = (Generator, ShardedGenerator)  # a sharded forward runs the blocks itself
 
     def pre(module, args):
-        if isinstance(module, Generator):
+        if isinstance(module, kinds):
             pending.append(drb_forward.launches)
 
     def post(module, args, out):
-        if isinstance(module, Generator):
+        if isinstance(module, kinds):
             per_forward.append(drb_forward.launches - pending.pop())
 
     hooks = [register_module_forward_pre_hook(pre), register_module_forward_hook(post)]
@@ -2776,6 +2805,510 @@ def phase_dp(smi: str):
     return fp32_launches, bf16_launches
 
 
+# ---- the spatial phase: halo-exchange spatial sharding ------------------------------
+SP_GRID = (2, 2)  # (data, spatial): four gloo ranks sharing the one card
+SP_B_FORWARD = 150  # leg (a): the serving batch
+SP_B_STEP = 32  # legs (b)-(d)
+SP_STEPS = 6  # leg (c): generator updates at steps 0 and 5
+SP_DP_STEPS = 2  # leg (d)
+SP_DEADLINE_S = 600  # the whole spawned job; a collective that waits DP_TIMEOUT_S raises
+# Leg (b)'s parameter gradients, the sharded generator's of a scalar of its
+# output and the sharded critic's of the GP, against the unsharded networks'
+# on the card, per tensor relative to its largest entry: fp32 backwards of
+# one function whose convolutions run at other shapes (cuDNN may pick other
+# algorithms); the CPU test holds 1e-4 (measured 6.2e-6 and 4.2e-6). A
+# factor of S or 1/S, or a halo row's lost share, is off by order 1.
+SP_GRAD_REL = 1e-3
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> float:
+    """``torch.multiprocessing.spawn(fn, args, nprocs)`` with a deadline: a
+    rank's exception is raised here; ranks still running after
+    ``timeout_s`` are terminated and the phase fails. Returns the wall s."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    context = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = t0 + timeout_s
+    while not context.join(timeout=max(0.0, deadline - time.perf_counter())):
+        if time.perf_counter() < deadline:
+            continue
+        for proc in context.processes:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in context.processes:
+            proc.join(10)
+        raise RuntimeError(f"spawned ranks still running after {timeout_s} s")
+    return time.perf_counter() - t0
+
+
+def spatial_inputs(config, seed: int, *lead) -> tuple:
+    """Seeded (coarse, fine) NCHW batches of leading shape ``lead`` on the
+    host: the same on every rank and in the main process."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.randn((*lead, config.n_covariates, config.coarse_size, config.coarse_size),
+                         generator=g)
+    fine = torch.randn((*lead, config.n_predictands, config.fine_size, config.fine_size),
+                       generator=g)
+    return coarse, fine
+
+
+def spatial_critic_inputs(config) -> tuple:
+    """Leg (b)'s real, fake and alpha at SP_B_STEP."""
+    g = torch.Generator().manual_seed(31)
+    _, real = spatial_inputs(config, 30, SP_B_STEP)
+    fake = 0.9 * real + 0.1 * torch.randn(real.shape, generator=g)
+    return real, fake, torch.rand((SP_B_STEP, 1, 1, 1), generator=g)
+
+
+def spatial_generator_inputs(config) -> tuple:
+    """Leg (b)'s coarse batch at SP_B_STEP and the cotangent of the
+    generator's output whose parameter gradients are compared."""
+    coarse, fine = spatial_inputs(config, 32, SP_B_STEP)
+    return coarse, torch.randn(fine.shape, generator=torch.Generator().manual_seed(33))
+
+
+def generator_gradients(apply, gen, coarse, cotangent, sync=None) -> dict:
+    """The parameter gradients of ``sum(apply(gen, coarse) * cotangent)``,
+    after ``sync.gradients`` where given, on the CPU; ``gen``'s gradients
+    are cleared after."""
+    (apply(gen, coarse) * cotangent).sum().backward()
+    if sync is not None:
+        sync.gradients(list(gen.parameters()))
+    grads = {k: p.grad.cpu() for k, p in gen.named_parameters()}
+    gen.zero_grad(set_to_none=True)
+    return grads
+
+
+def gradient_gaps(got: dict, want: dict) -> dict:
+    """Per tensor, the largest difference over the largest entry of the
+    reference (1 where that is all zeros)."""
+    return {k: float((got[k] - g).abs().max() / (g.abs().max() if g.any() else 1.0))
+            for k, g in want.items()}
+
+
+# The callers of torch.distributed.all_reduce in a spatial step, by kind.
+SP_COLLECTIVE_KINDS = {"_GatherRows.forward": "gather", "_HaloExchange.forward": "halo",
+                       "_HaloAdjoint.forward": "halo_adjoint", "_RowSum.forward": "row_sum",
+                       "all_reduce_gradients": "gradients"}
+
+
+@contextlib.contextmanager
+def timed_spatial_collectives():
+    """CUDA events around every ``torch.distributed.all_reduce``, each
+    tagged by its caller (SP_COLLECTIVE_KINDS: the sharded networks'
+    gathers, halos, halo adjoints and row sums, and the gradient sum
+    ``SpatialSync`` makes; any other caller by its own name); yields the
+    list of (kind, start, end, elements)."""
+    dist = torch.distributed
+    calls = []
+    real = dist.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        caller = sys._getframe(1).f_code.co_qualname
+        start = recorded_event()
+        out = real(tensor, *args, **kwargs)
+        calls.append((SP_COLLECTIVE_KINDS.get(caller, caller), start, recorded_event(),
+                      tensor.numel()))
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def collective_ms(calls) -> dict:
+    """{kind: [count, ms]} of the recorded calls (read after a synchronize)."""
+    out = {}
+    for kind, start, end, _ in calls:
+        entry = out.setdefault(kind, [0, 0.0])
+        entry[0] += 1
+        entry[1] += start.elapsed_time(end)
+    return out
+
+
+def generator_stages(gen, x, conv, drb):
+    """(name, output) after conv1, each RRDB, conv2 and the skip, each up
+    stage and the two head convs of the RRDB ``gen`` on ``x``, with ``conv(m,
+    t)`` and ``drb(block, t)`` as the network's convs and blocks: the
+    unsharded ones, or the sharded ones on a rank's rows."""
+    import torch.nn.functional as F
+
+    out1 = conv(gen.conv1, x)
+    yield "conv1", out1
+    out = out1
+    for i, rrdb in enumerate(gen.res_blocks):
+        y = out
+        for block in rrdb.dense_blocks:
+            y = drb(block, y)
+        out = y * 0.2 + out
+        yield f"rrdb{i}", out
+    out = out1 + conv(gen.conv2, out)
+    yield "conv2", out
+    for i, c in enumerate(gen.upsampling[::3]):
+        out = F.pixel_shuffle(F.leaky_relu(conv(c, out), 0.01), 2)
+        yield f"up{i}", out
+    out = F.leaky_relu(conv(gen.conv3[0], out), 0.01)
+    yield "head1", out
+    yield "head2", conv(gen.conv3[2], out)
+
+
+def first_differing_stage(gen, x, group) -> dict:
+    """This rank's rows of every stage of the sharded forward against the
+    same rows of the unsharded forward: the first stage that differs and
+    its largest difference, and the largest difference of every stage."""
+    from downgan_tpu_torch.parallel.spatial import ShardedGenerator, scatter_rows, sharded_drb
+
+    sharded = ShardedGenerator(gen, group)
+    index = torch.distributed.get_rank(group)
+    with torch.no_grad():
+        whole = generator_stages(gen, x, lambda m, t: m(t), lambda b, t: b(t))
+        local = generator_stages(gen, scatter_rows(x, group), sharded.conv,
+                                 lambda b, t: sharded_drb(b, t, group))
+        diffs = {}
+        for (name, want), (_, got) in zip(whole, local):
+            h = got.shape[2]
+            diffs[name] = float((got - want[:, :, index * h:(index + 1) * h]).abs().max())
+    first = next((name for name, d in diffs.items() if d > 0), None)
+    return {"first_differing_stage": first, "max_abs_by_stage": diffs}
+
+
+def spatial_state(config):
+    from downgan_tpu_torch.training.state import make_train_state
+
+    return make_train_state(config, "cuda:0")
+
+
+def spatial_steps(step, state, coarse, fine, calls=None) -> dict:
+    """Run ``step`` over the (steps, B, ...) batches, CUDA events around
+    each step; the metrics, the step ms, per step the ms and count of each
+    collective kind, the final weights on the CPU and the peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    metrics, events, marks = [], [], []
+    for c, f in zip(coarse, fine):
+        marks.append(len(calls) if calls is not None else 0)
+        start = recorded_event()
+        metrics.append({k: v.detach() for k, v in step(state, c.cuda(), f.cuda()).items()})
+        events.append((start, recorded_event()))
+    torch.cuda.synchronize()
+    out = {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+           "step_ms": [a.elapsed_time(b) for a, b in events],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_above_start_bytes": torch.cuda.max_memory_allocated() - baseline,
+           "weights": {f"{part}.{k}": v.detach().cpu()
+                       for part, module in (("generator", state.generator),
+                                            ("critic", state.critic))
+                       for k, v in module.state_dict().items()},
+           "forwards": dict(step.forwards)}
+    if calls is not None:
+        marks.append(len(calls))
+        out["collectives_per_step"] = [collective_ms(calls[a:b]) for a, b in
+                                       zip(marks, marks[1:])]
+    return out
+
+
+def spatial_rank(rank: int, world: int, store: str, workdir: str) -> None:
+    """One gloo rank of phase ``spatial``, spawned by :func:`phase_spatial`:
+    joins over a file store as local rank 0 of the one card, lays the four
+    ranks out as a 2 x 2 (data, spatial) grid and runs legs (a)-(d), the DRB
+    launches of the whole run counted from 0; writes
+    ``workdir/spatial_rank<rank>.pt``."""
+    from downgan_tpu_torch.config.config import Config
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.parallel import spatial
+    from downgan_tpu_torch.parallel.dp import GroupSync
+    from downgan_tpu_torch.parallel.mesh import batch_rows, make_grid
+    from downgan_tpu_torch.parallel.multihost import initialize
+    from downgan_tpu_torch.training.wgan import build_train_step, gradient_penalty
+
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(f"file://{store}", world, rank, backend="gloo",
+               timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    data_group, spatial_group = make_grid(*SP_GRID)
+    config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
+    state = spatial_state(config)
+    dist = torch.distributed
+    out = {"forward": {}}
+    with launches_per_generator_forward() as per_forward:
+        reset_launch_counts()  # the path's run starts here
+        # (a) the sharded generator forward at B=150, 2 shards (each spatial
+        # group of the grid) and 4 (the whole job)
+        coarse, _ = spatial_inputs(config, 20, SP_B_FORWARD)
+        coarse = coarse.cuda()
+        for shards, group in ((2, spatial_group), (4, None)):
+            apply = spatial.sharded_generator_apply(config, group)
+            with torch.no_grad():
+                apply(state.generator, coarse)  # warm: cuDNN's algorithms, the pack cache
+                before = drb_forward.launches
+                start = recorded_event()
+                fine = apply(state.generator, coarse)
+                end = recorded_event()
+                torch.cuda.synchronize()
+            out["forward"][shards] = {"launches": drb_forward.launches - before,
+                                      "ms": start.elapsed_time(end)}
+            if rank == 0:
+                out["forward"][shards]["fine"] = fine.cpu()
+            del fine
+        # (b) the sharded generator's parameter gradients of a scalar of its
+        # output, and the sharded critic and the GP, at B=32 over 2 shards
+        coarse, cotangent = (t.cuda() for t in spatial_generator_inputs(config))
+        out["generator_grads"] = generator_gradients(
+            spatial.sharded_generator_apply(config, spatial_group), state.generator, coarse,
+            cotangent, spatial.SpatialSync(spatial_group))
+        real, fake, alpha = (t.cuda() for t in spatial_critic_inputs(config))
+        sharded = spatial.ShardedCritic(state.critic, spatial_group)
+        with torch.no_grad():
+            scores = sharded(real)
+        gp = gradient_penalty(sharded, real, fake, alpha)
+        gp.backward()
+        params = list(state.critic.parameters())
+        spatial.SpatialSync(spatial_group, sharded.replicated_parameters()).gradients(params)
+        out["critic"] = {"scores": scores.cpu(), "gp": gp.item(),
+                         "grads": {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                                   for k, p in state.critic.named_parameters()}}
+        state.critic.zero_grad(set_to_none=True)
+        dist.barrier()
+        # (c) the spatial train step, 6 steps at B=32 over 2 ranks (the first
+        # spatial group; the others wait, so the two ranks share the card alone)
+        coarse, fine = spatial_inputs(config, 21, SP_STEPS, SP_B_STEP)
+        if rank in (0, 1):
+            step_state = spatial_state(config)
+            step = spatial.build_spatial_train_step(config, step_state.generator,
+                                                    step_state.critic, spatial_group)
+            with timed_spatial_collectives() as calls:
+                out["step"] = spatial_steps(step, step_state, coarse, fine, calls)
+            del step_state, step
+        dist.barrier()
+        # (d) DP x spatial on the 2 x 2 grid against 2-rank DP on the data groups
+        coarse, fine = spatial_inputs(config, 22, SP_DP_STEPS, SP_B_STEP)
+        d_rank = dist.get_rank(data_group)
+        rows = [batch_rows(t, d_rank, SP_GRID[0], axis=1) for t in (coarse, fine)]
+        for name, build in (
+                ("dp_spatial", lambda st: spatial.build_dp_spatial_train_step(
+                    config, st.generator, st.critic, spatial_group, data_group)),
+                ("dp", lambda st: build_train_step(config, st.generator, st.critic,
+                                                   sync=GroupSync(data_group)))):
+            leg_state = spatial_state(config)
+            out[name] = spatial_steps(build(leg_state), leg_state, *rows)
+            del leg_state
+        torch.cuda.synchronize()
+        out["launches"] = drb_forward.launches  # ... and ends here
+    out["launches_per_forward"] = sorted(set(per_forward))
+    out["n_forwards"] = len(per_forward)
+    # Outside the counted run: this rank's rows of every stage of leg (a)'s
+    # forward against the unsharded forward's, to name the first that differs.
+    coarse, _ = spatial_inputs(config, 20, SP_B_FORWARD)
+    out["stages"] = {shards: first_differing_stage(state.generator, coarse.cuda(), group)
+                     for shards, group in ((2, spatial_group), (4, None))}
+    torch.save(out, Path(workdir) / f"spatial_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def spatial_weight_check(got: dict, want: dict, updates: dict, what: str) -> dict:
+    """:func:`dp_weight_report` with the leg named in its failure."""
+    try:
+        return dp_weight_report(got, want, updates, ADAM_MEDIAN_ATOL)
+    except RuntimeError as e:
+        raise RuntimeError(f"spatial leg {what}: {e}") from None
+
+
+def close_metrics(got: list, want: list, what: str) -> float:
+    """The largest relative gap of every step's metrics; each within the
+    card step tolerances (STEP_RTOL, STEP_ATOL)."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        for k, v in w.items():
+            gap = abs(g[k] - v)
+            check(gap <= STEP_ATOL + STEP_RTOL * abs(v), f"spatial leg {what}: {k} {g[k]} vs {v}")
+            worst = max(worst, gap / max(abs(v), 1e-30))
+    return worst
+
+
+def step_timing(run: dict, n_critic: int) -> dict:
+    """A run's step ms: every step, the warm critic-only steps' mean and the
+    warm update step (the last step whose index is a multiple of
+    ``n_critic``, past step 0), and per warm step the ms and count of each
+    collective kind."""
+    ms = run["step_ms"]
+    updates = [i for i in range(len(ms)) if i % n_critic == 0]
+    critic_only = [ms[i] for i in range(1, len(ms)) if i % n_critic]
+    out = {"step_ms": ms, "critic_only_step_ms_warm": float(np.mean(critic_only)),
+           "update_step_ms_warm": ms[updates[-1]] if updates[-1] > 0 else None,
+           "peak_memory_bytes": run["peak_memory_bytes"],
+           "peak_above_start_bytes": run["peak_above_start_bytes"]}
+    if "collectives_per_step" in run:
+        per_kind = {}
+        for i, step in enumerate(run["collectives_per_step"]):
+            for kind, (n, t) in step.items():
+                per_kind.setdefault(kind, {"calls_by_step": [], "ms_by_step": []})
+                entry = per_kind[kind]
+                entry["calls_by_step"].append(n)
+                entry["ms_by_step"].append(t)
+        out["collectives"] = per_kind
+        out["collective_ms_by_step"] = [sum(t for _, t in step.values())
+                                        for step in run["collectives_per_step"]]
+    return out
+
+
+def phase_spatial(smi: str) -> int:
+    """Halo-exchange spatial sharding at florida width and depth, four gloo
+    ranks sharing the card as a 2 x 2 (data, spatial) grid
+    (:func:`spatial_rank`), held against one process on the card: (a) the
+    sharded generator forward at B=150 over 2 and 4 shards, 48 DRB launches
+    a forward a rank on halo-extended bands, against the unsharded forward
+    (bit for bit expected, else within KERNEL_ATOL with the first stage
+    that differs named); (b) the sharded generator's parameter gradients of
+    a scalar of its output, the sharded critic's scores, the GP and its
+    parameter gradients at B=32 over 2 shards; (c) six steps of
+    ``build_spatial_train_step`` at B=32 over 2 ranks, the ranks bit for
+    bit and each within the Adam tolerances of one process's
+    ``build_train_step``, with step, collective and peak-memory figures per
+    rank; (d) two steps of ``build_dp_spatial_train_step`` on the grid
+    against 2-rank data parallelism. Returns the DRB launches of the ranks'
+    runs."""
+    from downgan_tpu_torch.config.config import Config
+    from downgan_tpu_torch.parallel.spatial import DRB_HALO, band_rows
+    from downgan_tpu_torch.training.wgan import (build_train_step, g_updates_in_window,
+                                                 gradient_penalty)
+
+    config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
+    world = SP_GRID[0] * SP_GRID[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        wall_s = spawn_ranks(spatial_rank, (world, str(Path(tmp) / "store"), tmp), world,
+                             SP_DEADLINE_S)
+        ranks = [torch.load(Path(tmp) / f"spatial_rank{r}.pt", weights_only=True)
+                 for r in range(world)]
+    for r, run in enumerate(ranks):
+        check(run["launches_per_forward"] == [48] and run["launches"] == 48 * run["n_forwards"],
+              f"spatial rank {r}: DRB launches per sharded forward {run['launches_per_forward']}, "
+              f"{run['launches']} over {run['n_forwards']} forwards")
+    launches = sum(run["launches"] for run in ranks)
+    state = spatial_state(config)
+
+    # (a) the generator forward
+    coarse, _ = spatial_inputs(config, 20, SP_B_FORWARD)
+    with torch.no_grad():
+        want = state.generator(coarse.cuda())
+        start = recorded_event()
+        want = state.generator(coarse.cuda())
+        end = recorded_event()
+        torch.cuda.synchronize()
+    want = want.cpu()
+    forward = {}
+    for shards in (2, 4):
+        got = ranks[0]["forward"][shards]["fine"]
+        stages = [run["stages"][shards] for run in ranks]
+        gap = float((got - want).abs().max())
+        bit = torch.equal(got, want)
+        check(bit or gap <= KERNEL_ATOL,
+              f"spatial leg a: {shards} shards {gap} off the unsharded forward; first stage "
+              f"that differs, by rank: {[s['first_differing_stage'] for s in stages]}")
+        per_forward = [run["forward"][shards]["launches"] for run in ranks]
+        check(per_forward == [48] * world, f"spatial leg a: launches a forward {per_forward}")
+        forward[shards] = {
+            "bit_for_bit": bit, "max_abs_diff": gap, "tolerance": KERNEL_ATOL,
+            "first_differing_stage_by_rank": [s["first_differing_stage"] for s in stages],
+            "stage_max_abs_by_rank": [s["max_abs_by_stage"] for s in stages],
+            "drb_launches_per_forward_per_rank": per_forward,
+            "coarse_rows_per_rank": config.coarse_size // shards,
+            "drb_band_rows": [hi - lo for lo, hi in (
+                band_rows(shards, i, config.coarse_size // shards, DRB_HALO)
+                for i in range(shards))],
+            "forward_ms_per_rank": [run["forward"][shards]["ms"] for run in ranks]}
+    emit("spatial", leg="a_generator_forward", card=smi, batch=SP_B_FORWARD,
+         backend="gloo, 4 ranks sharing the card (CUDA tensors through host memory)",
+         by_shards=forward, unsharded_forward_ms=start.elapsed_time(end), spawn_and_legs_s=wall_s)
+
+    # (b) the generator's parameter gradients, the critic and the GP over 2 shards
+    coarse, cotangent = (t.cuda() for t in spatial_generator_inputs(config))
+    gen_grads = generator_gradients(lambda gen, x: gen(x), state.generator, coarse, cotangent)
+    gen_grad_gaps = []
+    for r, run in enumerate(ranks):
+        worst = gradient_gaps(run["generator_grads"], gen_grads)
+        gen_grad_gaps.append(max(worst.values()))
+        check(gen_grad_gaps[-1] <= SP_GRAD_REL,
+              f"spatial leg b: rank {r} generator parameter gradients {worst}")
+    real, fake, alpha = (t.cuda() for t in spatial_critic_inputs(config))
+    with torch.no_grad():
+        scores = state.critic(real).cpu()
+    gp = gradient_penalty(state.critic, real, fake, alpha)
+    gp.backward()
+    gp = gp.item()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for k, p in state.critic.named_parameters()}
+    score_gaps, gp_gaps, grad_gaps = [], [], []
+    for r, run in enumerate(ranks):
+        crit = run["critic"]
+        score_gaps.append(float((crit["scores"] - scores).abs().max()))
+        check(torch.allclose(crit["scores"], scores, atol=3e-4, rtol=1e-4),
+              f"spatial leg b: rank {r} scores {score_gaps[-1]} off")
+        gp_gaps.append(abs(crit["gp"] - gp) / abs(gp))
+        check(gp_gaps[-1] <= 1e-3, f"spatial leg b: rank {r} GP {crit['gp']} vs {gp}")
+        worst = gradient_gaps(crit["grads"], grads)
+        grad_gaps.append(max(worst.values()))
+        check(grad_gaps[-1] <= SP_GRAD_REL,
+              f"spatial leg b: rank {r} GP parameter gradients {worst}")
+    emit("spatial", leg="b_gradients_critic_gp", card=smi, batch=SP_B_STEP, shards=2,
+         generator_param_grad_rel_diff_by_rank=gen_grad_gaps,
+         generator_param_grad_tolerance_rel=SP_GRAD_REL, score_max_abs_diff_by_rank=score_gaps, score_tolerance={"atol": 3e-4, "rtol": 1e-4},
+         gp=gp, gp_rel_diff_by_rank=gp_gaps, gp_tolerance_rel=1e-3,
+         gp_param_grad_rel_diff_by_rank=grad_gaps, gp_param_grad_tolerance_rel=SP_GRAD_REL)
+    del state
+
+    # (c) the spatial train step against one process
+    n_critic = config.hp.critic_iterations
+    coarse, fine = spatial_inputs(config, 21, SP_STEPS, SP_B_STEP)
+    one_state = spatial_state(config)
+    one = spatial_steps(build_train_step(config, one_state.generator, one_state.critic),
+                        one_state, coarse, fine)
+    del one_state
+    r0, r1 = ranks[0]["step"], ranks[1]["step"]
+    unequal = sorted(k for k in r0["weights"] if not torch.equal(r0["weights"][k], r1["weights"][k]))
+    check(not unequal and r0["metrics"] == r1["metrics"],
+          f"spatial leg c: the two ranks differ: {unequal[:5]}")
+    check(r0["forwards"] == one["forwards"], f"spatial leg c: forwards {r0['forwards']}")
+    updates = {"generator": g_updates_in_window(0, SP_STEPS, n_critic), "critic": SP_STEPS}
+    report = spatial_weight_check(r0["weights"], one["weights"], updates, "c")
+    metric_gap = close_metrics(r0["metrics"], one["metrics"], "c")
+    emit("spatial", leg="c_spatial_train_step", card=smi, batch=SP_B_STEP, shards=2,
+         steps=SP_STEPS, held={"ranks": "bit_identical", "vs_one_process": report,
+                               "metrics_max_rel_diff": metric_gap},
+         generator_forwards=r0["forwards"],
+         per_rank=[step_timing(run["step"], n_critic) for run in ranks[:2]],
+         one_process=step_timing(one, n_critic))
+
+    # (d) DP x spatial on the 2 x 2 grid against DP alone. The grid's four
+    # ranks share every update; the DP baseline is two jobs of two ranks
+    # (the data groups), each its own computation (cuDNN's weight-gradient
+    # algorithms need not give two jobs the same bits).
+    for name, coupled in (("dp_spatial", [(0, 1, 2, 3)]), ("dp", [(0, 2), (1, 3)])):
+        unequal = sorted(k for group in coupled for r in group[1:]
+                         for k, v in ranks[r][name]["weights"].items()
+                         if not torch.equal(v, ranks[group[0]][name]["weights"][k]))
+        check(not unequal, f"spatial leg d: the ranks of {name} differ: {unequal[:5]}")
+    updates = {"generator": g_updates_in_window(0, SP_DP_STEPS, n_critic), "critic": SP_DP_STEPS}
+    report = spatial_weight_check(ranks[0]["dp_spatial"]["weights"], ranks[0]["dp"]["weights"],
+                                  updates, "d")
+    metric_gap = close_metrics(ranks[0]["dp_spatial"]["metrics"], ranks[0]["dp"]["metrics"], "d")
+    emit("spatial", leg="d_dp_x_spatial", card=smi, grid=list(SP_GRID), global_batch=SP_B_STEP,
+         steps=SP_DP_STEPS, held={"ranks": "bit_identical (the grid's four; each DP job's two)",
+                                  "vs_dp_2_ranks": report,
+                                  "metrics_max_rel_diff": metric_gap},
+         step_ms_dp_spatial_by_rank=[run["dp_spatial"]["step_ms"] for run in ranks],
+         step_ms_dp_by_rank=[run["dp"]["step_ms"] for run in ranks],
+         peak_memory_bytes_dp_spatial_by_rank=[run["dp_spatial"]["peak_memory_bytes"]
+                                                for run in ranks],
+         peak_memory_bytes_dp_by_rank=[run["dp"]["peak_memory_bytes"] for run in ranks],
+         drb_launches_by_rank=[run["launches"] for run in ranks])
+    return launches
+
+
 GEN_SAMPLES = 1440  # the generate and evaluate phases' series: 9 chunks of 150 and a 90 tail
 GEN_TILE_DOMAIN = (8, 56, 112)  # a series of taller domains for --tile-rows 16 (4 bands each)
 GEN_MEMBERS = 4
@@ -3187,6 +3720,8 @@ def main() -> int:
           "a training-variant path launched no DRB kernel")
     dp_launches, dp_bf16_launches = phase_dp(smi)
     check(dp_launches > 0 and dp_bf16_launches > 0, "a data-parallel path launched no DRB kernel")
+    spatial_launches = phase_spatial(smi)
+    check(spatial_launches > 0, "the spatially sharded path launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
               "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
@@ -3196,7 +3731,8 @@ def main() -> int:
         "launches": (serving_launches + training_launches + resume_launches + bundle_launches
                      + host_feed_launches + stream_launches + stochastic_launches
                      + ensemble_launches + serving_stochastic_launches + generate_launches
-                     + evaluate_launches + split_launches + variants_launches + dp_launches),
+                     + evaluate_launches + split_launches + variants_launches + dp_launches
+                     + spatial_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches,
                              "host_feed": host_feed_launches, "stream": stream_launches,
@@ -3204,7 +3740,8 @@ def main() -> int:
                              "serving_stochastic": serving_stochastic_launches,
                              "generate": generate_launches, "evaluate": evaluate_launches,
                              "tiles_split": split_launches,
-                             "variants": variants_launches, "dp": dp_launches},
+                             "variants": variants_launches, "dp": dp_launches,
+                             "spatial": spatial_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],

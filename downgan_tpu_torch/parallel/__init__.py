@@ -1,8 +1,9 @@
 """Parallelism layer: ranks over ``torch.distributed``, batch rows, state
-replication and the data-parallel train step (counterpart of
-``downgan_tpu/parallel/__init__.py``). One process per card; the spatial
-(halo-exchange) half of the JAX package's layer is not ported yet, and
-``spatial.py`` here tiles a domain on one device."""
+replication, the data-parallel train step, halo-exchange spatial sharding
+of the fields' rows (the sharded networks and the spatial and DP x spatial
+train steps) and overlap-tiled inference (counterpart of
+``downgan_tpu/parallel/__init__.py``). One process per card; on one card,
+gloo ranks can share it."""
 from downgan_tpu_torch.parallel.dp import (
     GroupSync,
     all_reduce_gradients,
@@ -13,7 +14,10 @@ from downgan_tpu_torch.parallel.dp import (
 )
 from downgan_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    SPATIAL_AXIS,
     batch_rows,
+    field_rows,
+    make_grid,
     rank,
     replicate_state,
     world_size,
@@ -24,23 +28,42 @@ from downgan_tpu_torch.parallel.multihost import (
     make_global_batch,
     process_batch_slice,
 )
-from downgan_tpu_torch.parallel.spatial import tiled_sr_inference
+from downgan_tpu_torch.parallel.spatial import (
+    SpatialSync,
+    build_dp_spatial_train_step,
+    build_spatial_train_step,
+    halo_exchange,
+    make_sharded_conv,
+    sharded_critic_apply,
+    sharded_generator_apply,
+    tiled_sr_inference,
+)
 
 __all__ = [
     "DATA_AXIS",
+    "SPATIAL_AXIS",
     "GroupSync",
+    "SpatialSync",
     "all_reduce_gradients",
     "all_reduce_means",
     "batch_rows",
     "build_dp_epoch",
+    "build_dp_spatial_train_step",
     "build_dp_train_step",
+    "build_spatial_train_step",
     "device_batches",
+    "field_rows",
+    "halo_exchange",
     "initialize",
     "local_device",
     "make_global_batch",
+    "make_grid",
+    "make_sharded_conv",
     "process_batch_slice",
     "rank",
     "replicate_state",
+    "sharded_critic_apply",
+    "sharded_generator_apply",
     "tiled_sr_inference",
     "world_size",
 ]

@@ -37,18 +37,19 @@ from downgan_tpu_torch.training.wgan import Metrics, build_fused_round, build_tr
 
 
 @torch.no_grad()
-def all_reduce_gradients(params: Sequence[torch.Tensor], group=None) -> None:
+def all_reduce_gradients(params: Sequence[torch.Tensor], group=None, average: bool = True) -> None:
     """Replace each gradient of ``params`` by its mean across ``group``'s
-    ranks: the gradients flattened into one bucket, all-reduced with
-    ``SUM``, divided by the world size and copied back. Parameters without
-    a gradient are left out (the same ones on every rank, which run the
-    same graph). Exact at world size 1."""
+    ranks (their sum with ``average=False``): the gradients flattened into
+    one bucket, all-reduced with ``SUM``, divided by the world size and
+    copied back. Parameters without a gradient are left out (the same ones
+    on every rank, which run the same graph). Exact at world size 1."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat.div_(dist.get_world_size(group))
+    if average:
+        flat.div_(dist.get_world_size(group))
     torch._foreach_copy_(grads, [c.view_as(g) for g, c in
                                  zip(grads, flat.split([g.numel() for g in grads]))])
 

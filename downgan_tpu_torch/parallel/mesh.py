@@ -8,16 +8,20 @@ takes its contiguous rows of every global batch (:func:`batch_rows`, the
 counterpart of ``batch_sharding``/``shard_batch``) and averages gradients
 with the other ranks after each backward (``parallel/dp.py``). So there is
 no ``make_mesh`` over devices here; without a process group a program is
-rank 0 of 1.
+rank 0 of 1. Spatial sharding (``parallel/spatial.py``) splits each field's
+rows over the ranks of a spatial group instead: :func:`make_grid` lays the
+job out as the JAX package's ``(data, spatial)`` mesh, and
+:func:`field_rows` gives a rank its rows of a field.
 """
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Tuple
 
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
 
 
 def in_group() -> bool:
@@ -46,6 +50,48 @@ def rows_of(global_batch: int, rank: int, world: int) -> slice:
         raise ValueError(f"global batch {global_batch} not divisible by {world} processes")
     per = global_batch // world
     return slice(rank * per, (rank + 1) * per)
+
+
+def field_rows(height: int, shards: int, index: int) -> slice:
+    """The rows ``[index * h, (index + 1) * h)`` of a field of ``height``
+    rows that spatial shard ``index`` of ``shards`` holds, h = ``height /
+    shards``; a height the shards do not divide is refused (every shard
+    holds as many rows, as ``shard_map`` requires in the JAX package)."""
+    if shards < 1 or not 0 <= index < shards:
+        raise ValueError(f"shard {index} is not a shard of {shards}")
+    if height % shards:
+        raise ValueError(f"a field of {height} rows does not split over {shards} spatial "
+                         "shards; use a number of shards that divides it")
+    per = height // shards
+    return slice(index * per, (index + 1) * per)
+
+
+def make_grid(data: int, spatial: int) -> Tuple[object, object]:
+    """This rank's ``(data group, spatial group)`` of the job laid out as a
+    ``data x spatial`` grid, spatial fastest (the JAX package's
+    ``make_mesh((data, spatial), ("data", "spatial"))``): rank ``d *
+    spatial + s`` is shard s of the field rows of data replica d. The
+    spatial group of replica d is ranks ``[d * spatial, (d + 1) *
+    spatial)``; the data group of shard s is ranks ``s, s + spatial, ...``.
+    Every rank creates every group, in the same order (``new_group`` is a
+    collective of the whole job), and keeps its own two."""
+    if not in_group():
+        raise RuntimeError("a grid of ranks needs a process group: call "
+                           "parallel.multihost.initialize first")
+    if data < 1 or spatial < 1 or data * spatial != dist.get_world_size():
+        raise ValueError(f"a {data} x {spatial} grid does not cover the job's "
+                         f"{dist.get_world_size()} ranks")
+    me = dist.get_rank()
+    mine = [None, None]
+    for d in range(data):
+        group = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+        if me // spatial == d:
+            mine[1] = group
+    for s in range(spatial):
+        group = dist.new_group(list(range(s, data * spatial, spatial)))
+        if me % spatial == s:
+            mine[0] = group
+    return mine[0], mine[1]
 
 
 def batch_rows(batch, rank: int, world: int, axis: int = 0):

@@ -398,7 +398,9 @@ def build_eval_metrics(config: Config) -> Callable[..., Metrics]:
 
 
 def _check_modules(state: GANTrainState, gen: nn.Module, critic: nn.Module) -> None:
-    if state.generator is not gen or state.critic is not critic:
+    # A spatially sharded network (parallel/spatial.py) wraps the state's as .module.
+    if (getattr(gen, "module", gen) is not state.generator
+            or getattr(critic, "module", critic) is not state.critic):
         raise ValueError("this step was built for other modules than the state's")
 
 

@@ -365,6 +365,37 @@ def test_cuda_kernel_matches_twin(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(150, 16, 16, 16), (2, 16, 64, 40), (3, 8, 16, 24)],
+                         ids=lambda s: "B{}-F{}-{}x{}".format(*s))
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cuda_kernel_on_a_halo_band_cropped_is_the_whole_field(cuda_device, shape, shards):
+    """The spatially sharded DRB (``parallel/spatial.py::sharded_drb``): the
+    kernel over a shard's rows plus a 5-row halo, clipped at the domain's
+    edges, then cropped back to the shard's rows, equals the kernel over
+    the whole field bit for bit. Each pixel is summed from the same inputs
+    in the same order wherever its tile starts, and the false edges of a
+    band reach only rows that are cropped away. Florida's 16 rows over 4
+    shards are bands of 9 and 13 rows, ragged in the kernel's 16x16 tiles."""
+    from downgan_tpu_torch.parallel.spatial import DRB_HALO, band_rows
+
+    b, f, h, w = shape
+    ws, bs = init_scale_block(f, seed=h + shards, device=cuda_device, requires_grad=False)
+    packed = pack_drb_weights(ws, bs)
+    x = torch.randn(b, f, h, w, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    rows = h // shards
+    before = drb_forward.launches
+    with torch.inference_mode():
+        whole = drb_forward(x, ws, bs, packed)
+        for index in range(shards):
+            lo, hi = band_rows(shards, index, rows, DRB_HALO)
+            top = index * rows - lo
+            got = drb_forward(x[:, :, lo:hi].contiguous(), ws, bs, packed)[:, :, top:top + rows]
+            assert torch.equal(got, whole[:, :, index * rows:(index + 1) * rows]), (index, lo, hi)
+    torch.cuda.synchronize()
+    assert drb_forward.launches == before + 1 + shards
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     ws, bs = random_block(12)
     ws = [t.to(cuda_device) for t in ws]
