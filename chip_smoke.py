@@ -190,6 +190,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                per rank beside one process's; (d) two steps of
                ``build_dp_spatial_train_step`` on the grid against 2-rank
                data parallelism on the same global batch of 32.
+25. tooling -- the rest of the CLI, in-process: ``profile`` (the generator
+               forward at B=150, 3 fp32 reference steps at B=128, 2 bf16
+               fused rounds; a Chrome trace naming the DRB kernel, 48
+               launches a generator forward), the FLOP census of florida
+               (``meta`` equal to the CPU's, beside the JAX package's
+               figures and the profiled share of peak), ``tune`` over two
+               candidates in their own processes and ``show-config`` of its
+               recommendation, ``import-torch`` of a seeded florida
+               generator and critic (the bundle bit for bit the direct load)
+               and ``export-torch`` of the training run's checkpoint
+               imported again, grid rows on the card against the CPU, the
+               figures' note without matplotlib, ``export-mlflow`` of the
+               training run and ``serve-tracking`` over its root.
 
 The kernel phases also hold the kernels at B=64 (a microbatch under
 grad_accum 2), and the generator phase holds a generator built inside
@@ -3647,6 +3660,282 @@ def phase_tiles_split(training_ckpt: str, stochastic, smi: str):
          batching_model_bit_for_bit=True, drb_launches=launches)
     return launches
 
+# The JAX package's FLOP census of florida at B=128 on the reference
+# schedule (utils/flops.py over 5 steps from step 0; XLA's cost analysis of
+# the lowered pieces, JAX on a CPU host), for comparison with the port's:
+# XLA counts only the taps of a SAME conv inside the image (8.2 % of a 3x3
+# conv's taps are padding at 16x16) and one FLOP an element for
+# elementwise ops; the port's census counts every tap and no elementwise op.
+JAX_CENSUS_FLORIDA = {"fake_gen": 1.2395e11, "critic_vag_microbatch": 2.4477e11,
+                      "gen_vag_microbatch": 4.2102e11, "metrics": 5.0387e10,
+                      "flops_per_step": 6.2726e11}
+# Grid rows on the card against the same rows on the CPU (the generator
+# phase measured 4.3e-7 between the card's and the CPU's florida forward).
+GRID_ATOL = GRID_RTOL = 1e-5
+GRID_SAMPLES = 144  # the grid's pool: the synthetic set's test split at 1,440
+
+
+def profile_leg(argv, out: Path, kernel: str, bf16: bool) -> dict:
+    """``cli profile argv --out out`` in-process with the DRB launches counted
+    from 0: 48 in each generator forward it reports, the trace naming
+    ``kernel``; returns its JSON line's dict with the trace's size (the trace
+    is deleted after the check)."""
+    import shutil
+
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+
+    reset_launch_counts()  # the profile path's run starts here
+    result = cli_main(["profile", *argv, "--out", str(out)])
+    torch.cuda.synchronize()
+    launches, launches_bf16 = drb_forward.launches, drb_forward.launches_bf16  # ... and ends here
+    traces = sorted(out.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"profile {argv}: traces {traces}")
+    text = traces[0].read_text()
+    names = sorted(set(re.findall(r'"name": "[^"]*(drb_kernel\w*)', text)))
+    trace_bytes = traces[0].stat().st_size
+    shutil.rmtree(out)
+    check(launches == 48 * result["generator_forwards"] == result["drb_launches"]
+          and launches_bf16 == (launches if bf16 else 0),
+          f"profile {argv}: {launches} DRB launches ({launches_bf16} bf16) for "
+          f"{result['generator_forwards']} generator forwards")
+    check(kernel in names, f"profile {argv}: the trace names {names}, not {kernel}")
+    check(result["steps_per_s"] > 0 and result["hbm"].get("peak_bytes_in_use", 0) > 0,
+          f"profile {argv}: {result}")
+    return {**result, "trace_bytes": trace_bytes, "trace_kernel_names": names,
+            "launches": launches}
+
+
+def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
+    """The rest of the CLI on the card, in-process through ``cli main``, at
+    florida width: (a) ``profile`` (the generator forward at B=150 fp32; 3
+    reference steps at B=128 fp32; 2 fused bf16 rounds of
+    examples/production_tuned.json): its JSON line, a Chrome trace naming the
+    DRB kernel, 48 launches a generator forward; (b) the FLOP census of
+    florida at B=128, reference and tuned, on ``meta`` equal to the CPU's at
+    batch 1 scaled, beside the JAX package's figures and the share of peak
+    the profiled steps reached; (c) ``tune`` over 2 fp32 reference
+    candidates (B=64 and 128) in their own processes, the recommended config
+    through ``show-config``; (d) ``import-torch`` of a seeded florida
+    generator and critic in the reference layout: the bundle's tensors and
+    its forward at B=150 bit for bit the weights loaded straight; the
+    ``training`` phase's checkpoint through ``export-torch`` and
+    ``import-torch`` again, bit for bit; (e) grid rows (the trainer's plot
+    forward) on the card against the CPU, the trainer's note that the
+    figures are skipped without matplotlib, ``export-mlflow`` of the
+    ``training`` run and ``serve-tracking`` over its tracking root. Returns
+    the fp32 and the bf16 DRB launches."""
+    from downgan_tpu_torch.cli.__main__ import main as cli_main
+    from downgan_tpu_torch.config.config import Config
+    from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
+    from downgan_tpu_torch.inference import load_bundle
+    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.tracking import TrackingStore
+    from downgan_tpu_torch.training.state import load_generator, make_critic, make_generator
+    from downgan_tpu_torch.training.trainer import Trainer, grid_rows
+    from downgan_tpu_torch.utils.flops import H100_PEAK_TFLOPS, train_flop_census
+    from downgan_tpu_torch.utils.plots import have_matplotlib
+
+    florida = ROOT / "examples" / "florida.json"
+    tuned_json = ROOT / "examples" / "production_tuned.json"
+    config = Config.from_json(florida.read_text())
+    tuned = Config.from_json(tuned_json.read_text())
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tooling_"))
+    launches = launches_bf16 = 0
+    seconds, t_part = {}, time.perf_counter()  # each leg's seconds
+
+    # (a) profile
+    profiles = {
+        "infer_b150_fp32": profile_leg(["--config", str(florida), "--mode", "infer", "--steps",
+                                        "5", "--batch-size", str(B_MAIN)],
+                                       work / "p_infer", "drb_kernel", False),
+        "train_b128_fp32_reference": profile_leg(["--config", str(florida), "--mode", "train",
+                                                  "--steps", "3"], work / "p_train",
+                                                 "drb_kernel", False),
+        "train_b128_bf16_fused": profile_leg(["--config", str(tuned_json), "--mode", "train",
+                                              "--steps", "2"], work / "p_tuned",
+                                             "drb_kernel_bf16", True)}
+    check(profiles["train_b128_bf16_fused"]["patches_per_step"] == 5 * B_TRAIN
+          and profiles["train_b128_bf16_fused"]["schedule"] == "fused",
+          "profile: a fused round is not critic_iterations x B patches")
+    launches += sum(p["launches"] for k, p in profiles.items() if "bf16" not in k)
+    launches_bf16 += profiles["train_b128_bf16_fused"]["launches"]
+    seconds["profile"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (b) the census: meta here against the CPU at batch 1, scaled
+    census = {}
+    for name, cfg, steps, start in (("reference", config, 5, 0), ("tuned", tuned, 1, 0)):
+        t0 = time.perf_counter()
+        meta = train_flop_census(cfg, steps, start_step=start)
+        meta_s = time.perf_counter() - t0
+        cpu = train_flop_census(cfg, steps, start_step=start, device="cpu")
+        check(meta == cpu, f"census {name}: meta {meta} != cpu {cpu}")
+        census[name] = {**meta, "seconds_meta": meta_s}
+    ref = census["reference"]
+    census["reference"]["vs_jax"] = {k: ref["pieces"].get(k, ref.get(k)) / v
+                                     for k, v in JAX_CENSUS_FLORIDA.items()}
+    # The profiled windows' share of the peak: the reference steps 1-3 are
+    # critic-only (the critic update's fake, the critic update, the metric
+    # pass's fake and scores); a tuned round is the tuned census's step.
+    p = ref["pieces"]
+    per_step = {"train_b128_fp32_reference": 2 * p["fake_gen"] + p["critic_vag_microbatch"]
+                + p["metrics"], "train_b128_bf16_fused": census["tuned"]["flops_per_step"]}
+    shares = {}
+    for key, cfg in (("train_b128_fp32_reference", config), ("train_b128_bf16_fused", tuned)):
+        tflops = per_step[key] * profiles[key]["steps_per_s"] / 1e12
+        peak = H100_PEAK_TFLOPS[cfg.hp.compute_dtype]
+        shares[key] = {"flops_per_step": per_step[key], "achieved_tflops": tflops,
+                       "peak_tflops": peak, "share_of_peak": tflops / peak}
+    seconds["census"] = time.perf_counter() - t_part
+
+    # (c) tune: two candidates, each in its own process
+    tuned_out, sweep_out = work / "tuned.json", work / "sweep.json"
+    report = cli_main(["tune", "--config", str(florida), "--batches", "64,128", "--dtypes",
+                       "float32", "--schedules", "reference", "--no-fast-paths",
+                       "--scan-steps", "3", "--reps", "1", "--out", str(tuned_out),
+                       "--sweep-out", str(sweep_out)])
+    sweep = json.loads(sweep_out.read_text())["sweep"]
+    check(len(report["candidates"]) == 2 and len(sweep) == 2
+          and all(r["device"] == torch.cuda.get_device_name(0) and r["value"] > 0
+                  and r["drb_launches"] == 48 * r["generator_forwards"] > 0 for r in sweep),
+          f"tune: {report}")
+    shown = Config.from_json(cli_main(["show-config", "--config", str(tuned_out)]))
+    check(shown.hp.batch_size == report["best"]["batch"] and shown.filters == config.filters,
+          f"tune's config through show-config: {shown.hp}")
+    tune_launches = sum(r["drb_launches"] for r in sweep)
+    launches += tune_launches
+    seconds["tune"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (d) import-torch and export-torch
+    g_sd = make_generator(config, "cpu", rng=torch.Generator().manual_seed(21)).state_dict()
+    c_sd = make_critic(config, "cpu", rng=torch.Generator().manual_seed(22)).state_dict()
+    torch.save(g_sd, work / "reference_generator.pt")
+    torch.save(c_sd, work / "reference_critic.pt")
+    reset_launch_counts()  # the import path's run starts here
+    bundle = cli_main(["import-torch", "--weights", str(work / "reference_generator.pt"),
+                       "--critic-weights", str(work / "reference_critic.pt"), "--config",
+                       str(florida), "--out", str(work / "imported")])
+    b_config, b_g, b_c = load_bundle(bundle)
+    x = torch.randn(B_MAIN, config.n_covariates, config.coarse_size, config.coarse_size,
+                    generator=torch.Generator().manual_seed(23)).cuda()
+    with torch.no_grad():
+        served = load_generator(b_config, b_g, "cuda")(x)
+        torch.cuda.synchronize()
+        import_launches = drb_forward.launches  # ... and ends here (check forward, bundle forward)
+        direct = load_generator(config, g_sd, "cuda")(x)
+    check(all(torch.equal(b_g[k], g_sd[k]) for k in g_sd) and b_g.keys() == g_sd.keys()
+          and all(torch.equal(b_c[k], c_sd[k]) for k in c_sd),
+          "import-torch: the bundle's tensors are not the reference file's")
+    check(torch.equal(served, direct), "import-torch: the bundle's forward is not the direct "
+          f"load's, {(served - direct).abs().max().item()}")
+    check(import_launches == 2 * 48, f"import-torch: {import_launches} DRB launches for the "
+          "check forward and the bundle's forward")
+    exported = cli_main(["export-torch", "--checkpoint", training_ckpt, "--out",
+                         str(work / "exported.pt")])
+    reset_launch_counts()
+    again = cli_main(["import-torch", "--weights", exported, "--config", str(florida), "--out",
+                      str(work / "reimported")])
+    import_launches += drb_forward.launches
+    from downgan_tpu_torch.utils.checkpoint import CheckpointManager
+
+    trained = CheckpointManager(training_ckpt).restore()["generator"]
+    _, again_g, _ = load_bundle(again)
+    check(again_g.keys() == trained.keys()
+          and all(torch.equal(again_g[k], trained[k].cpu()) for k in trained),
+          "export-torch then import-torch: not the training checkpoint's tensors")
+    launches += import_launches
+    seconds["import_export"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (e) grid rows, the figures' note, export-mlflow, serve-tracking
+    coarse, fine = synthetic_dataset(n_samples=GRID_SAMPLES, coarse_size=config.coarse_size,
+                                     fine_size=config.fine_size, n_covariates=config.n_covariates,
+                                     n_predictands=config.n_predictands, seed=config.seed)
+    gen = load_generator(config, trained, "cuda").train()
+    reset_launch_counts()
+    rows = grid_rows(config, gen, DeviceDataset.from_numpy(coarse, fine, "cuda"))
+    torch.cuda.synchronize()
+    grid_launches = drb_forward.launches
+    cpu_rows = grid_rows(config, load_generator(config, trained, "cpu"),
+                         DeviceDataset.from_numpy(coarse, fine, "cpu"))
+    grid_err = float(np.abs(rows[1] - cpu_rows[1]).max())
+    check(rows[1].shape == (20, config.fine_size, config.fine_size, config.n_predictands) and np.array_equal(rows[0], cpu_rows[0])
+          and np.array_equal(rows[2], cpu_rows[2])
+          and np.allclose(rows[1], cpu_rows[1], atol=GRID_ATOL, rtol=GRID_RTOL),
+          f"grid rows: card vs CPU fake {grid_err}")
+    check(grid_launches == 48, f"grid rows: {grid_launches} DRB launches")
+    launches += grid_launches
+    import io
+
+    err = io.StringIO()
+    store = TrackingStore(str(work / "notes"))
+    note_run = store.create_run(store.create_experiment("note")).start()
+    small = DeviceDataset.from_numpy(coarse[:B_TRAIN], fine[:B_TRAIN], "cuda")
+    with contextlib.redirect_stderr(err):
+        note_trainer = Trainer(config, small, device="cuda", run=note_run)
+    note = [ln for ln in err.getvalue().splitlines() if "grid figures skipped" in ln]
+    check(len(note) == (0 if have_matplotlib() else 1) and note_trainer._plots == have_matplotlib(),
+          f"the figures' note: {err.getvalue()!r}")
+    del note_trainer
+
+    run_id = Path(training_ckpt).parent.parent.name
+    mlruns = work / "mlruns"
+    written = cli_main(["export-mlflow", "--run", run_id, "--tracking-root", str(tracking_root),
+                        "--out", str(mlruns)])
+    run_dir = Path(written[0])
+    run_files = sorted(p.name for p in run_dir.iterdir())
+    lines = (run_dir / "metrics" / "MAE_train").read_text().splitlines()
+    check((run_dir / "meta.yaml").exists() and (run_dir.parent / "meta.yaml").exists()
+          and [int(ln.split()[2]) for ln in lines] == [0, 1]
+          and (run_dir / "artifacts" / "config.json").exists()
+          and not (run_dir / "artifacts" / "checkpoints").exists(),
+          f"export-mlflow: {run_files}, MAE_train {lines}")
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen([sys.executable, "-m", "downgan_tpu_torch.cli", "serve-tracking",
+                             "--root", str(tracking_root), "--host", "127.0.0.1", "-p", str(port)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    pages = {}
+    try:
+        deadline = time.perf_counter() + 90
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=5) as r:
+                    pages["/"] = r.status
+                break
+            except OSError:
+                check(proc.poll() is None and time.perf_counter() < deadline,
+                      f"serve-tracking did not answer: {proc.poll()}")
+                time.sleep(0.5)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/run/{run_id}", timeout=5) as r:
+            pages[f"/run/{run_id}"] = r.status
+            body = r.read().decode()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    check(set(pages.values()) == {200} and "MAE_train" in body, f"serve-tracking: {pages}")
+    import shutil
+
+    shutil.rmtree(work)
+    seconds["grid_mlflow_tracking"] = time.perf_counter() - t_part
+    emit("tooling", card=smi, seconds=seconds, profiles=profiles, census=census, census_jax=JAX_CENSUS_FLORIDA,
+         profiled_share_of_peak=shares, tune={"report": report, "drb_launches": tune_launches,
+                                              "rep_times_s": {r["metric"]: r["rep_times_s"]
+                                                              for r in sweep}},
+         import_torch={"bundle_bit_for_bit": True, "roundtrip_bit_for_bit": True,
+                       "drb_launches": import_launches},
+         grid={"max_abs_err_fake_vs_cpu": grid_err, "atol": GRID_ATOL, "rtol": GRID_RTOL,
+               "drb_launches": grid_launches, "figures_note": note},
+         export_mlflow={"run_dir_files": run_files,
+                        "MAE_train_lines": len(lines)},
+         serve_tracking=pages,
+         packages=package_versions(("matplotlib", "tensorboardX", "mlflow", "yaml")),
+         drb_launches=launches, drb_launches_bf16=launches_bf16)
+    return launches, launches_bf16
+
 
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--train-cli":
@@ -3706,7 +3995,6 @@ def main() -> int:
                                            Path(tracking_root), smi)
         split_launches = phase_tiles_split(training_ckpt, stochastic, smi)
         del stochastic
-        training_dir.cleanup()
         resume_dir.cleanup()
         phase_srresnet(config, rng, Path(tracking_root), smi)
     check(stochastic_launches > 0 and ensemble_launches > 0 and serving_stochastic_launches > 0,
@@ -3722,6 +4010,11 @@ def main() -> int:
     check(dp_launches > 0 and dp_bf16_launches > 0, "a data-parallel path launched no DRB kernel")
     spatial_launches = phase_spatial(smi)
     check(spatial_launches > 0, "the spatially sharded path launched no DRB kernel")
+    tooling_launches, tooling_bf16_launches = phase_tooling(training_ckpt,
+                                                            Path(training_dir.name), smi)
+    training_dir.cleanup()
+    check(tooling_launches > 0 and tooling_bf16_launches > 0,
+          "the tooling paths launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
               "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
@@ -3732,7 +4025,7 @@ def main() -> int:
                      + host_feed_launches + stream_launches + stochastic_launches
                      + ensemble_launches + serving_stochastic_launches + generate_launches
                      + evaluate_launches + split_launches + variants_launches + dp_launches
-                     + spatial_launches),
+                     + spatial_launches + tooling_launches),
         "launches_by_path": {"serving": serving_launches, "training": training_launches,
                              "resume": resume_launches, "bundle_serving": bundle_launches,
                              "host_feed": host_feed_launches, "stream": stream_launches,
@@ -3741,7 +4034,7 @@ def main() -> int:
                              "generate": generate_launches, "evaluate": evaluate_launches,
                              "tiles_split": split_launches,
                              "variants": variants_launches, "dp": dp_launches,
-                             "spatial": spatial_launches},
+                             "spatial": spatial_launches, "tooling": tooling_launches},
         "max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -3752,12 +4045,13 @@ def main() -> int:
         "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms}, {
         "name": "drb_forward_bf16", "dtype": "bfloat16", **common,
         "launches": (tuned_launches + bf16_serving_launches + generate_bf16_launches
-                     + variants_tuned_launches + dp_bf16_launches),
+                     + variants_tuned_launches + dp_bf16_launches + tooling_bf16_launches),
         "launches_by_path": {"training_tuned": tuned_launches,
                              "serving_bf16": bf16_serving_launches,
                              "generate_bf16": generate_bf16_launches,
                              "variants_tuned": variants_tuned_launches,
-                             "dp_tuned": dp_bf16_launches},
+                             "dp_tuned": dp_bf16_launches,
+                             "tooling": tooling_bf16_launches},
         "max_abs_err": bf16_err,
         "max_abs_err_is": "kernel vs its bf16 twin, largest over the kernel_bf16 shapes",
         "ms": bf16_timing["ms"], "plain_ms": bf16_timing["plain_ms"],

@@ -1,6 +1,6 @@
-"""Command line of the port (counterpart of ``downgan_tpu/cli/__main__.py``;
-the port has ``train``, ``serve``, ``export``, ``generate``, ``evaluate``,
-``prepare-data`` and ``prepare-covariates``)::
+"""Command line of the port (counterpart of ``downgan_tpu/cli/__main__.py``,
+every command and option of it under the same names, plus ``--device``
+and ``serve --weights``)::
 
     python -m downgan_tpu_torch.cli train --config examples/florida.json \
         --synthetic --samples 1440 --epochs 2 --track-best MSSSIM
@@ -22,6 +22,13 @@ the port has ``train``, ``serve``, ``export``, ``generate``, ``evaluate``,
     python -m downgan_tpu_torch.cli generate --run <run id> --streamed --tile-rows 16
     python -m downgan_tpu_torch.cli generate --checkpoint <bundle> --synthetic --ensemble 8
     python -m downgan_tpu_torch.cli evaluate --run <run id> --ema --ensemble 8
+    python -m downgan_tpu_torch.cli profile --mode train --steps 3 --out profiles
+    python -m downgan_tpu_torch.cli tune --batches 64,128 --dtypes float32,bfloat16 --out tuned.json
+    python -m downgan_tpu_torch.cli import-torch --weights G.pt --critic-weights C.pt --out bundle/
+    python -m downgan_tpu_torch.cli export-torch --run <run id> --ema --out generator.pt
+    python -m downgan_tpu_torch.cli export-mlflow --run <run id> --out mlruns
+    python -m downgan_tpu_torch.cli serve-tracking --root experiments -p 5555
+    python -m downgan_tpu_torch.cli show-config --config examples/florida.json
 
 ``train`` tracks each run under ``--tracking-root`` (the JAX package's
 layout, ``tracking/store.py``) and checkpoints the full train state every
@@ -43,6 +50,9 @@ rank of the job runs the same command (under torchrun, or with
 data-parallel on its own card: ``hp.batch_size`` is the global batch, rank
 0 tracks the run and writes the checkpoints into the shared
 ``--checkpoint-dir``.
+``profile``, ``tune`` and ``import-torch`` compute on ``--device`` (default
+``cuda``; ``--device cpu`` without a card). ``show-config``,
+``serve-tracking``, ``export-mlflow`` and ``export-torch`` touch no device.
 """
 from __future__ import annotations
 
@@ -55,13 +65,17 @@ import sys
 import torch
 
 
-def _load_config(path):
+def _load_config(path, region=None):
+    """The config at ``path`` (default: the built-in florida Config), with
+    ``region`` when given (the JAX CLI's ``_load_config``)."""
     from downgan_tpu_torch.config.config import Config
 
     if not path:
-        return Config()
-    with open(path) as f:
-        return Config.from_json(f.read())
+        config = Config()
+    else:
+        with open(path) as f:
+            config = Config.from_json(f.read())
+    return config if region is None else config.replace(region=region)
 
 
 def _fp32_without_tf32() -> None:
@@ -108,6 +122,8 @@ def _source(args: argparse.Namespace, parser: argparse.ArgumentParser):
     else:
         config = _load_config(config_file if config_file and os.path.exists(config_file)
                               else None)
+    if getattr(args, "region", None):
+        config = config.replace(region=args.region)
     return config, path, weights_only, run
 
 
@@ -264,16 +280,17 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
     from downgan_tpu_torch.inference import CRITIC_FILE, is_bundle, load_bundle
     from downgan_tpu_torch.parallel.mesh import in_group, rank
     from downgan_tpu_torch.parallel.multihost import local_device
-    from downgan_tpu_torch.tracking import TrackingStore, define_experiment, log_hyperparams
+    from downgan_tpu_torch.tracking import (TrackingStore, define_experiment, log_hyperparams,
+                                            write_tags)
     from downgan_tpu_torch.training.state import resolve_device
     from downgan_tpu_torch.training.trainer import Trainer
     from downgan_tpu_torch.utils.checkpoint import CheckpointManager
 
     _join_ranks(args, parser)
     primary = rank() == 0
-    config = _load_config(args.config)
+    config = _load_config(args.config, args.region)
     overrides = {k: getattr(args, k) for k in (
-        "batch_size", "epochs", "compute_dtype", "schedule", "lr_schedule", "lr_warmup_steps",
+        "batch_size", "epochs", "lr", "compute_dtype", "schedule", "lr_schedule", "lr_warmup_steps",
         "lr_decay_steps", "lr_final_factor", "augment_flips", "grad_accum", "eof_lambda",
         "freq_sep") if getattr(args, k) is not None}
     try:
@@ -334,11 +351,33 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
     run = None
     if primary:
         store = TrackingStore(args.tracking_root)
-        exp_id = define_experiment(store, args.experiment, tag=config.experiment_tag)
+        # --interactive without --experiment: the reference's stdin picker.
+        name = args.experiment
+        if name is None and not args.interactive:
+            name = "downgan-tpu"
+        exp_id = define_experiment(store, name, interactive=args.interactive,
+                                   tag=config.experiment_tag)
         run = store.create_run(exp_id, run_name=args.run_name).start()
         log_hyperparams(run, config)
+        write_tags(run, interactive=args.interactive)
         with open(run.artifact_path("config.json"), "w") as f:
             f.write(config.to_json())
+        if args.mlflow_dir is not None:
+            # After params, tags and config.json, so the seeding export has them.
+            from downgan_tpu_torch.tracking.mlflow_export import MlflowLiveRun
+
+            run.attach_sink(MlflowLiveRun(run, args.mlflow_dir))
+            print(f"mirroring live to MLflow FileStore {args.mlflow_dir} (view: mlflow ui "
+                  f"--backend-store-uri {os.path.abspath(args.mlflow_dir)})", file=sys.stderr,
+                  flush=True)
+    tb_dir = None
+    if args.tensorboard and run is not None:
+        import importlib.util
+
+        tb_dir = os.path.join(run.artifact_dir, "tensorboard")
+        if importlib.util.find_spec("tensorboardX") is None:
+            print("--tensorboard: tensorboardX is not installed here; nothing is logged to "
+                  "TensorBoard", file=sys.stderr, flush=True)
     max_ckpt = config.max_checkpoints if args.max_checkpoints is None else args.max_checkpoints
     ckpt = CheckpointManager(
         args.checkpoint_dir or os.path.join(run.artifact_dir, "checkpoints"),
@@ -349,7 +388,8 @@ def _train(args: argparse.Namespace, parser: argparse.ArgumentParser):
                           checkpoint_manager=ckpt, save_every=args.save_every,
                           print_every=args.print_every, track_best=args.track_best,
                           best_mode=args.best_mode,
-                          multihost=args.multihost and in_group())
+                          multihost=args.multihost and in_group(),
+                          plot_every=args.plot_every, tensorboard_dir=tb_dir)
         resumed = trainer.maybe_resume() if args.resume else False
         if args.warm_start and not resumed:
             _, g_weights, c_weights = load_bundle(args.warm_start)
@@ -538,18 +578,13 @@ def _evaluate(args: argparse.Namespace, parser: argparse.ArgumentParser) -> dict
     return result
 
 
-def _region_config(args: argparse.Namespace):
-    config = _load_config(args.config)
-    return config if args.region is None else config.replace(region=args.region)
-
-
 def _prepare_data(args: argparse.Namespace, parser: argparse.ArgumentParser):
     """Write the 4 preprocessed train/test NetCDFs (parity with the
     reference's ``helpers/gen_train_test_netcdfs.py``); returns their paths."""
     from downgan_tpu_torch.data.staging import (generate_train_test_coarse_fine,
                                                 load_fine_coords, write_preprocessed)
 
-    config = _region_config(args)
+    config = _load_config(args.config, args.region)
     arrays = generate_train_test_coarse_fine(config)
     lats, lons = load_fine_coords(config)
     paths = write_preprocessed(config, *arrays, fine_lats=lats, fine_lons=lons)
@@ -570,7 +605,7 @@ def _prepare_covariates(args: argparse.Namespace, parser: argparse.ArgumentParse
     from downgan_tpu_torch.data.staging import load_covariates, load_fine
     from downgan_tpu_torch.data.times import filter_times
 
-    config = _region_config(args)
+    config = _load_config(args.config, args.region)
     _, times = load_fine(config)
     if times is None:
         times = np.asarray(config.range_datetimes)
@@ -603,6 +638,335 @@ def _prepare_covariates(args: argparse.Namespace, parser: argparse.ArgumentParse
     for p in paths:
         print(p, flush=True)
     return paths
+
+
+def _show_config(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
+    """Print the resolved configuration as JSON; returns it."""
+    text = _load_config(args.config).to_json()
+    print(text, flush=True)
+    return text
+
+
+def _serve_tracking(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
+    """Serve the tracking UI over the store at ``--root`` (the reference's
+    ``mlflow_server_cmd.py``) until interrupted."""
+    from downgan_tpu_torch.tracking.server import serve
+
+    server = serve(args.root, args.host, args.port)
+    print(f"tracking UI on http://{args.host}:{server.server_address[1]} (store: {args.root})",
+          flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+def _export_mlflow(args: argparse.Namespace, parser: argparse.ArgumentParser) -> list:
+    """Export tracked runs (``--run``, or every run of ``--experiment``, or
+    of every experiment) as an MLflow FileStore tree; returns the run
+    directories written."""
+    from downgan_tpu_torch.tracking.mlflow_export import export_experiment, export_run
+    from downgan_tpu_torch.tracking.store import TrackingStore
+
+    store = TrackingStore(args.tracking_root)
+    written = []
+    if args.run is not None:
+        try:
+            run = store.get_run(args.run)
+        except KeyError as e:
+            parser.error(str(e))
+        if args.experiment is not None:
+            # --experiment filters: a run of another experiment is refused.
+            exp_id = store.experiment_by_name(args.experiment)
+            if exp_id is None or run.experiment_id != exp_id:
+                parser.error(f"run {args.run} does not belong to experiment "
+                             f"{args.experiment!r} (it is in experiment id {run.experiment_id}); "
+                             "drop --experiment or pick a run from that experiment")
+        written.append(export_run(run, args.out, include_checkpoints=args.checkpoints))
+    else:
+        experiments = store.experiments()
+        if args.experiment is not None:
+            exp_id = store.experiment_by_name(args.experiment)
+            if exp_id is None:
+                parser.error(f"experiment {args.experiment!r} not found in {args.tracking_root} "
+                             f"(have: {[i.get('name') for i in experiments.values()]})")
+            exp_ids = [exp_id]
+        else:
+            exp_ids = list(experiments)
+        for exp_id in exp_ids:
+            written.extend(export_experiment(store, exp_id, args.out,
+                                             include_checkpoints=args.checkpoints))
+    if not written:
+        parser.error(f"no runs to export under {args.tracking_root}")
+    print(f"exported {len(written)} run(s) to MLflow FileStore {args.out}", flush=True)
+    print(f"view: mlflow ui --backend-store-uri {os.path.abspath(args.out)}", flush=True)
+    return written
+
+
+def _export_torch(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
+    """Write a trained RRDB generator's reference-layout state dict (the
+    inverse of ``import-torch``; upstream it loads into ``Generator(filters,
+    fine, channels, preds, num_res_blocks=N)``); returns the file's path."""
+    config, path, weights_only, _ = _source(args, parser)
+    if config.generator_arch != "rrdb":
+        parser.error("export-torch maps the reference RRDB layout only; this model is "
+                     f"generator_arch={config.generator_arch!r}")
+    if args.ema and weights_only:
+        parser.error("an exported bundle holds ONE set of params (EMA already baked in if it "
+                     "was exported with --ema); drop --ema, or export-torch from the full "
+                     "Trainer checkpoint directory")
+    if config.noise_channels > 0:
+        # The reference layout has no latent: conv1 keeps covariates + noise
+        # input channels, and import-torch makes a deterministic model of it.
+        print(f"warning: stochastic generator (noise_channels={config.noise_channels}) — the "
+              f"torch layout bakes the latent into conv1 ({config.n_covariates} covariates + "
+              f"{config.noise_channels} noise input channels). Upstream, pass channels = "
+              "covariates + noise and feed latents explicitly; re-importing via import-torch "
+              "yields a DETERMINISTIC model expecting that widened input, not a drop-in "
+              "--warm-start/--ensemble bundle.", file=sys.stderr, flush=True)
+    weights = _restore(path, weights_only, args, parser)
+    sd = {k: v.detach().cpu().contiguous() for k, v in weights.items()}
+    torch.save(sd, args.out)
+    print(f"exported {'EMA ' if args.ema else ''}generator ({len(sd)} tensors, reference torch "
+          f"layout) to {args.out}", flush=True)
+    return args.out
+
+
+def _load_torch_weights(path: str, parser: argparse.ArgumentParser) -> dict:
+    """A reference checkpoint's tensors: a bare state dict, or a pickled
+    module (what the reference's MLflow logged each epoch)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:  # noqa: BLE001 - not a plain state dict; try the pickled module
+        try:
+            obj = torch.load(path, map_location="cpu", weights_only=False)
+        except ModuleNotFoundError as e:
+            parser.error(f"{path} is a pickled torch module and unpickling needs its defining "
+                         f"package ({e.name}) importable — put the reference DoWnGAN checkout "
+                         "on PYTHONPATH, or re-save the checkpoint as a bare state_dict "
+                         "(torch.save(model.state_dict(), ...))")
+    if hasattr(obj, "state_dict") and not isinstance(obj, dict):
+        obj = obj.state_dict()
+    if not isinstance(obj, dict):
+        parser.error(f"{path} is neither a state_dict nor a torch module")
+    return {k: torch.as_tensor(v).detach().cpu() for k, v in obj.items()}
+
+
+def _import_torch(args: argparse.Namespace, parser: argparse.ArgumentParser) -> str:
+    """Import a reference (PyTorch DoWnGAN) checkpoint as a servable bundle:
+    infer the architecture from the weights, check it with one real
+    forward on ``--device``, and write the ``export`` layout (the port's
+    networks use the reference keys, so the tensors pass through
+    unchanged); returns the bundle directory."""
+    from downgan_tpu_torch.inference import write_generator_bundle
+    from downgan_tpu_torch.training.state import load_generator, make_critic, resolve_device
+    from downgan_tpu_torch.utils.port_weights import infer_critic_arch, infer_generator_arch
+
+    sd = _load_torch_weights(args.weights, parser)
+    try:
+        arch = infer_generator_arch(sd)
+    except ValueError as e:
+        parser.error(str(e))
+    config = _load_config(args.config, args.region).replace(
+        filters=arch["filters"], n_covariates=arch["n_covariates"],
+        n_predictands=arch["n_predictands"], num_res_blocks=arch["num_res_blocks"],
+        generator_arch="rrdb", noise_channels=0)
+    sf = 2 ** arch["num_upsample"]
+    csd = None
+    if args.critic_weights:
+        csd = _load_torch_weights(args.critic_weights, parser)
+        try:
+            carch = infer_critic_arch(csd)
+        except ValueError as e:
+            parser.error(str(e))
+        if carch["n_predictands"] != arch["n_predictands"]:
+            parser.error(f"critic takes {carch['n_predictands']} channels but the generator "
+                         f"predicts {arch['n_predictands']} — not a matching (unconditional) "
+                         "pair")
+        config = config.replace(fine_size=carch["fine_size"],
+                                coarse_size=carch["fine_size"] // sf, critic_conditional=False)
+    else:
+        config = config.replace(coarse_size=config.fine_size // sf)
+    # One real forward of each network on the device (a mis-mapped key or a
+    # wrong shape fails here, not at serve time).
+    device = resolve_device(args.device)
+    _fp32_without_tf32()
+    gen = load_generator(config, sd, device)
+    with torch.no_grad():
+        fields = gen(torch.zeros((1, config.n_covariates, config.coarse_size,
+                                  config.coarse_size), device=device))
+    want = (1, config.n_predictands, config.fine_size, config.fine_size)
+    if tuple(fields.shape) != want:
+        parser.error(f"imported generator produces {tuple(fields.shape)}, expected {want}")
+    if csd is not None:
+        critic = make_critic(config, device)
+        critic.load_state_dict(csd, strict=True)
+        with torch.no_grad():
+            critic(torch.zeros(want, device=device))
+    out = write_generator_bundle(args.out, config, sd, c_weights=csd)
+    n_g = sum(v.numel() for v in sd.values())
+    print(f"imported generator ({arch['filters']} filters, {arch['num_res_blocks']} RRDBs, "
+          f"{sf}x upsample, {n_g:,} params" + (", + critic" if csd is not None else "")
+          + f") to {out}", flush=True)
+    print(f"note: inferred n_covariates={arch['n_covariates']} is conv1's input width — for a "
+          "checkpoint exported from a stochastic (noise_channels>0) model that width includes "
+          "the baked-in noise channels, and the imported bundle is deterministic.", flush=True)
+    return out
+
+
+def _profile(args: argparse.Namespace, parser: argparse.ArgumentParser) -> dict:
+    """Profile ``--steps`` train steps (or fused rounds, or generator
+    forwards) on synthetic data into a Chrome trace under ``--out``; the
+    warm-up step and the kernel's build happen before the trace. Prints one
+    JSON line (the JAX command's keys, and ``patches_per_step``,
+    ``generator_forwards``, ``drb_launches`` and ``device``) and returns its
+    dict."""
+    import contextlib
+
+    from downgan_tpu_torch.utils import profiling
+
+    if args.steps < 1:
+        parser.error("--steps must be >= 1")
+    config = _load_config(args.config, args.region)
+    overrides = {k: getattr(args, k) for k in ("batch_size", "compute_dtype")
+                 if getattr(args, k) is not None}
+    if overrides:
+        config = config.replace(hp=dataclasses.replace(config.hp, **overrides))
+    device = torch.device(args.device)
+    _fp32_without_tf32()
+    if device.type == "cuda" and torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats(device)  # the peak of this run alone
+
+    @contextlib.contextmanager
+    def window():
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(profiling.trace(args.out))
+            if args.anomaly:
+                stack.enter_context(profiling.detect_anomalies())
+            stack.enter_context(profiling.annotate(f"profiled_{args.mode}_window"))
+            yield
+
+    check = profiling.check_finite if args.anomaly else None
+    measure = profiling.measure_train if args.mode == "train" else profiling.measure_infer
+    kw = {"census": False} if args.mode == "train" else {}
+    rec = measure(config, args.steps, 1, device, window=window, check=check, **kw)
+    fused = args.mode == "train" and config.hp.schedule == "fused"
+    result = {"mode": args.mode, "steps": args.steps, "batch": config.hp.batch_size,
+              "schedule": config.hp.schedule if args.mode == "train" else None,
+              "steps_per_s": rec["steps_per_s"], "patches_per_s": rec["value"],
+              "trace_dir": args.out, "hbm": profiling.device_memory_stats(device),
+              "patches_per_step": config.hp.batch_size * (config.hp.critic_iterations
+                                                          if fused else 1),
+              "generator_forwards": rec["generator_forwards"],
+              "drb_launches": rec["drb_launches"], "device": rec["device"]}
+    print(json.dumps(result), flush=True)
+    print(f"view: tensorboard --logdir {args.out} (or open the .pt.trace.json in "
+          "chrome://tracing or Perfetto)", flush=True)
+    return result
+
+
+def _tune(args: argparse.Namespace, parser: argparse.ArgumentParser) -> dict:
+    """Sweep (batch, dtype, schedule, grad_accum) candidates, each measured
+    in its own process (``python -m downgan_tpu_torch.utils.profiling``),
+    then the fast paths at the winner; print the report as one JSON line,
+    write the recommended config (``--out``) and the sweep
+    (``--sweep-out``); returns the report."""
+    import subprocess
+
+    import downgan_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(downgan_tpu_torch.__file__)))
+    base = _load_config(args.config)
+
+    def measure(batch, dtype, schedule="reference", grad_accum=1, **toggles):
+        cmd = [sys.executable, "-m", "downgan_tpu_torch.utils.profiling", "--batch", str(batch),
+               "--dtype", dtype, "--schedule", schedule, "--grad-accum", str(grad_accum),
+               "--steps", str(args.scan_steps), "--reps", str(args.reps),
+               "--device", args.device]
+        cmd += ["--reuse-fake"] if toggles.get("reuse_fake") else []
+        cmd += ["--fused-critic"] if toggles.get("fused_critic") else []
+        # The user's model is measured, since the recommendation is written into it.
+        cmd += ["--config", os.path.abspath(args.config)] if args.config else []
+        cmd += ["--smoke"] if args.smoke else []
+        env = dict(os.environ)
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        label = (f"b{batch} {dtype} {schedule}" + (f" accum{grad_accum}" if grad_accum > 1 else "")
+                 + "".join(f" +{k}" for k, v in toggles.items() if v))
+        print(f"measuring {label} ...", file=sys.stderr, flush=True)
+        try:
+            proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                                  timeout=args.timeout)
+        except subprocess.TimeoutExpired:
+            print(f"  {label}: TIMEOUT after {args.timeout}s", file=sys.stderr, flush=True)
+            return None
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            print(f"  {label}: FAILED\n{proc.stderr[-2000:]}", file=sys.stderr, flush=True)
+            return None
+        rec = json.loads(lines[-1])
+        rec.update(batch=batch, dtype=dtype, schedule=schedule, grad_accum=grad_accum,
+                   **toggles)
+        print(f"  {label}: {rec['value']:.1f} {rec['unit']}", file=sys.stderr, flush=True)
+        return rec
+
+    split = lambda text: [x.strip() for x in text.split(",") if x.strip()]  # noqa: E731
+    # The (batch, grad_accum) grid is checked once, so a sweep that skips
+    # everything names the divisibility rule, not phantom failures.
+    combos = []
+    for b in (int(x) for x in split(args.batches)):
+        for ga in (int(x) for x in split(args.grad_accums)):
+            if ga < 1 or b % ga:
+                print(f"  b{b} accum{ga}: skipped (batch must divide into microbatches)",
+                      file=sys.stderr, flush=True)
+            else:
+                combos.append((b, ga))
+    if not combos:
+        parser.exit(1, f"error: no runnable (batch, grad-accum) combination: every batch in "
+                    f"--batches {args.batches!r} fails to divide by every value in "
+                    f"--grad-accums {args.grad_accums!r}\n")
+    candidates = [rec for schedule in split(args.schedules) for dtype in split(args.dtypes)
+                  for b, ga in combos
+                  if (rec := measure(b, dtype, schedule, grad_accum=ga)) is not None]
+    if not candidates:
+        parser.exit(1, "error: every candidate failed or timed out\n")
+    best = max(candidates, key=lambda r: r["value"])
+    if args.fast_paths:
+        at = dict(batch=best["batch"], dtype=best["dtype"], schedule=best["schedule"],
+                  grad_accum=best["grad_accum"])
+        singles = {}
+        for toggle in ("reuse_fake", "fused_critic"):
+            rec = measure(**at, **{toggle: True})
+            if rec is not None:
+                candidates.append(rec)
+                singles[toggle] = rec["value"]
+        # Both together, when each wins alone.
+        if all(singles.get(t, 0) > best["value"] for t in ("reuse_fake", "fused_critic")):
+            rec = measure(**at, reuse_fake=True, fused_critic=True)
+            if rec is not None:
+                candidates.append(rec)
+        best = max(candidates, key=lambda r: r["value"])
+    recommended_hp = {"batch_size": best["batch"], "compute_dtype": best["dtype"],
+                      "schedule": best["schedule"], "grad_accum": best["grad_accum"],
+                      "metrics_reuse_fake": bool(best.get("reuse_fake")),
+                      "fused_critic_pass": bool(best.get("fused_critic"))}
+    ranked = sorted(candidates, key=lambda r: -r["value"])
+    report = {"best": {k: best[k] for k in ("metric", "value", "unit", "batch", "dtype", "schedule",
+                                            "grad_accum", "aggregate_patches_per_sec",
+                                            "n_chips")},
+              "recommended_hp": recommended_hp,
+              "candidates": [{k: r[k] for k in ("metric", "value")} for r in ranked]}
+    print(json.dumps(report), flush=True)
+    if args.sweep_out:
+        # Every candidate's whole record: rep times, FLOP census, share of peak.
+        with open(args.sweep_out, "w") as f:
+            json.dump({"sweep": ranked, "best": best["metric"]}, f, indent=1)
+        print(f"full sweep written to {args.sweep_out}", file=sys.stderr, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(base.replace(hp=dataclasses.replace(base.hp, **recommended_hp)).to_json())
+        print(f"recommended production config written to {args.out}", file=sys.stderr,
+              flush=True)
+    return report
 
 
 def _non_negative_int(text: str) -> int:
@@ -639,7 +1003,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_source_args(serve, "serve")
     serve.add_argument("--weights", default=None,
                        help="Generator state dict (.pt): a bundle's generator.pt or the file "
-                       "`downgan_tpu.cli export-torch` writes.")
+                       "`export-torch` writes.")
+    serve.add_argument("--weights-only", action="store_true",
+                       help="--checkpoint is a generator weights file (generator.pt), as "
+                       "--weights.")
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("-p", "--port", type=int, default=8080)
     serve.add_argument("--serving-batch", type=int, default=0,
@@ -661,6 +1028,7 @@ def build_parser() -> argparse.ArgumentParser:
         "generate", help="Generate super-resolved fields from a trained generator and write "
         "them to a NetCDF (needs h5py).")
     _add_source_args(generate, "generate")
+    generate.add_argument("--region", choices=sorted(REGIONS), default=None)
     generate.add_argument("--weights-only", action="store_true",
                           help="--checkpoint is a generator weights file (generator.pt).")
     generate.add_argument("-o", "--out", default=None,
@@ -698,6 +1066,7 @@ def build_parser() -> argparse.ArgumentParser:
         "evaluate", help="The test-set metric pass from a checkpoint over a whole split, "
         "printed as one JSON line.")
     _add_source_args(evaluate, "evaluate")
+    evaluate.add_argument("--region", choices=sorted(REGIONS), default=None)
     evaluate.add_argument("--weights-only", action="store_true",
                           help="--checkpoint is a generator weights file; the Wass metric needs "
                           "the critic and is dropped with a warning.")
@@ -726,6 +1095,7 @@ def build_parser() -> argparse.ArgumentParser:
         "metric means, one JSON line each.")
     train.add_argument("--config", default=None,
                        help="Config JSON (default: the built-in florida Config).")
+    train.add_argument("--region", choices=sorted(REGIONS), default=None)
     train.add_argument("--synthetic", action="store_true",
                        help="Train on the synthetic dataset (default: the config's data, "
                        "preprocessed or raw NetCDFs).")
@@ -745,6 +1115,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Epochs (default: the config's hp.epochs).")
     train.add_argument("--batch-size", type=int, default=None,
                        help="Override the config's hp.batch_size.")
+    train.add_argument("--lr", type=float, default=None, help="Override the config's hp.lr.")
     train.add_argument("--seed", type=int, default=None, help="Override the config's seed.")
     train.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None,
                        help="Override the config's hp.compute_dtype (parameters stay fp32).")
@@ -806,7 +1177,12 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Ranks in the job for --multihost (omit under torchrun).")
     train.add_argument("--process-id", type=int, default=None,
                        help="This process's rank for --multihost (omit under torchrun).")
-    train.add_argument("--experiment", default="downgan-tpu", help="Experiment name.")
+    train.add_argument("--experiment", default=None,
+                       help="Experiment name (default downgan-tpu; with --interactive, picked "
+                       "on stdin).")
+    train.add_argument("--interactive", action="store_true",
+                       help="Pick the experiment on stdin (unless --experiment names one) and "
+                       "type a run description (the reference's prompts).")
     train.add_argument("--run-name", default=None)
     train.add_argument("--tracking-root", default="experiments")
     train.add_argument("--checkpoint-dir", default=None,
@@ -828,6 +1204,16 @@ def build_parser() -> argparse.ArgumentParser:
                        "window (default: config.keep_checkpoint_every).")
     train.add_argument("--print-every", type=int, default=None,
                        help="Epoch-line cadence in epochs (default: hp.print_every).")
+    train.add_argument("--plot-every", type=int, default=1,
+                       help="Grid-figure cadence in epochs (needs matplotlib; without it the "
+                       "figures are skipped with a note).")
+    train.add_argument("--tensorboard", action="store_true",
+                       help="Also log the epoch means to TensorBoard under <run "
+                       "artifacts>/tensorboard (needs tensorboardX).")
+    train.add_argument("--mlflow-dir", default=None,
+                       help="Also mirror the run live into an MLflow FileStore at this root "
+                       "(point `mlflow ui --backend-store-uri` at it); export-mlflow of the "
+                       "finished run then changes nothing.")
     train.add_argument("--track-best", default=None, metavar="METRIC",
                        help="After each test pass that improves this test metric (e.g. "
                        "MSSSIM, MAE), write the serving weights (EMA when trained with "
@@ -854,14 +1240,118 @@ def build_parser() -> argparse.ArgumentParser:
     covariates.add_argument("-s", "--set", dest="which_set", choices=("train", "validation"),
                             default="train", help="Which split to write.")
     covariates.set_defaults(func=_prepare_covariates)
+
+    show = sub.add_parser("show-config", help="Print the resolved configuration as JSON.")
+    show.add_argument("--config", default=None,
+                      help="Config JSON (default: the built-in florida Config).")
+    show.set_defaults(func=_show_config)
+
+    tracking = sub.add_parser("serve-tracking", help="Serve the tracking UI over a tracking "
+                              "root (experiments, runs, metrics, artifacts).")
+    tracking.add_argument("--root", default="experiments")
+    tracking.add_argument("--host", default="0.0.0.0")
+    tracking.add_argument("-p", "--port", type=int, default=5555)
+    tracking.set_defaults(func=_serve_tracking)
+
+    mlflow = sub.add_parser("export-mlflow", help="Export tracked runs as an MLflow FileStore "
+                            "tree (meta.yaml, params/, metrics/, tags/, artifacts/).")
+    mlflow.add_argument("--run", default=None,
+                        help="Tracked run id (default: every run of --experiment, or of every "
+                        "experiment).")
+    mlflow.add_argument("--experiment", default=None,
+                        help="Experiment name to export when --run is not given.")
+    mlflow.add_argument("--tracking-root", default="experiments")
+    mlflow.add_argument("-o", "--out", default="mlruns", help="MLflow FileStore root to write.")
+    mlflow.add_argument("--checkpoints", action=argparse.BooleanOptionalAction, default=False,
+                        help="Also copy the run's checkpoints/ subtree (full train states).")
+    mlflow.set_defaults(func=_export_mlflow)
+
+    export_torch = sub.add_parser(
+        "export-torch", help="Write a trained RRDB generator as a reference-layout torch "
+        "state_dict (.pt), the inverse of import-torch.")
+    _add_source_args(export_torch, "export")
+    export_torch.add_argument("-o", "--out", required=True, help="Output state_dict file (.pt).")
+    export_torch.set_defaults(func=_export_torch)
+
+    import_torch = sub.add_parser(
+        "import-torch", help="Import a reference (PyTorch DoWnGAN) generator, and optionally its "
+        "critic, as a servable bundle; the architecture is read off the weights.")
+    import_torch.add_argument("--weights", required=True,
+                              help="Reference generator checkpoint: a state_dict .pt/.pth or a "
+                              "pickled Generator module.")
+    import_torch.add_argument("--critic-weights", default=None,
+                              help="Also import the critic (state_dict or pickled module), so "
+                              "`train --warm-start` continues with it.")
+    import_torch.add_argument("--config", default=None,
+                              help="Base config for data paths and region; the model-shape "
+                              "fields come from the weights.")
+    import_torch.add_argument("-r", "--region", choices=sorted(REGIONS), default=None)
+    import_torch.add_argument("-o", "--out", required=True,
+                              help="Output bundle directory (created).")
+    import_torch.add_argument("--device", default="cuda",
+                              help="Device of the check forward (default cuda).")
+    import_torch.set_defaults(func=_import_torch)
+
+    profile = sub.add_parser(
+        "profile", help="Profile train steps or generator forwards on synthetic data into a "
+        "Chrome trace (warm-up outside it); print steps/s, patches/s and device memory.")
+    profile.add_argument("--config", default=None)
+    profile.add_argument("--region", choices=sorted(REGIONS), default=None)
+    profile.add_argument("--batch-size", type=int, default=None)
+    profile.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None)
+    profile.add_argument("--steps", type=int, default=10,
+                         help="Profiled steps (fused rounds under the fused schedule), after a "
+                         "warm-up step outside the trace.")
+    profile.add_argument("--mode", choices=("train", "infer"), default="train",
+                         help="The WGAN-GP train step, or the generator forward as served.")
+    profile.add_argument("--out", default="profiles", help="Trace directory.")
+    profile.add_argument("--anomaly", action="store_true",
+                         help="Over the profiled window: autograd's anomaly mode with its NaN "
+                         "check (a backward that returns NaN raises, naming the forward op), "
+                         "and a check of each step's outputs (a NaN or Inf a forward made "
+                         "raises FloatingPointError). Off again after the window.")
+    profile.add_argument("--device", default="cuda", help="Torch device (default cuda).")
+    profile.set_defaults(func=_profile)
+
+    tune = sub.add_parser(
+        "tune", help="Sweep batch, dtype, schedule and grad_accum candidates, each measured in "
+        "its own process, and recommend the fastest as a config.")
+    tune.add_argument("--config", default=None,
+                      help="Base config the recommendation is merged into (and measured on).")
+    tune.add_argument("--batches", default="64,128,256", help="Candidate batch sizes.")
+    tune.add_argument("--dtypes", default="bfloat16", help="Candidate compute dtypes.")
+    tune.add_argument("--schedules", default="reference,fused",
+                      help="Update schedules (reference: the step %% n_critic step; fused: one "
+                      "round of critic_iterations critic updates and one G update).")
+    tune.add_argument("--grad-accums", default="1",
+                      help="hp.grad_accum candidates, crossed with the batches; a batch a "
+                      "candidate does not divide is skipped for it.")
+    tune.add_argument("--fast-paths", action=argparse.BooleanOptionalAction, default=True,
+                      help="Also measure metrics_reuse_fake and fused_critic_pass at the winner "
+                      "(and both, when each wins alone).")
+    tune.add_argument("--scan-steps", type=int, default=30,
+                      help="Steps (or rounds) in a timed window.")
+    tune.add_argument("--reps", type=int, default=3, help="Timed windows; the median counts.")
+    tune.add_argument("--timeout", type=int, default=1500, help="Per-candidate seconds.")
+    tune.add_argument("--out", default=None,
+                      help="Write the recommended config JSON here.")
+    tune.add_argument("--sweep-out", default=None,
+                      help="Write every candidate's whole record (rep times, FLOP census, "
+                      "share of peak) as JSON.")
+    tune.add_argument("--smoke", action="store_true",
+                      help="The harness check: a tiny model (with --device cpu, on the CPU).")
+    tune.add_argument("--device", default="cuda", help="Torch device (default cuda).")
+    tune.set_defaults(func=_tune)
     return parser
 
 
 def main(argv=None):
     """Run one subcommand; returns what it returns (``train``: the
-    Trainer; ``export``: the bundle directory; ``generate``: the NetCDF's
-    path; ``evaluate``: its JSON line as a dict; ``prepare-data`` and
-    ``prepare-covariates``: the paths written)."""
+    Trainer; ``export`` and ``import-torch``: the bundle directory;
+    ``export-torch``: the file; ``generate``: the NetCDF's path;
+    ``evaluate``, ``profile``, ``tune``: the JSON line's dict;
+    ``prepare-data``, ``prepare-covariates``, ``export-mlflow``: the paths
+    written; ``show-config``: the JSON text)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     return args.func(args, parser)

@@ -13,8 +13,9 @@ a run the port wrote::
         artifacts/...                   # CSVs, config.json, checkpoints, best/
 
 Every write appends or atomically replaces, so a crash never corrupts the
-history. The live MLflow mirror of the JAX package (``Run.attach_sink``)
-comes with the port of ``tracking/mlflow_export.py``.
+history. A run forwards its metrics and its end to the live mirrors
+attached to it (``Run.attach_sink``, e.g.
+``tracking/mlflow_export.py::MlflowLiveRun``) after each local write.
 """
 from __future__ import annotations
 
@@ -57,6 +58,15 @@ class Run:
         self.run_dir = os.path.join(store.root, experiment_id, run_id)
         self.artifact_dir = os.path.join(self.run_dir, "artifacts")
         self._metrics_dir = os.path.join(self.run_dir, "metrics")
+        # Live mirrors: each log_metric(s) and end is forwarded after the
+        # local write, so the store stays the source of truth.
+        self._sinks: List[Any] = []
+
+    def attach_sink(self, sink: Any) -> "Run":
+        """Attach a live mirror with ``log_metrics(dict, step)`` and
+        ``end(status)`` (``mlflow_export.MlflowLiveRun``)."""
+        self._sinks.append(sink)
+        return self
 
     def _ensure_dirs(self) -> None:
         # Not in __init__: constructing a Run to read one creates nothing.
@@ -77,6 +87,10 @@ class Run:
         meta["end_time"] = time.time()
         meta["status"] = status
         _atomic_write_json(os.path.join(self.run_dir, "meta.json"), meta)
+        # After the local write: a sink that re-exports sees the final
+        # status and end time.
+        for sink in self._sinks:
+            sink.end(status)
 
     def __enter__(self) -> "Run":
         return self.start()
@@ -122,10 +136,14 @@ class Run:
 
     def log_metric(self, key: str, value: float, step: int) -> None:
         self._write_metric(key, value, step)
+        for sink in self._sinks:
+            sink.log_metrics({key: value}, step)
 
     def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
         for k, v in metrics.items():
             self._write_metric(k, v, step)
+        for sink in self._sinks:
+            sink.log_metrics(metrics, step)
 
     def metric_history(self, key: str) -> List[Dict[str, float]]:
         path = os.path.join(self._metrics_dir, f"{_safe(key)}.csv")

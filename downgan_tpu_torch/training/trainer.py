@@ -19,8 +19,19 @@ checkpointed; then a test pass over every test sample
 it selects a best epoch; the best bundle on an improvement; a checkpoint
 every ``save_every`` epochs. SIGTERM stops the loop at the next epoch
 boundary with the full state checkpointed, and :meth:`Trainer.maybe_resume`
-continues the exact trajectory. Grid plots and TensorBoard are not ported
-yet.
+continues the exact trajectory.
+
+Every ``plot_every`` epochs a tracked run gets the grid figure of each
+split (``trainer.py:620-633`` of the JAX package, reference
+``gen_grid_plots.py``): 20 samples picked with replacement by a fixed seed
+(``utils/plots.py::grid_sample_indices``), their fakes made for them alone
+by the live generator on the trainer's device (:func:`grid_rows`: the DRB
+kernel on the card), drawn with matplotlib into the run's artifact
+directory (``<split>_images.png``, and ``<split>_images_epoch_<N>.png``
+every 10th epoch). Without matplotlib (the card's machine has none) the
+trainer says so once and computes no rows; the rows come from rank 0 only,
+and not once SIGTERM asked to stop. ``tensorboard_dir`` also logs each
+epoch's tagged means through ``tracking/tensorboard.py`` (tensorboardX).
 
 Data-parallel training (``multihost``, the JAX package's multi-host
 branch, ``trainer.py:125-186``): one process per card in a process group
@@ -88,8 +99,11 @@ from downgan_tpu_torch.training.wgan import (
     build_eval_metrics,
     build_fused_round,
     build_train_step,
+    fixed_latent,
     g_updates_in_window,
+    with_latent,
 )
+from downgan_tpu_torch.utils.plots import gen_grid_images, grid_sample_indices, have_matplotlib
 
 EMA_SUFFIX = "__ema"
 
@@ -132,6 +146,32 @@ def full_split_metric_pass(ds: DeviceDataset | HostDataset, batch_size: int,
     for coarse, fine in batches:
         _add(sums, eval_batch(coarse, fine))
     return _to_host_means(sums, len(starts))
+
+
+def grid_rows(config: Config, gen: torch.nn.Module, ds, n_samples: int = 20, seed: int = 0
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The (coarse, fake, real) NHWC float32 rows of a grid figure: the
+    samples :func:`~downgan_tpu_torch.utils.plots.grid_sample_indices` picks
+    from ``ds`` (on a device, in host RAM or on disk), and the fakes
+    ``gen`` makes for them alone on its device, a stochastic generator with
+    the fixed latent (:func:`~downgan_tpu_torch.training.wgan.fixed_latent`)."""
+    idx = grid_sample_indices(len(ds), n_samples, seed)
+    device = next(gen.parameters()).device
+    if isinstance(ds, DeviceDataset):
+        coarse, fine = ds.gather(torch.as_tensor(idx, device=ds.device))
+    else:
+        coarse, fine = (torch.from_numpy(np.ascontiguousarray(a[idx], np.float32))
+                        .permute(0, 3, 1, 2) for a in (ds.coarse, ds.fine))
+    coarse = coarse.to(device).contiguous()
+    z = None
+    if config.noise_channels:
+        n, _, h, w = coarse.shape
+        z = torch.from_numpy(fixed_latent(config, (n, h, w, config.noise_channels)))
+        z = z.permute(0, 3, 1, 2).to(device)
+    with torch.no_grad():
+        fake = gen(with_latent(coarse, z))
+    nhwc = lambda t: t.permute(0, 2, 3, 1).float().cpu().numpy()  # noqa: E731
+    return nhwc(coarse), nhwc(fake), nhwc(fine)
 
 
 def training_eof_components(train: DeviceDataset | HostDataset, n_components: int) -> np.ndarray:
@@ -181,7 +221,12 @@ class Trainer:
     group (module docstring); None turns it on when the group has more
     than one rank. Each rank passes the same config and sets
     (``hp.batch_size`` is the global batch and must divide over the ranks)
-    and its own ``device``; ``run`` counts on rank 0 only."""
+    and its own ``device``; ``run`` counts on rank 0 only.
+
+    ``plot_every`` is the grid figures' cadence in epochs (module
+    docstring; ``plot_forwards`` counts their generator forwards, apart from
+    ``forwards``); ``tensorboard_dir`` also logs the epoch means to
+    TensorBoard."""
 
     def __init__(self, config: Config, train: DeviceDataset,
                  test: Optional[DeviceDataset] = None, device: str | torch.device = "cuda",
@@ -189,7 +234,8 @@ class Trainer:
                  print_every: Optional[int] = None, halt_on_nonfinite: bool = True,
                  track_best: Optional[str] = None, best_mode: Optional[str] = None,
                  best_dir: Optional[str] = None, eof_components=None,
-                 multihost: Optional[bool] = None):
+                 multihost: Optional[bool] = None, plot_every: int = 1,
+                 tensorboard_dir: Optional[str] = None):
         self.config = config
         self.multihost = world_size() > 1 if multihost is None else multihost
         if self.multihost and not in_group():
@@ -227,9 +273,20 @@ class Trainer:
         self.run, self.ckpt = (run if self._primary else None), checkpoint_manager
         self.save_every = config.hp.save_every if save_every is None else save_every
         self.print_every = config.hp.print_every if print_every is None else print_every
-        if self.save_every < 1 or self.print_every < 1:
-            raise ValueError("save_every/print_every are epoch cadences and must be >= 1 "
-                             "(use a huge value to effectively disable)")
+        if self.save_every < 1 or self.print_every < 1 or plot_every < 1:
+            raise ValueError("save_every/print_every/plot_every are epoch cadences and must be "
+                             ">= 1 (use a huge value to effectively disable)")
+        self.plot_every = plot_every
+        # Figures for a tracked run (rank 0's) where matplotlib can draw them.
+        self._plots = self.run is not None and have_matplotlib()
+        if self.run is not None and not self._plots:
+            self._say("grid figures skipped: matplotlib is not installed here")
+        self.plot_forwards = 0
+        self.tb = None
+        if tensorboard_dir is not None:
+            from downgan_tpu_torch.tracking.tensorboard import TensorBoardSink
+
+            self.tb = TensorBoardSink(tensorboard_dir)
         # No reference equivalent (the reference trains on through NaNs):
         # stop on the first non-finite epoch, before it is checkpointed, so
         # the latest checkpoint stays a good restore point.
@@ -416,10 +473,24 @@ class Trainer:
             self.run.log_metrics({f"best_{self.track_best}_test": self.best_value}, step=self.epoch)
 
     def _log_epoch(self, split: str, means: Dict[str, float]) -> None:
+        tagged = {f"{k}_{split}": v for k, v in means.items()}
+        if self.tb is not None:
+            self.tb.log_metrics(tagged, step=self.epoch)
+            self.tb.flush()
         if self.run is None:
             return
-        self.run.log_metrics({f"{k}_{split}": v for k, v in means.items()}, step=self.epoch)
+        self.run.log_metrics(tagged, step=self.epoch)
         self.run.append_csv_row(f"{split}_metrics.csv", {"epoch": self.epoch, **means})
+
+    def _plot_split(self, split: str, ds) -> None:
+        """The grid figure of ``split`` at this epoch, every ``plot_every``
+        epochs, when the trainer draws figures."""
+        if not self._plots or self.epoch % self.plot_every:
+            return
+        coarse, fake, real = grid_rows(self.config, self.state.generator, ds)
+        self.plot_forwards += 1
+        gen_grid_images(self.run.artifact_dir, coarse, fake, real, self.epoch, split,
+                        select=False)
 
     def _install_preemption_handler(self):
         """SIGTERM -> a clean stop at the next epoch boundary with the full
@@ -468,6 +539,9 @@ class Trainer:
                 # None: the previous handler was set outside Python and
                 # cannot be restored; the default action is.
                 signal.signal(signal.SIGTERM, previous if previous is not None else signal.SIG_DFL)
+            if self.tb is not None:
+                # Every event on disk when train returns (a later log reopens it).
+                self.tb.close()
         return self.history[first:]
 
     def _train_loop(self, epochs: int) -> None:
@@ -487,6 +561,8 @@ class Trainer:
             # grace period the test pass and the best bundle would take the
             # time the checkpoint needs.
             stopping = self._should_stop()
+            if not stopping:
+                self._plot_split("train", self.train_ds)
             if not stopping and self.test_ds is not None and len(self.test_ds) > 0:
                 means = self.run_test_pass()
                 record["test"] = {k: v for k, v in means.items() if not k.endswith(EMA_SUFFIX)}
@@ -496,6 +572,7 @@ class Trainer:
                                           if k.endswith(EMA_SUFFIX)}
                 if self.track_best:
                     self._update_best(record.get("test_ema", record["test"]))
+                self._plot_split("test", self.test_ds)
             if self.ckpt is not None and self.epoch % self.save_every == 0:
                 self.ckpt.save(self.epoch, self.state)
             if self._primary and self.epoch % self.print_every == 0:

@@ -120,3 +120,56 @@ def load_generator_weights(path: str) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{path} is not a generator state_dict of either architecture, "
                          "RRDB or SRResNet (no conv1.weight)")
     return sd
+
+
+def _shape(t) -> tuple:
+    return tuple(t.shape)
+
+
+def infer_generator_arch(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """The RRDB Generator's architecture read off a reference state dict
+    (numpy arrays or tensors), so ``cli import-torch`` rebuilds the model
+    without being told its shape (the reference stores it nowhere:
+    ``networks/generator.py:10-24`` takes it as constructor arguments).
+
+    Returns ``filters``, ``n_covariates``, ``n_predictands``,
+    ``num_res_blocks`` and ``num_upsample``; raises a ``ValueError`` naming
+    the missing key for a dict that is not a DoWnGAN Generator's (the JAX
+    package's ``infer_generator_arch``, same messages)."""
+    try:
+        conv1 = _shape(sd["conv1.weight"])  # OIHW
+        head = _shape(sd["conv3.2.weight"])
+    except KeyError as e:
+        raise ValueError(f"not a DoWnGAN Generator state_dict: missing key {e}") from e
+    blocks = {int(k.split(".")[1]) for k in sd if k.startswith("res_blocks.")}
+    ups = {int(k.split(".")[1]) for k in sd if k.startswith("upsampling.")}
+    if not blocks or not ups:
+        raise ValueError("not a DoWnGAN Generator state_dict: no res_blocks.*/"
+                         "upsampling.* keys")
+    # One conv per upsample stage at Sequential indices 0, 3, 6, ... (the
+    # LeakyReLU and PixelShuffle slots between carry no parameters).
+    if ups != {3 * u for u in range(len(ups))}:
+        raise ValueError(f"unexpected upsampling conv indices {sorted(ups)} — not the "
+                         "DoWnGAN Sequential layout (convs at 0, 3, 6, ...)")
+    return {"filters": int(conv1[0]), "n_covariates": int(conv1[1]),
+            "n_predictands": int(head[0]), "num_res_blocks": max(blocks) + 1,
+            "num_upsample": len(ups)}
+
+
+def infer_critic_arch(sd: Mapping[str, Any]) -> Dict[str, int]:
+    """The Critic's architecture read off a reference state dict
+    (``networks/critic.py:9-40``): the base filter count and the predictand
+    count from the first conv, ``fine_size`` from the first classifier
+    layer's input width (``8 * base * (fine / 16)**2``); ``ValueError``s as
+    the JAX package's ``infer_critic_arch``."""
+    try:
+        conv0 = _shape(sd["features.0.weight"])  # OIHW
+        fc0 = _shape(sd["classifier.0.weight"])  # (out, in)
+    except KeyError as e:
+        raise ValueError(f"not a DoWnGAN Critic state_dict: missing key {e}") from e
+    base = int(conv0[0])
+    spatial = int(round((fc0[1] / (8 * base)) ** 0.5))
+    if spatial * spatial * 8 * base != fc0[1]:
+        raise ValueError(f"classifier.0 input width {fc0[1]} is not 8*{base}*s^2 for integer "
+                         "s — not a DoWnGAN Critic layout")
+    return {"filters": base, "n_predictands": int(conv0[1]), "fine_size": spatial * 16}
