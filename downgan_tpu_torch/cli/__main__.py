@@ -1294,7 +1294,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     profile = sub.add_parser(
         "profile", help="Profile train steps or generator forwards on synthetic data into a "
-        "Chrome trace (warm-up outside it); print steps/s, patches/s and device memory.")
+        "Chrome trace (warm-up outside it) that carries the program's phase spans "
+        "(train.call, critic.update, generator.update, metric.pass, drb.backward and their "
+        "parts); print steps/s, patches/s and device memory.")
     profile.add_argument("--config", default=None)
     profile.add_argument("--region", choices=sorted(REGIONS), default=None)
     profile.add_argument("--batch-size", type=int, default=None)

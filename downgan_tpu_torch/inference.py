@@ -25,6 +25,8 @@ runs without it.
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +40,7 @@ from downgan_tpu_torch.training.state import load_generator, resolve_device
 from downgan_tpu_torch.training.wgan import FIXED_LATENT_TAG
 from downgan_tpu_torch.utils.checkpoint import CheckpointManager, load_params, save_params
 from downgan_tpu_torch.utils.port_weights import load_generator_weights
+from downgan_tpu_torch.utils.profiling import annotate, spans_on
 
 StateDict = Dict[str, torch.Tensor]
 # latent(member, chunk index, NHWC shape) -> float32 array of that shape
@@ -195,23 +198,33 @@ def sample_latent(config: Config, index: int, shape: Tuple[int, ...]) -> np.ndar
 def _chunks(gen: torch.nn.Module, config: Config, coarse: np.ndarray, chunk: int, member: int,
             latent: Optional[LatentFn]) -> Iterator[Tuple[int, np.ndarray]]:
     """``(start, (k, H, W, P))`` blocks of ``gen`` over ``coarse`` in fixed
-    chunks, the ragged tail padded and trimmed."""
+    chunks, the ragged tail padded and trimmed. Each chunk's host
+    preparation and copy in is a ``generate.h2d`` span, the forward
+    ``generate.forward``, the copy back ``generate.copy_back``, and the
+    caller's time holding the block ``generate.consumer``: adjacent spans,
+    so the host's time between them is the profiler's alone."""
     dev = next(gen.parameters()).device
     k = config.noise_channels
     for i, start in enumerate(range(0, coarse.shape[0], chunk)):
-        block = np.asarray(coarse[start:start + chunk], np.float32)
-        n = block.shape[0]
-        if n < chunk:
-            block = np.concatenate([block, np.zeros((chunk - n, *block.shape[1:]), np.float32)])
-        if k:
-            shape = (chunk, *block.shape[1:3], k)
-            z = (member_latent(config, member, i, shape) if latent is None
-                 else np.asarray(latent(member, i, shape), np.float32))
-            block = np.concatenate([block, z], axis=-1)
-        with torch.inference_mode():
+        with annotate("generate.h2d"):
+            block = np.asarray(coarse[start:start + chunk], np.float32)
+            n = block.shape[0]
+            if n < chunk:
+                block = np.concatenate([block, np.zeros((chunk - n, *block.shape[1:]),
+                                                        np.float32)])
+            if k:
+                shape = (chunk, *block.shape[1:3], k)
+                z = (member_latent(config, member, i, shape) if latent is None
+                     else np.asarray(latent(member, i, shape), np.float32))
+                block = np.concatenate([block, z], axis=-1)
             x = torch.from_numpy(block).to(dev).permute(0, 3, 1, 2).contiguous()
-            out = gen(x)[:n].permute(0, 2, 3, 1).cpu().numpy()
-        yield start, out
+        with annotate("generate.forward"), torch.inference_mode():
+            y = gen(x)
+        with annotate("generate.copy_back"), torch.inference_mode():
+            out = y[:n].permute(0, 2, 3, 1).cpu().numpy()
+            del y  # the block's device output is not held while the caller has it
+        with annotate("generate.consumer"):
+            yield start, out
 
 
 def generate_fields_iter(config: Config, weights: Mapping[str, torch.Tensor],
@@ -228,9 +241,33 @@ def generate_fields_iter(config: Config, weights: Mapping[str, torch.Tensor],
     padding rows included, :func:`member_latent` of ``(config.seed,
     member, chunk)`` (or ``latent``): the same call gives the same fields
     bit for bit, and another ``member`` an independent ensemble member. A
-    deterministic generator ignores ``member``."""
-    gen = load_generator(config, weights, device)
-    yield from _chunks(gen, config, coarse, chunk_size or config.chunk_size, member, latent)
+    deterministic generator ignores ``member``.
+
+    Spans: the load is ``generate.load``, then :func:`_chunks`' spans, the
+    caller's time holding each block ``generate.consumer`` among them. Two
+    counters, always on, process-wide and never reset (as
+    ``drb_forward.launches``):
+    ``generate_fields_iter.chunks``, the blocks yielded, and
+    ``generate_fields_iter.consumer_s``, the host seconds the callers held
+    them (two ``time.perf_counter()`` reads a chunk), less a hold across
+    which a profiler session started or stopped: that time is the
+    profiler's start-up or export, not the caller's work on the block."""
+    with annotate("generate.load"):
+        gen = load_generator(config, weights, device)
+    for item in _chunks(gen, config, coarse, chunk_size or config.chunk_size, member, latent):
+        with _count_lock:
+            generate_fields_iter.chunks += 1
+        t0, traced = time.perf_counter(), spans_on()
+        yield item
+        if spans_on() == traced:
+            held = time.perf_counter() - t0
+            with _count_lock:
+                generate_fields_iter.consumer_s += held
+
+
+_count_lock = threading.Lock()
+generate_fields_iter.chunks = 0
+generate_fields_iter.consumer_s = 0.0
 
 
 def generate_fields(config: Config, weights: Mapping[str, torch.Tensor],

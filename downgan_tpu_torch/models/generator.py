@@ -46,6 +46,7 @@ from torch import nn
 
 from downgan_tpu_torch.models.layers import GEN_SLOPE, conv, conv3x3
 from downgan_tpu_torch.ops.cuda.drb import drb, pack_drb_weights
+from downgan_tpu_torch.utils.profiling import annotate
 
 
 class DenseResidualBlock(nn.Module):
@@ -74,13 +75,16 @@ class DenseResidualBlock(nn.Module):
         # when the block runs in another dtype (an fp32 and a bf16 pack of
         # the same parameters differ). Inference tensors (parameters made
         # inside torch.inference_mode()) keep no version counter: they are
-        # packed on every forward and never cached.
+        # packed on every forward and never cached. A repack is a drb.pack
+        # span; a cache hit is not.
         params = (*weights, *biases)
         if any(t.is_inference() for t in params):
-            return pack_drb_weights(weights, biases, dtype)
+            with annotate("drb.pack"):
+                return pack_drb_weights(weights, biases, dtype)
         key = (dtype, *((t.device, t.data_ptr(), t._version) for t in params))
         if key != self._packed_key:
-            self._packed = pack_drb_weights(weights, biases, dtype)
+            with annotate("drb.pack"):
+                self._packed = pack_drb_weights(weights, biases, dtype)
             self._packed_key = key
         return self._packed
 

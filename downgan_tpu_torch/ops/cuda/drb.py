@@ -53,6 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from downgan_tpu_torch.utils.profiling import annotate
+
 SLOPE = 0.01  # torch nn.LeakyReLU() default, as in the generator
 RES_SCALE = 0.2
 SUPPORTED_FILTERS = (8, 16)
@@ -323,9 +325,10 @@ class DRBFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        x, *params = ctx.saved_tensors
-        needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:]]
-        grads = drb_backward(x, params[:5], params[5:], grad_out, needs)
+        with annotate("drb.backward"):  # on autograd's device thread
+            x, *params = ctx.saved_tensors
+            needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:]]
+            grads = drb_backward(x, params[:5], params[5:], grad_out, needs)
         return grads[0], None, *grads[1:]
 
 

@@ -34,6 +34,7 @@ from torch.distributed.nn.functional import all_reduce as all_reduce_with_grad
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.parallel.mesh import batch_rows, rank, world_size
 from downgan_tpu_torch.training.wgan import Metrics, build_fused_round, build_train_step
+from downgan_tpu_torch.utils.profiling import annotate
 
 
 @torch.no_grad()
@@ -139,7 +140,8 @@ def device_batches(config: Config, ds, perm: np.ndarray, rank: int = 0, world: i
     gathers its rows of each global batch on its device. On the fused
     schedule the order is cut to whole rounds of ``critic_iterations``
     batches and each batch is an (n, B / world, ...) stack. At world size 1
-    these are the one-device epoch's batches."""
+    these are the one-device epoch's batches. Each batch's gather is a
+    ``feed.batch`` span."""
     hp = config.hp
     fused = hp.schedule == "fused"
     if fused:
@@ -151,9 +153,10 @@ def device_batches(config: Config, ds, perm: np.ndarray, rank: int = 0, world: i
         perm = perm[:rounds * n_c].reshape(rounds, n_c, perm.shape[1])
     local = np.ascontiguousarray(batch_rows(perm, rank, world, axis=-1))
     for idx in torch.from_numpy(local).to(ds.device, torch.long):
-        coarse, fine = ds.gather(idx.reshape(-1))
-        if fused:
-            coarse, fine = (t.reshape(*idx.shape, *t.shape[1:]) for t in (coarse, fine))
+        with annotate("feed.batch"):
+            coarse, fine = ds.gather(idx.reshape(-1))
+            if fused:
+                coarse, fine = (t.reshape(*idx.shape, *t.shape[1:]) for t in (coarse, fine))
         yield coarse, fine
 
 

@@ -104,6 +104,7 @@ from downgan_tpu_torch.training.wgan import (
     with_latent,
 )
 from downgan_tpu_torch.utils.plots import gen_grid_images, grid_sample_indices, have_matplotlib
+from downgan_tpu_torch.utils.profiling import annotate
 
 EMA_SUFFIX = "__ema"
 
@@ -113,15 +114,20 @@ class NonFiniteLossError(RuntimeError):
 
 
 def _add(sums: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor]) -> None:
-    for k, v in metrics.items():
-        sums[k] = sums[k] + v if k in sums else v.detach().clone()
+    """Add a step's metrics into the epoch's device sums (a
+    ``trainer.accumulate`` span)."""
+    with annotate("trainer.accumulate"):
+        for k, v in metrics.items():
+            sums[k] = sums[k] + v if k in sums else v.detach().clone()
 
 
 def _to_host_means(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, float]:
-    """One device-to-host copy for the whole dict."""
+    """One device-to-host copy for the whole dict: the epoch's one host
+    sync (a ``trainer.epoch_sync`` span)."""
     if not sums:
         return {}
-    values = torch.stack([v.float() for v in sums.values()]).cpu().tolist()
+    with annotate("trainer.epoch_sync"):
+        values = torch.stack([v.float() for v in sums.values()]).cpu().tolist()
     return {k: v / max(n, 1) for k, v in zip(sums, values)}
 
 

@@ -76,6 +76,13 @@ std over every rank's rows (``sync.std``, differentiable; under
 depend on how many ranks share its batch beyond rounding, as in the JAX
 package, where the key is replicated and GSPMD shards the draw and the
 reductions.
+Spans (``utils/profiling.py::annotate``, on only under a profiler): each
+call of a step or round is ``train.call``; inside it each critic update's
+fake is ``critic.fake``, each update ``critic.update`` /
+``generator.update`` with its microbatches' ``*.loss`` (the GP's
+``create_graph`` gradient included) and ``*.backward`` (the GP's double
+backward included) and its optimizer step ``*.adam`` (the EMA update
+included), and the metric pass, a fresh fake included, ``metric.pass``.
 ``hp.fused_epoch`` and ``hp.remat`` only shape the JAX package's XLA
 program (one ``lax.scan`` per epoch; activation rematerialization) and
 leave the math alone, so the port accepts and ignores them; its DRB
@@ -103,6 +110,7 @@ from downgan_tpu_torch.ops.losses import (
 )
 from downgan_tpu_torch.ops.metrics import resolve_metrics
 from downgan_tpu_torch.training.state import GANTrainState
+from downgan_tpu_torch.utils.profiling import annotate
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -412,16 +420,22 @@ def _microbatches(k: int, *tensors: torch.Tensor):
     return zip(*(t.chunk(k) for t in tensors))
 
 
-def _accumulate(k: int, losses, params: Sequence[torch.Tensor],
+def _accumulate(k: int, loss_of: Callable[..., Tuple[torch.Tensor, ...]], microbatches,
+                params: Sequence[torch.Tensor], spans: Tuple[str, str],
                 sync=LOCAL_SYNC) -> Tuple[torch.Tensor, ...]:
-    """Backward of each microbatch's (loss, *aux) from the iterable
-    ``losses`` into ``params``' gradients, scaled by 1/k, each
-    graph freed before the next microbatch is built, then the gradients
-    averaged across the ranks once (``sync.gradients``); returns the
-    detached means of (loss, *aux) over this rank's microbatches."""
+    """Backward of each microbatch's (loss, *aux) = ``loss_of(*microbatch)``
+    into ``params``' gradients, scaled by 1/k, each graph freed before the
+    next microbatch is built, then the gradients averaged across the ranks
+    once (``sync.gradients``); returns the detached means of (loss, *aux)
+    over this rank's microbatches. ``spans`` names each microbatch's loss
+    and backward spans."""
+    loss_span, backward_span = spans
     totals = None
-    for out in losses:
-        (out[0] / k).backward(inputs=params)
+    for mb in microbatches:
+        with annotate(loss_span):
+            out = loss_of(*mb)
+        with annotate(backward_span):
+            (out[0] / k).backward(inputs=params)
         out = [t.detach() for t in out]
         totals = out if totals is None else [a + b for a, b in zip(totals, out)]
     sync.gradients(params)
@@ -437,10 +451,13 @@ def critic_update(config: Config, state: GANTrainState, critic: nn.Module,
     averaged across ``sync``'s ranks; returns the detached (loss,
     E[C(real)], E[C(fake)]) of this rank's rows."""
     k = config.hp.grad_accum
-    state.c_opt.zero_grad(set_to_none=True)
-    out = _accumulate(k, (critic_loss(config, critic, f, r, a)
-                          for f, r, a in _microbatches(k, fake, real, alpha)), c_params, sync)
-    state.c_opt.step()
+    with annotate("critic.update"):
+        state.c_opt.zero_grad(set_to_none=True)
+        out = _accumulate(k, lambda f, r, a: critic_loss(config, critic, f, r, a),
+                          _microbatches(k, fake, real, alpha), c_params,
+                          ("critic.loss", "critic.backward"), sync)
+        with annotate("critic.adam"):
+            state.c_opt.step()
     return out
 
 
@@ -453,12 +470,16 @@ def generator_update(config: Config, state: GANTrainState, gen: nn.Module, criti
     ``sync``'s ranks, then the EMA update; returns the detached loss of this
     rank's rows."""
     k = config.hp.grad_accum
-    state.g_opt.zero_grad(set_to_none=True)
-    (g_loss,) = _accumulate(k, ((generator_loss(config, gen, critic, c, f, eof, sync.std),)
-                                for c, f in _microbatches(k, coarse, fine)), g_params, sync)
-    state.g_opt.step()
-    if state.g_ema is not None:
-        ema_update(config.hp.ema_decay, state.g_ema, g_params)
+    with annotate("generator.update"):
+        state.g_opt.zero_grad(set_to_none=True)
+        (g_loss,) = _accumulate(
+            k, lambda c, f: (generator_loss(config, gen, critic, c, f, eof, sync.std),),
+            _microbatches(k, coarse, fine), g_params, ("generator.loss", "generator.backward"),
+            sync)
+        with annotate("generator.adam"):
+            state.g_opt.step()
+            if state.g_ema is not None:
+                ema_update(config.hp.ema_decay, state.g_ema, g_params)
     return g_loss
 
 
@@ -509,48 +530,51 @@ def build_train_step(config: Config, gen: nn.Module, critic: nn.Module,
              latents: Optional[Mapping[str, torch.Tensor]] = None,
              flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Metrics:
         _check_modules(state, gen, critic)
-        at_step = state.step
-        global_b = fine.shape[0] * sync.world
-        if augment is not None:
-            if flips is None:
-                flips = flip_masks(config.seed, at_step, global_b, fine.device)
-            coarse, fine = augment(coarse, fine, *(rank_rows(m, sync) for m in flips))
-        if alpha is None:
-            alpha = gp_alpha(config.seed, at_step, global_b, fine.device)
-        alpha = rank_rows(alpha, sync)
+        with annotate("train.call"):
+            at_step = state.step
+            global_b = fine.shape[0] * sync.world
+            if augment is not None:
+                if flips is None:
+                    flips = flip_masks(config.seed, at_step, global_b, fine.device)
+                coarse, fine = augment(coarse, fine, *(rank_rows(m, sync) for m in flips))
+            if alpha is None:
+                alpha = gp_alpha(config.seed, at_step, global_b, fine.device)
+            alpha = rank_rows(alpha, sync)
 
-        def g_input(stream: str) -> torch.Tensor:
-            z = train_latent(config, at_step, stream, coarse, sync) if latents is None \
-                else rank_rows(latents[stream], sync)
-            return with_latent(coarse, z)
+            def g_input(stream: str) -> torch.Tensor:
+                z = train_latent(config, at_step, stream, coarse, sync) if latents is None \
+                    else rank_rows(latents[stream], sync)
+                return with_latent(coarse, z)
 
-        # ---- critic update; no gradient reaches the generator
-        with torch.no_grad():
-            fake = gen(g_input("critic_fake"))
-        forwards["critic_fake"] += 1
-        c_loss, c_real, c_fake = critic_update(
-            config, state, critic, c_params, *critic_inputs(config, condition, fake, fine, coarse),
-            alpha, sync)
+            # ---- critic update; no gradient reaches the generator
+            with torch.no_grad(), annotate("critic.fake"):
+                fake = gen(g_input("critic_fake"))
+            forwards["critic_fake"] += 1
+            c_loss, c_real, c_fake = critic_update(
+                config, state, critic, c_params,
+                *critic_inputs(config, condition, fake, fine, coarse), alpha, sync)
 
-        # ---- generator update on the reference schedule, post-update critic
-        if state.step % hp.critic_iterations == 0:
-            g_loss = generator_update(config, state, gen, critic, g_params, g_input("update"),
-                                       fine, eof, sync)
-            forwards["update"] += hp.grad_accum
-        else:
-            g_loss = torch.zeros((), device=fine.device)
-        state.step += 1
+            # ---- generator update on the reference schedule, post-update critic
+            if state.step % hp.critic_iterations == 0:
+                g_loss = generator_update(config, state, gen, critic, g_params,
+                                          g_input("update"), fine, eof, sync)
+                forwards["update"] += hp.grad_accum
+            else:
+                g_loss = torch.zeros((), device=fine.device)
+            state.step += 1
 
-        metrics = {"critic_loss": c_loss, "gen_loss": g_loss, "Wass": wass_loss(c_real, c_fake)}
-        # The post-update critic scores a fresh fake from the post-update
-        # generator (reference mlflow_epoch.py:53-63) or, under
-        # metrics_reuse_fake, the critic update's fake (made from its latent).
-        if not hp.metrics_reuse_fake:
-            with torch.no_grad():
-                fake = gen(g_input("metric"))
-            forwards["metric"] += 1
-        metrics.update(score(critic, fake, fine, coarse))
-        return sync.metrics(metrics)
+            metrics = {"critic_loss": c_loss, "gen_loss": g_loss,
+                       "Wass": wass_loss(c_real, c_fake)}
+            # The post-update critic scores a fresh fake from the post-update
+            # generator (reference mlflow_epoch.py:53-63) or, under
+            # metrics_reuse_fake, the critic update's fake (made from its latent).
+            with annotate("metric.pass"):
+                if not hp.metrics_reuse_fake:
+                    with torch.no_grad():
+                        fake = gen(g_input("metric"))
+                    forwards["metric"] += 1
+                metrics.update(score(critic, fake, fine, coarse))
+            return sync.metrics(metrics)
 
     step.forwards = forwards
     step.sync = sync
@@ -609,51 +633,54 @@ def build_fused_round(config: Config, gen: nn.Module, critic: nn.Module,
         if n != hp.critic_iterations:
             raise ValueError(f"a fused round takes critic_iterations={hp.critic_iterations} "
                              f"minibatches, got {n}")
-        global_b = coarse_n.shape[1] * sync.world
-        if augment is not None:
-            nb = n * coarse_n.shape[1]
-            if flips is None:
-                flips = flip_masks(config.seed, state.step, n * global_b, fine_n.device)
-            c2, f2 = augment(coarse_n.reshape(nb, *coarse_n.shape[2:]),
-                             fine_n.reshape(nb, *fine_n.shape[2:]),
-                             *(rank_rows(m.reshape(n, global_b), sync, axis=1).reshape(nb)
-                               for m in flips))
-            coarse_n, fine_n = c2.reshape(coarse_n.shape), f2.reshape(fine_n.shape)
+        with annotate("train.call"):
+            global_b = coarse_n.shape[1] * sync.world
+            if augment is not None:
+                nb = n * coarse_n.shape[1]
+                if flips is None:
+                    flips = flip_masks(config.seed, state.step, n * global_b, fine_n.device)
+                c2, f2 = augment(coarse_n.reshape(nb, *coarse_n.shape[2:]),
+                                 fine_n.reshape(nb, *fine_n.shape[2:]),
+                                 *(rank_rows(m.reshape(n, global_b), sync, axis=1).reshape(nb)
+                                   for m in flips))
+                coarse_n, fine_n = c2.reshape(coarse_n.shape), f2.reshape(fine_n.shape)
 
-        def g_input(stream: str, coarse: torch.Tensor, i: Optional[int] = None) -> torch.Tensor:
-            if latents is None:
-                z = train_latent(config, state.step, stream, coarse, sync)
-            else:
-                z = rank_rows(latents[stream] if i is None else latents[stream][i], sync)
-            return with_latent(coarse, z)
+            def g_input(stream: str, coarse: torch.Tensor,
+                        i: Optional[int] = None) -> torch.Tensor:
+                if latents is None:
+                    z = train_latent(config, state.step, stream, coarse, sync)
+                else:
+                    z = rank_rows(latents[stream] if i is None else latents[stream][i], sync)
+                return with_latent(coarse, z)
 
-        losses, reals, fakes = [], [], []
-        for i in range(n):
-            coarse, fine = coarse_n[i], fine_n[i]
-            alpha = rank_rows(gp_alpha(config.seed, state.step, global_b, fine.device)
-                              if alphas is None else alphas[i], sync)
-            with torch.no_grad():
-                fake = gen(g_input("critic_fake", coarse, i))
-            forwards["critic_fake"] += 1
-            c_loss, c_real, c_fake = critic_update(
-                config, state, critic, c_params,
-                *critic_inputs(config, condition, fake, fine, coarse), alpha, sync)
-            losses.append(c_loss)
-            reals.append(c_real)
-            fakes.append(c_fake)
-            state.step += 1
+            losses, reals, fakes = [], [], []
+            for i in range(n):
+                coarse, fine = coarse_n[i], fine_n[i]
+                alpha = rank_rows(gp_alpha(config.seed, state.step, global_b, fine.device)
+                                  if alphas is None else alphas[i], sync)
+                with torch.no_grad(), annotate("critic.fake"):
+                    fake = gen(g_input("critic_fake", coarse, i))
+                forwards["critic_fake"] += 1
+                c_loss, c_real, c_fake = critic_update(
+                    config, state, critic, c_params,
+                    *critic_inputs(config, condition, fake, fine, coarse), alpha, sync)
+                losses.append(c_loss)
+                reals.append(c_real)
+                fakes.append(c_fake)
+                state.step += 1
 
-        g_loss = generator_update(config, state, gen, critic, g_params,
-                                   g_input("update", coarse), fine, eof, sync)
-        forwards["update"] += hp.grad_accum
-        metrics = {"critic_loss": torch.stack(losses).mean(), "gen_loss": g_loss,
-                   "Wass": wass_loss(torch.stack(reals).mean(), torch.stack(fakes).mean())}
-        if not hp.metrics_reuse_fake:
-            with torch.no_grad():
-                fake = gen(g_input("metric", coarse))
-            forwards["metric"] += 1
-        metrics.update(score(critic, fake, fine, coarse))
-        return sync.metrics(metrics)
+            g_loss = generator_update(config, state, gen, critic, g_params,
+                                      g_input("update", coarse), fine, eof, sync)
+            forwards["update"] += hp.grad_accum
+            metrics = {"critic_loss": torch.stack(losses).mean(), "gen_loss": g_loss,
+                       "Wass": wass_loss(torch.stack(reals).mean(), torch.stack(fakes).mean())}
+            with annotate("metric.pass"):
+                if not hp.metrics_reuse_fake:
+                    with torch.no_grad():
+                        fake = gen(g_input("metric", coarse))
+                    forwards["metric"] += 1
+                metrics.update(score(critic, fake, fine, coarse))
+            return sync.metrics(metrics)
 
     fused_round.forwards = forwards
     fused_round.sync = sync

@@ -5,7 +5,11 @@ and of the measuring half of ``downgan_tpu/bench.py``).
 * :func:`trace`: ``torch.profiler`` over the CPU and, with a card, CUDA
   activities, writing a Chrome trace (``<logdir>/*.pt.trace.json``) with
   ``tensorboard_trace_handler``;
-* :func:`annotate`: a named span in that trace (``record_function``);
+* :func:`annotate`: the port's one span primitive, a named span in that
+  trace (``record_function``) while a profiler runs, a shared null context
+  otherwise. The program's phase spans (the train step's and fused
+  round's updates, the DRB recompute backward, the feed, the trainer's
+  epoch sums, the generate loop) are all ``annotate`` spans;
 * :func:`detect_anomalies`: scoped ``torch.autograd`` anomaly mode with its
   NaN check, which raises when a backward function returns NaN, plus
   :func:`check_finite` on each step's outputs, which raises
@@ -37,6 +41,7 @@ from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as autograd_profiler
 
 
 @contextlib.contextmanager
@@ -52,8 +57,26 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
         yield prof
 
 
+_OFF = contextlib.nullcontext()
+
+
+def spans_on() -> bool:
+    """Whether a ``torch.profiler`` session runs, so :func:`annotate`
+    records: ``torch.autograd.profiler._is_profiler_enabled``, set while
+    any profile is running, on every thread."""
+    return autograd_profiler._is_profiler_enabled
+
+
 def annotate(name: str):
-    """A named span in the profiler's timeline."""
+    """The port's span: a named interval in the profiler's timeline, on the
+    clock of the device's kernels and copies, its parent the span enclosing
+    it on its thread. On only while a ``torch.profiler`` session runs (any
+    session: ``cli profile``'s trace, a benchmark's traced window): then it
+    is a ``record_function`` and lands in the Chrome trace as a
+    ``user_annotation`` event. Off, it costs one flag check and returns one
+    shared null context, entering nothing and allocating nothing."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
 
 
@@ -149,8 +172,10 @@ def measure_train(config, steps: int, reps: int = 1, device: str | torch.device 
     ``census``), ``achieved_tflops`` and ``mfu_vs_peak`` against
     ``peak_tflops`` (``utils/flops.py::H100_PEAK_TFLOPS`` of the compute
     dtype; on the CPU null), and ``device``. ``window`` is entered around
-    the timed steps (``cli profile``'s trace); ``check`` sees each step's
-    metrics."""
+    the timed steps (``cli profile``'s trace, which then carries the
+    program's phase spans: ``train.call``, ``critic.update``,
+    ``generator.update``, ``metric.pass``, ``drb.backward`` and their
+    parts, see :func:`annotate`); ``check`` sees each step's metrics."""
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.training.state import make_train_state, resolve_device
     from downgan_tpu_torch.training.wgan import build_fused_round, build_train_step

@@ -114,6 +114,12 @@ def test_profile_writes_a_trace(tmp_path, capsys, mode, schedule):
     assert printed == [got]
     traces = list(out.glob("*.pt.trace.json"))
     assert len(traces) == 1 and "profiled_" + mode + "_window" in traces[0].read_text()
+    if mode == "train":  # the program's phase spans land in the written trace
+        names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+        assert {"train.call", "critic.update", "critic.backward", "metric.pass"} <= names
+        # the reference schedule's generator update ran in the warm-up step
+        assert ("generator.update" in names) == (schedule == "fused")
     batch = 3 if mode == "infer" else 2
     assert (got["mode"], got["steps"], got["batch"], got["trace_dir"]) == (mode, 2, batch, str(out))
     assert got["schedule"] == (schedule if mode == "train" else None)
