@@ -13,6 +13,12 @@ before the classifier is torch's NCHW order; the JAX critic flattens NHWC,
 and ``utils.port_weights.critic_state_dict_from_flax`` permutes the fc1
 rows between the two.
 
+The convs are ``layers.CriticConv2d``: where the input needs a gradient
+(the gradient penalty's interpolate, the generator loss's fake), the GP's
+double backward takes each conv's weight term as a weight gradient
+(``convolution_backward``), not as stock autograd's convolution with a
+kernel of the layer's whole output size.
+
 ``compute_dtype`` is the JAX ``Critic``'s ``dtype``: the input is cast to
 it, every conv, activation and dense layer computes in it, the parameters
 stay fp32 and the scores come back fp32.
@@ -22,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from downgan_tpu_torch.models.layers import CRITIC_SLOPE, Conv2d, Linear
+from downgan_tpu_torch.models.layers import CRITIC_SLOPE, CriticConv2d, Linear
 
 
 class Critic(nn.Module):
@@ -39,8 +45,9 @@ class Critic(nn.Module):
                  (8 * base, 2, False)]
         layers, cin = [], in_channels
         for feat, stride, bias in specs:
-            layers += [Conv2d(cin, feat, kernel_size=3, stride=stride, padding=1, bias=bias,
-                              compute_dtype=compute_dtype), nn.LeakyReLU(CRITIC_SLOPE)]
+            layers += [CriticConv2d(cin, feat, kernel_size=3, stride=stride, padding=1,
+                                    bias=bias, compute_dtype=compute_dtype),
+                       nn.LeakyReLU(CRITIC_SLOPE)]
             cin = feat
         self.features = nn.Sequential(*layers)
         self.classifier = nn.Sequential(

@@ -156,7 +156,10 @@ def gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,
     at ``alpha * real + (1 - alpha) * fake`` with per-sample alpha
     (B, 1, 1, 1); the norms carry the eps=1e-12 sqrt guard. The input
     gradient keeps its graph (``create_graph=True``), so the penalty is
-    differentiable in the critic's parameters: a double backward."""
+    differentiable in the critic's parameters: a double backward, whose
+    weight terms the critic's convs take on the weight-gradient route
+    (``models/layers.py::critic_conv2d``, counted in its
+    ``double_backwards``)."""
     interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_(True)
     (grads,) = torch.autograd.grad(critic(interp).sum(), interp, create_graph=True)
     norms = torch.sqrt(grads.flatten(1).square().sum(dim=1) + eps)
