@@ -45,6 +45,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                training batch, B=128, and the backward's time beside the
                kernel's and the cuDNN chain's; drb_grad_bf16 in bf16 against
                the float64 gradient;
+   esrgan -- ESRGAN at its published widths (``generator_arch: "esrgan"``):
+               the wide DRB kernel (nf 64, gc 32, slope 0.2) against its twin
+               at B=1, 3, 128 and from an input 4 bytes off a 16-byte
+               boundary, timed at B=128 beside the fp32 cuDNN five-conv
+               chain (TF32 off), its bound and the twin (``esrgan_kernel``);
+               ``DRBFunction`` against float64 autograd on the fp32 chain's
+               LeakyReLU sides at B=128;
+               the generator (17,068,994 params) through ``make_generator``,
+               69 wide launches a forward, against its DRBs on the twin; a
+               5-step round of ``Trainer.step_fn`` at B=32, 759 wide
+               launches. To run it alone: a script under ``build/`` that
+               calls ``phase_device``, ``phase_build`` and
+               ``phase_esrgan(rng, card_peaks(name))`` (~40 s);
 9. train_parity -- six florida train steps (full width, batch 4) on the card
                and on the CPU from the same weights and alphas: step-0
                gradients, per-step losses and metrics, the final parameters,
@@ -245,6 +258,17 @@ SERVE_ATOL = 1e-6  # same program and batch shape on both sides
 # sqrt(32768 / 720) ~ 7x the forward's longest sum, so ten times the
 # kernel's 1e-5, relative to each gradient's largest entry.
 DRB_GRAD_TOL = 1e-4
+# The wide (ESRGAN) block's gradients at B=128, as tests/test_torch_esrgan.py
+# holds them. Against autograd through cudnn_chain, the function its
+# backward differentiates (a plumbing check: cuDNN's backward sums in
+# another order from call to call), within 1e-5 of each gradient's norm.
+# Against the float64 block with each LeakyReLU on the side of zero that
+# cudnn_chain's fp32 pre-activation takes (block_on_sides), within 1e-4:
+# over 33 cases on the H100 such readings are at most 9.1e-6 (the last
+# stage's fp32 wgrad). On the float64 block's own sides, 14 of the 33 cases
+# had one or two pre-activations within rounding of zero on the other side,
+# whose gradient then moves by 0.8 of itself, and read up to 1.8e-3.
+WIDE_GRAD_CHAIN_TOL, WIDE_GRAD_FLOAT64_TOL = 1e-5, 1e-4
 # Step-0 gradient of the generator loss with respect to the fake, card vs
 # CPU, outside the elements where the L1 term's sign flips, relative to its
 # largest entry: the fake differs by up to GEN_ATOL (1e-4); ten times that.
@@ -368,7 +392,7 @@ def bf16_ulp(magnitude: float) -> float:
 def reset_launch_counts() -> None:
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
 
-    drb_forward.launches = drb_forward.launches_bf16 = 0
+    drb_forward.launches = drb_forward.launches_bf16 = drb_forward.launches_wide = 0
 
 
 def drb_params(f: int, rng: torch.Generator, device):
@@ -385,6 +409,34 @@ def drb_flops(b: int, f: int, h: int, w: int) -> int:
     return sum(2 * 9 * (s * f) * f * h * w for s in range(1, 6)) * b
 
 
+def chain_sides(x, ws, bs, slope):
+    """For stages 1-4 of a DRB, whether each pre-activation is above zero,
+    by the calls of ``cudnn_chain`` in x's dtype: in fp32 the LeakyReLU
+    sides that ``DRBFunction``'s recompute differentiates."""
+    import torch.nn.functional as F
+
+    sides, acts = [], x
+    with torch.no_grad():
+        for s in range(4):
+            y = F.conv2d(acts, ws[s], bs[s], padding=1)
+            sides.append(y > 0)
+            acts = torch.cat([acts, F.leaky_relu(y, slope)], 1)
+    return sides
+
+
+def block_on_sides(x, ws, bs, slope, sides):
+    """The DRB in x's dtype with stage s's LeakyReLU passing its input
+    where ``sides[s]`` and scaling it by ``slope`` elsewhere."""
+    import torch.nn.functional as F
+
+    acts = x
+    for s in range(5):
+        y = F.conv2d(acts, ws[s], bs[s], padding=1)
+        if s < 4:
+            acts = torch.cat([acts, torch.where(sides[s], y, slope * y)], 1)
+    return y * 0.2 + x
+
+
 @contextlib.contextmanager
 def drbs_on_plain_twin(gen):
     """Route every DRB of ``gen`` through the plain twin, for the yardstick."""
@@ -392,7 +444,7 @@ def drbs_on_plain_twin(gen):
     from downgan_tpu_torch.ops.cuda.drb import drb_forward_reference
 
     def plain(block, x):
-        return drb_forward_reference(x, *block.stage_params())
+        return drb_forward_reference(x, *block.stage_params(), slope=block.slope)
 
     blocks = [m for m in gen.modules() if isinstance(m, DenseResidualBlock)]
     for m in blocks:
@@ -443,6 +495,8 @@ def phase_build():
             bf16 = found.group(1) is not None
             f, pitch = found.groups()[:2] if bf16 else found.groups()[2:]
             instance = "{} F={} pitch={}".format("bf16" if bf16 else "fp32", f, pitch)
+        elif "15drb_kernel_wide" in ln and "Compiling" in ln:
+            instance = "fp32 wide nf=64 gc=32"
         elif "Used" in ln:
             usage[instance] = ln.split(":", 1)[1].strip()
     spills = [ln.strip() for ln in lines
@@ -452,8 +506,8 @@ def phase_build():
     emit("build", seconds=seconds, library=str(drb.library_path().relative_to(ROOT)),
          ptxas=usage, spills=spills, wgmma_notes=wgmma_notes)
     check(not spills, f"the DRB kernel spills registers: {spills}")
-    check(len(usage) == 8, f"expected 8 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
-          f"2 pitches), the compiler reports {sorted(usage)}")
+    check(len(usage) == 9, f"expected 9 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
+          f"2 pitches, and the wide fp32 one), the compiler reports {sorted(usage)}")
 
 
 def time_drb(x, ws, bs, want, peaks):
@@ -760,6 +814,163 @@ def phase_drb_grad(rng, peaks, timing_b128):
          backward_ms_cudnn_recompute=backward_ms, cudnn_chain_forward_ms=timing_b128["library_ms"],
          cudnn_chain_forward_plus_backward_ms=chain_ms, kernel_bound_ms=timing_b128["bound_ms"])
     return backward_ms
+
+
+def esrgan_block(rng, device):
+    """Random weights of ESRGAN's dense block (nf 64, gc 32) with the
+    generator's init bound, U(+-1/sqrt(fan_in))."""
+    from downgan_tpu_torch.ops.cuda.drb import WIDE_BLOCK, stage_widths
+
+    f, growth, _ = WIDE_BLOCK
+    ws, bs = [], []
+    for cin, cout in stage_widths(f, growth):
+        bound = 1.0 / (9 * cin) ** 0.5
+        ws.append(((torch.rand(cout, cin, 3, 3, generator=rng) * 2 - 1) * bound).to(device))
+        bs.append(((torch.rand(cout, generator=rng) * 2 - 1) * bound).to(device))
+    return ws, bs
+
+
+def phase_esrgan(rng, peaks):
+    """ESRGAN at its published widths. The wide DRB kernel against its twin
+    (B = 1, 3, 128, and x at a 4-byte offset), timed at B = 128 beside the
+    fp32 cuDNN five-conv chain (TF32 off), the twin and its bound; the
+    generator (filters 64, 23 RRDBs) through ``make_generator`` against its
+    DRBs on the twin, 69 wide launches a forward; ``DRBFunction`` against
+    float64 autograd on ``cudnn_chain``'s LeakyReLU sides at B = 128; then a
+    5-step round of ``Trainer.step_fn`` at B = 32 on 160 synthetic samples,
+    its launches counted from zero."""
+    from downgan_tpu_torch.config.config import Config
+    from downgan_tpu_torch.data.dataset import DeviceDataset
+    from downgan_tpu_torch.ops.cuda.drb import (WIDE_BLOCK, DRBFunction, cudnn_chain,
+                                                drb_forward, drb_forward_reference,
+                                                pack_drb_weights)
+    from downgan_tpu_torch.training.state import make_generator
+    from downgan_tpu_torch.training.trainer import Trainer
+
+    f, _, slope = WIDE_BLOCK
+    ws, bs = esrgan_block(rng, "cuda")
+    packed = pack_drb_weights(ws, bs)
+    errors = {}
+    with torch.inference_mode():
+        for b in (1, 3, B_TRAIN):
+            x = torch.randn(b, f, 16, 16, generator=rng).cuda()
+            before = drb_forward.launches_wide
+            got = drb_forward(x, ws, bs, packed, slope)
+            want = drb_forward_reference(x, ws, bs, slope=slope)
+            torch.cuda.synchronize()
+            check(drb_forward.launches_wide == before + 1, "the wide kernel did not launch")
+            errors[b] = (got - want).abs().max().item()
+            check(torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
+                  f"wide DRB kernel vs twin at B={b}: max abs err {errors[b]}")
+        buf = torch.empty(x.numel() + 1, device="cuda")
+        shifted = buf[1:].view_as(x)  # 4 bytes past a 16-byte boundary: the 4-byte copies
+        shifted.copy_(x)
+        check(torch.equal(drb_forward(shifted, ws, bs, packed, slope), got),
+              "the wide kernel's 4-byte input path differs from its 16-byte one")
+        chain_err = (cudnn_chain(x, ws, bs, slope) - want).abs().max().item()
+        kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed, slope), iters=50)
+        plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs, slope=slope), iters=10)
+        library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs, slope), iters=50)
+        torch.backends.cudnn.allow_tf32 = True  # for information: not the same precision
+        try:
+            tf32_err = (cudnn_chain(x, ws, bs, slope) - want).abs().max().item()
+            tf32_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs, slope), iters=50)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    flops = B_TRAIN * sum(2 * 9 * w.shape[1] * w.shape[0] * 256 for w in ws)
+    nbytes = 2 * x.numel() * 4 + packed.numel() * 4
+    floor_ms = 3 * flops / (peaks["tf32"] * 1e12) * 1e3
+    bound_ms = max(floor_ms, nbytes / (peaks["hbm"] * 1e12) * 1e3)
+    emit("esrgan_kernel", shape=[B_TRAIN, f, 16, 16], max_abs_err_vs_twin=errors,
+         atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=kernel_ms, plain_ms=plain_ms,
+         library_ms=library_ms, library="cuDNN five-conv chain, fp32, TF32 off",
+         library_max_abs_err=chain_err, library_tf32_ms_information=tf32_ms,
+         library_tf32_max_abs_err=tf32_err, bound_ms=bound_ms, tf32_floor_ms=floor_ms,
+         share_of_bound=bound_ms / kernel_ms, vs_library=library_ms / kernel_ms,
+         flops=flops, bytes=nbytes)
+    check(kernel_ms < library_ms, f"the wide kernel ({kernel_ms} ms) is slower than the cuDNN "
+          f"chain ({library_ms} ms)")
+
+    # ---- DRBFunction at B=128 against float64 autograd on the chain's sides
+    x = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()
+    weight = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()
+
+    def grads(fn, dtype=torch.float32):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (x, *ws, *bs)]
+        return torch.autograd.grad((fn(leaves) * weight.to(dtype)).sum(), leaves)
+
+    sides = chain_sides(x, ws, bs, slope)
+    x64, ws64, bs64 = x.double(), [w.double() for w in ws], [b.double() for b in bs]
+    flips = sum(int((a != b).sum()) for a, b in zip(sides, chain_sides(x64, ws64, bs64, slope)))
+    with torch.no_grad():  # the float64 block is the twin's function
+        twin64 = drb_forward_reference(x64, ws64, bs64, slope=slope)
+        check(torch.allclose(block_on_sides(x64, ws64, bs64, slope, sides), twin64,
+                             atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
+              "the float64 block on the chain's sides is not the twin's function")
+    got = grads(lambda v: DRBFunction.apply(v[0], packed, *v[1:], slope))
+    chain = grads(lambda v: cudnn_chain(v[0], v[1:6], v[6:], slope))
+    exact = grads(lambda v: block_on_sides(v[0], v[1:6], v[6:], slope, sides), torch.float64)
+    names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
+
+    def norm_errors(want):
+        return {n: ((g.double() - w.double()).norm() / w.double().norm()).item()
+                for n, g, w in zip(names, got, want)}
+
+    vs_chain, vs_float64 = norm_errors(chain), norm_errors(exact)
+    emit("esrgan_drb_grad", shape=[B_TRAIN, f, 16, 16], err_relative_to_norm_vs_chain=vs_chain,
+         err_relative_to_norm_vs_float64_on_chain_sides=vs_float64,
+         sides_flipped_vs_float64_information=flips, tolerance_chain=WIDE_GRAD_CHAIN_TOL,
+         tolerance_float64=WIDE_GRAD_FLOAT64_TOL)
+    check(max(vs_chain.values()) <= WIDE_GRAD_CHAIN_TOL
+          and max(vs_float64.values()) <= WIDE_GRAD_FLOAT64_TOL,
+          f"wide DRBFunction gradients disagree: {vs_chain}, {vs_float64}")
+
+    # ---- the generator at published widths on the main path
+    florida = Config.from_json((ROOT / "examples" / "florida.json").read_text())
+    config = florida.replace(generator_arch="esrgan", filters=64, num_res_blocks=23)
+    gen = make_generator(config, "cuda", rng=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in gen.parameters())
+    check(n_params == 17_068_994, f"ESRGAN generator has {n_params} params, not 17,068,994")
+    xg = torch.randn(B_TRAIN, config.n_covariates, 16, 16, generator=rng).cuda()
+    with torch.inference_mode():
+        before = (drb_forward.launches, drb_forward.launches_wide)
+        out = gen(xg)
+        torch.cuda.synchronize()
+        per_forward = (drb_forward.launches - before[0], drb_forward.launches_wide - before[1])
+        with drbs_on_plain_twin(gen) as n_drb:
+            ref = gen(xg)
+        gen_err = ((out - ref).abs().max() / ref.abs().max()).item()
+        fwd_ms = cuda_ms(lambda: gen(xg), iters=5)
+    check(per_forward == (69, 69) and n_drb == 69,
+          f"{per_forward} (all, wide) launches a forward for {n_drb} DRBs")
+    check(gen_err <= GEN_RTOL, f"ESRGAN generator, kernel path vs twin: {gen_err} of the largest")
+    emit("esrgan_generator", params=n_params, batch=B_TRAIN, drb_launches_per_forward=per_forward,
+         max_err_vs_twin_relative_to_largest=gen_err, tolerance=GEN_RTOL, forward_ms=fwd_ms)
+    del gen, out, ref
+
+    # ---- Trainer.step_fn, one 5-step round at B=32
+    cfg = config.replace(hp=dataclasses.replace(config.hp, batch_size=32))
+    g = torch.Generator().manual_seed(5)
+    ds = DeviceDataset(torch.randn(160, 7, 16, 16, generator=g).cuda(),
+                       torch.randn(160, 2, 128, 128, generator=g).cuda())
+    tr = Trainer(cfg, ds, device="cuda")
+    reset_launch_counts()  # the ESRGAN training path's run starts here
+    t0 = time.perf_counter()
+    metrics = [tr.step_fn(tr.state, ds.coarse[i * 32:(i + 1) * 32], ds.fine[i * 32:(i + 1) * 32])
+               for i in range(5)]
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launched = (drb_forward.launches, drb_forward.launches_wide)
+    finite = all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
+    # a round: 5 critic fakes, 1 generator update, 5 metric-pass fakes
+    check(finite and launched == (69 * 11, 69 * 11), f"ESRGAN round: finite={finite}, "
+          f"{launched} (all, wide) launches (69 x 11 wide forwards expected)")
+    emit("esrgan_training", batch=32, steps=5, launches=launched[0], wide_launches=launched[1],
+         round_s=round_s, critic_loss=[float(m["critic_loss"]) for m in metrics],
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del tr, ds
+    return {"ms_b128": kernel_ms, "library_ms_b128": library_ms, "bound_ms_b128": bound_ms,
+            "launches": launched[1]}
 
 
 def phase_drb_grad_bf16(rng, timing_b128):
@@ -3961,6 +4172,7 @@ def main() -> int:
     check(serving_launches > 0, "the serving path launched no DRB kernel")
     backward_ms = phase_drb_grad(rng, peaks, timing_b128)
     bf16_backward_ms = phase_drb_grad_bf16(rng, bf16_b128)
+    esrgan = phase_esrgan(rng, peaks)
     phase_train_parity(config)
     phase_fused_parity()
     phase_variants_parity(config)
@@ -4062,7 +4274,12 @@ def main() -> int:
         "library_ms_b128": bf16_b128["library_ms"], "backward_ms_b128": bf16_backward_ms,
         "ms_b132": bf16_b132["ms"], "bound_ms_b132": bf16_b132["bound_ms"],
         "smem_bytes_per_cta": bf16_timing["smem_bytes_per_cta"],
-        "ctas_per_sm": bf16_timing["ctas_per_sm"]}]}),
+        "ctas_per_sm": bf16_timing["ctas_per_sm"]}, {
+        "name": "drb_forward (wide)", "dtype": "float32", **common,
+        "replaces": "none: ESRGAN's block (nf 64, gc 32) has no TPU kernel",
+        "launches_by_path": {"esrgan": esrgan["launches"]},
+        "ms_b128": esrgan["ms_b128"], "bound_ms_b128": esrgan["bound_ms_b128"],
+        "library_ms_b128": esrgan["library_ms_b128"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -707,10 +707,13 @@ def _export_torch(args: argparse.Namespace, parser: argparse.ArgumentParser) -> 
     """Write a trained RRDB generator's reference-layout state dict (the
     inverse of ``import-torch``; upstream it loads into ``Generator(filters,
     fine, channels, preds, num_res_blocks=N)``); returns the file's path."""
+    from downgan_tpu_torch.utils.port_weights import check_reference_layout
+
     config, path, weights_only, _ = _source(args, parser)
-    if config.generator_arch != "rrdb":
-        parser.error("export-torch maps the reference RRDB layout only; this model is "
-                     f"generator_arch={config.generator_arch!r}")
+    try:
+        check_reference_layout("export-torch", config.generator_arch)
+    except ValueError as e:
+        parser.error(str(e))
     if args.ema and weights_only:
         parser.error("an exported bundle holds ONE set of params (EMA already baked in if it "
                      "was exported with --ema); drop --ema, or export-torch from the full "
@@ -760,11 +763,13 @@ def _import_torch(args: argparse.Namespace, parser: argparse.ArgumentParser) -> 
     unchanged); returns the bundle directory."""
     from downgan_tpu_torch.inference import write_generator_bundle
     from downgan_tpu_torch.training.state import load_generator, make_critic, resolve_device
-    from downgan_tpu_torch.utils.port_weights import infer_critic_arch, infer_generator_arch
+    from downgan_tpu_torch.utils.port_weights import (check_reference_layout, infer_critic_arch,
+                                                      infer_generator_arch)
 
     sd = _load_torch_weights(args.weights, parser)
     try:
         arch = infer_generator_arch(sd)
+        check_reference_layout("import-torch", sd=sd)
     except ValueError as e:
         parser.error(str(e))
     config = _load_config(args.config, args.region).replace(
@@ -1122,8 +1127,9 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--schedule", choices=("reference", "fused"), default=None,
                        help="Generator-update schedule: reference parity (step %% n_critic) "
                        "or the fused n_critic round (overrides hp.schedule).")
-    train.add_argument("--generator-arch", choices=("rrdb", "srresnet"), default=None,
-                       help="Generator family: rrdb (the reference's ESRGAN model) or "
+    train.add_argument("--generator-arch", choices=("rrdb", "esrgan", "srresnet"), default=None,
+                       help="Generator family: rrdb (the reference's ESRGAN model), esrgan "
+                       "(ESRGAN's own dense blocks: growth 32, LeakyReLU 0.2; fp32) or "
                        "srresnet (its SRGAN-style variant); overrides the config's.")
     train.add_argument("--noise-channels", type=int, default=None,
                        help="Latent channels appended to the generator input (> 0: a "

@@ -1,5 +1,5 @@
-"""The two generator families, NCHW (counterpart of
-``downgan_tpu/models/generator.py``).
+"""The generator families, NCHW (counterpart of
+``downgan_tpu/models/generator.py``, which has the first two).
 
 :class:`Generator`, the ESRGAN-style residual-in-residual dense network:
 conv1 -> N x RRDB -> conv2 + global skip -> K x [conv(4F), LeakyReLU,
@@ -23,6 +23,18 @@ twin, under autograd or not.
 DRB and pixel shuffle computes in it, the parameters stay fp32 and the
 output is fp32. In bf16 the DRBs take the bf16 kernel.
 
+:class:`ESRGANGenerator`, ESRGAN's generator at its own block widths (Wang
+et al., "ESRGAN", ECCV 2018 Workshops, arXiv:1809.00219; code
+xinntao/ESRGAN ``RRDBNet_arch.py``): the same trunk, keys and upsampler,
+with dense blocks that grow by :data:`ESRGAN_GROWTH` channels a stage
+(RRDBNet's ``gc``) rather than by ``filters``, and LeakyReLU(:data:`ESRGAN_SLOPE`)
+all through. At ``filters=64, num_res_blocks=23`` (RRDBNet's nf, nb) on the
+florida shapes: 17,068,994 params; stage s of a block convolves 64 + 32(s -
+1) channels to 32, stage 5 192 to 64. Two departures from RRDBNet, kept
+from DoWnGAN: the upsampler (conv to 4F, LeakyReLU, PixelShuffle(2) a
+stage, three for 8x, in place of nearest x2 + conv) and the 7 -> 2
+channels. fp32 only: on the card its DRBs take ``drb_kernel_wide``.
+
 :class:`SRResNetGenerator`, the SRGAN-style family: 9x9 conv + PReLU ->
 N x [conv, PReLU, conv + input] -> conv + :class:`InstanceNorm` + global
 skip -> K x [conv(4F), PixelShuffle(2), PReLU] -> 9x9 conv; the 3x3 convs
@@ -45,20 +57,26 @@ import torch
 from torch import nn
 
 from downgan_tpu_torch.models.layers import GEN_SLOPE, conv, conv3x3
-from downgan_tpu_torch.ops.cuda.drb import drb, pack_drb_weights
+from downgan_tpu_torch.ops.cuda.drb import drb, pack_drb_weights, stage_widths
 from downgan_tpu_torch.utils.profiling import annotate
+
+ESRGAN_GROWTH = 32  # RRDBNet_arch.py (xinntao/ESRGAN): gc, num_grow_ch
+ESRGAN_SLOPE = 0.2  # RRDBNet_arch.py: nn.LeakyReLU(negative_slope=0.2) throughout
 
 
 class DenseResidualBlock(nn.Module):
     """Five conv stages over growing concatenations; stage k convolves
-    k*filters channels down to ``filters``, LeakyReLU on all but the last,
-    output scaled by 0.2 and added to the input."""
+    filters + growth*(k-1) channels down to ``growth`` (stage 5: to
+    ``filters``), LeakyReLU(``slope``) on all but the last, output scaled by
+    0.2 and added to the input. ``growth`` defaults to ``filters`` (DoWnGAN's
+    block: stage k convolves k*filters channels)."""
 
-    def __init__(self, filters: int):
+    def __init__(self, filters: int, growth: int | None = None, slope: float = GEN_SLOPE):
         super().__init__()
-        for k in range(1, 6):
-            act = [nn.LeakyReLU(GEN_SLOPE)] if k < 5 else []
-            setattr(self, f"b{k}", nn.Sequential(conv3x3(k * filters, filters), *act))
+        self.slope = slope
+        for k, (cin, cout) in enumerate(stage_widths(filters, growth), start=1):
+            act = [nn.LeakyReLU(slope)] if k < 5 else []
+            setattr(self, f"b{k}", nn.Sequential(conv3x3(cin, cout), *act))
         self._packed = None
         self._packed_key = None
 
@@ -90,15 +108,17 @@ class DenseResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights, biases = self.stage_params()
-        return drb(x, weights, biases, self._packed_weights(weights, biases, x.dtype))
+        return drb(x, weights, biases, self._packed_weights(weights, biases, x.dtype),
+                   self.slope)
 
 
 class RRDB(nn.Module):
     """Three DRBs with an outer skip scaled by 0.2."""
 
-    def __init__(self, filters: int):
+    def __init__(self, filters: int, growth: int | None = None, slope: float = GEN_SLOPE):
         super().__init__()
-        self.dense_blocks = nn.Sequential(*[DenseResidualBlock(filters) for _ in range(3)])
+        self.dense_blocks = nn.Sequential(*[DenseResidualBlock(filters, growth, slope)
+                                            for _ in range(3)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dense_blocks(x) * 0.2 + x
@@ -107,28 +127,46 @@ class RRDB(nn.Module):
 class Generator(nn.Module):
     """RRDB super-resolution generator. Input (N, in_channels, h, w), output
     (N, n_predictands, h * 2**num_upsample, w * 2**num_upsample) fp32,
-    computed in ``compute_dtype``."""
+    computed in ``compute_dtype``. ``growth`` and ``slope`` are the dense
+    blocks' (:class:`DenseResidualBlock`) and every LeakyReLU's."""
 
     def __init__(self, filters: int = 16, in_channels: int = 7,
                  n_predictands: int = 2, num_res_blocks: int = 16,
-                 num_upsample: int = 3, compute_dtype: torch.dtype = torch.float32):
+                 num_upsample: int = 3, compute_dtype: torch.dtype = torch.float32,
+                 growth: int | None = None, slope: float = GEN_SLOPE):
         super().__init__()
         self.compute_dtype = compute_dtype
         conv = functools.partial(conv3x3, compute_dtype=compute_dtype)
         self.conv1 = conv(in_channels, filters)
-        self.res_blocks = nn.Sequential(*[RRDB(filters) for _ in range(num_res_blocks)])
+        self.res_blocks = nn.Sequential(*[RRDB(filters, growth, slope)
+                                          for _ in range(num_res_blocks)])
         self.conv2 = conv(filters, filters)
         up = []
         for _ in range(num_upsample):
-            up += [conv(filters, 4 * filters), nn.LeakyReLU(GEN_SLOPE), nn.PixelShuffle(2)]
+            up += [conv(filters, 4 * filters), nn.LeakyReLU(slope), nn.PixelShuffle(2)]
         self.upsampling = nn.Sequential(*up)
-        self.conv3 = nn.Sequential(conv(filters, filters), nn.LeakyReLU(GEN_SLOPE),
+        self.conv3 = nn.Sequential(conv(filters, filters), nn.LeakyReLU(slope),
                                    conv(filters, n_predictands))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out1 = self.conv1(x.to(self.compute_dtype))
         out = out1 + self.conv2(self.res_blocks(out1))
         return self.conv3(self.upsampling(out)).float()
+
+
+class ESRGANGenerator(Generator):
+    """:class:`Generator` with ESRGAN's dense blocks: growth
+    :data:`ESRGAN_GROWTH`, LeakyReLU(:data:`ESRGAN_SLOPE`) throughout; the
+    same keys. fp32 only (module docstring)."""
+
+    def __init__(self, filters: int = 64, in_channels: int = 7,
+                 n_predictands: int = 2, num_res_blocks: int = 23,
+                 num_upsample: int = 3, compute_dtype: torch.dtype = torch.float32):
+        if compute_dtype != torch.float32:
+            raise ValueError(f"generator_arch 'esrgan' computes in float32 only, not "
+                             f"{compute_dtype}; bf16 compute runs generator_arch 'rrdb'")
+        super().__init__(filters, in_channels, n_predictands, num_res_blocks, num_upsample,
+                         compute_dtype, growth=ESRGAN_GROWTH, slope=ESRGAN_SLOPE)
 
 
 class PReLU(nn.Module):

@@ -152,6 +152,35 @@
 //    16x16 tile). Shared memory: florida (F = 16, 16x16) 94,688 B, 2 CTAs
 //    per SM; an interior band tile 134,368 B, 1 CTA per SM. At B = 150, 18
 //    SMs run two samples (0.0222 ms against 0.0160 at B = 132; PERF.md).
+//
+// The wide variant (drb_kernel_wide, entry drb_forward_f32_wide) computes
+// ESRGAN's dense block (Wang et al. 2018, RRDBNet_arch.py: nf = 64, gc = 32)
+// at 16x16 in fp32: stage s reads 64 + 32(s - 1) channels and writes 32
+// (stage 5: 192 -> 64), LeakyReLU(0.2), out = out_5 * 0.2 + x. It replaces no
+// TPU kernel: the JAX package has no such block. Same arithmetic as
+// drb_kernel (3xTF32 mma.sync.m16n8k8, the weights packed by the same
+// pack_drb_weights, read with ld.global.nc); another frame.
+//  * Bound: 122.7 MFLOP a sample, 15.70 GFLOP at B = 128: three TF32
+//    passes take 0.0952 ms at 495 TFLOP/s; x and out (16.8 MB) plus 1.9 MB
+//    of packed weights take 0.0056 ms at 3.35 TB/s.
+//  * Why drb_kernel's frame does not serve: it keeps a sample's whole
+//    concat with a zero ring in shared memory, 192 planes x 328 floats =
+//    251,904 B, over the 232,448 B a block may have. Here a plane holds only
+//    a zero row above and below the 16 image rows (pitch 16, 296 floats with
+//    the 8 mod 32 pad): 192 planes and a 32-float guard are 227,456 B, one
+//    CTA (one sample) per SM. The missing zero columns become two masks: a
+//    tap with dx = -1 at column 0 or dx = +1 at column 15 reads the
+//    neighbouring row's end, so those operands are zeroed in registers
+//    (lane gq = 0 of the left taps, gq = 7 of the right; the guard keeps the
+//    read of pixel (0, 0)'s top-left tap inside shared memory).
+//  * Units and warps: one CTA per sample, so B = 128 is one wave on 128 of
+//    132 SMs. 8 warps; warp w owns image rows 2w and 2w + 1 (two m-tiles)
+//    and the whole N of a stage (4 n-tiles, 8 at stage 5: 32 and 64 fp32
+//    accumulators a thread). A k-step of a warp reads 8 A values from
+//    shared memory and N/8 B float4s from L1 for 6 N/8 MMAs.
+//  * Growth 32 is four 8-channel chunks, so the concat's planes are one
+//    uniform array and a stage's K loop runs over 8 + 4(s - 1) chunks
+//    without regard to groups.
 
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
@@ -901,6 +930,195 @@ cudaError_t occupancy_bf16(int H, int W, int* smem_bytes, int* ctas_per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreadsBf16, smem);
 }
 
+// ---------------------------------------------------------------------------
+// fp32, wide: ESRGAN's block (nf = 64, gc = 32, LeakyReLU 0.2) at 16x16
+
+constexpr int kWideNF = 64;
+constexpr int kWideGC = 32;
+constexpr float kWideSlope = 0.2f;
+constexpr int kWideSide = 16;                     // H = W = 16: one tile, no halo
+constexpr int kWideCh = kWideNF + 4 * kWideGC;    // the concat held: 192 channels
+constexpr int kWidePlane = (kWideSide + 2) * kWideSide + 8;  // 296 floats, 8 mod 32
+constexpr int kWideGuard = 32;                    // floats before plane 0
+constexpr int kWideSmem = (kWideGuard + kWideCh * kWidePlane) * 4;  // 227,456 B
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// One stage of the wide block for a warp's two image rows (m-tiles): NT
+// n-tiles of 8 output channels, K = 9 taps x 8 * chunks concat channels from
+// plane 0 on. pix[mt][h] is the plane offset of the thread's pixel (row gq
+// or gq + 8 of m-tile mt). A tap that leaves the row on the left (dx = 0) or
+// on the right (dx = 2) reads the neighbouring row's last or first pixel:
+// keep_l / keep_r zero those operands (pixel x = 0 of h = 0 for lane gq = 0;
+// x = 15 of h = 1 for gq = 7).
+template <int NT>
+__device__ __forceinline__ void wide_stage(const float* sm, int chunks, const float4* wp,
+                                           const float* __restrict__ bias,
+                                           const int (&pix)[2][2], bool keep_l, bool keep_r,
+                                           int tq, float (&acc)[2][NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float b0 = __ldg(bias + nt * 8 + 2 * tq);
+    const float b1 = __ldg(bias + nt * 8 + 2 * tq + 1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      acc[mt][nt][0] = b0;
+      acc[mt][nt][1] = b1;
+      acc[mt][nt][2] = b0;
+      acc[mt][nt][3] = b1;
+    }
+  }
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    const float* ch0 = sm + (c * 8 + tq) * kWidePlane;  // channel tq of the chunk
+    const float* ch4 = ch0 + 4 * kWidePlane;            // channel tq + 4
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3 - 1) * kWideSide + (tap % 3 - 1);
+      float4 wv[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) wv[nt] = __ldg(wp + nt * 32);
+      wp += NT * 32;
+      float a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][0] = ch0[pix[mt][0] + toff];
+        a[mt][1] = ch0[pix[mt][1] + toff];
+        a[mt][2] = ch4[pix[mt][0] + toff];
+        a[mt][3] = ch4[pix[mt][1] + toff];
+        if (tap % 3 == 0 && !keep_l) a[mt][0] = a[mt][2] = 0.f;
+        if (tap % 3 == 2 && !keep_r) a[mt][1] = a[mt][3] = 0.f;
+      }
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(a[mt][i], ah[mt][i], al[mt][i]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t bh0 = __float_as_uint(wv[nt].x);
+        const uint32_t bh1 = __float_as_uint(wv[nt].y);
+        const uint32_t bl0 = __float_as_uint(wv[nt].z);
+        const uint32_t bl1 = __float_as_uint(wv[nt].w);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], al[mt], bh0, bh1);  // small terms first
+          mma_tf32(acc[mt][nt], ah[mt], bl0, bl1);
+          mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
+        }
+      }
+    }
+  }
+}
+
+// One CTA per sample. Shared memory: kWideGuard zeros, then the concat's 192
+// channel planes (x, out_1 .. out_4), each a zero row, 16 rows of 16 pixels,
+// a zero row and 8 pad floats. Warp w owns image rows 2w and 2w + 1.
+__global__ void __launch_bounds__(kThreads, 1)
+drb_kernel_wide(const float* __restrict__ x, const float4* __restrict__ wfrag,
+                const float* __restrict__ bias, float* __restrict__ out, int vec_in) {
+  constexpr int HW = kWideSide * kWideSide;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4) + kWideGuard;
+  const float* xb = x + static_cast<size_t>(blockIdx.x) * kWideNF * HW;
+  float* ob = out + static_cast<size_t>(blockIdx.x) * kWideNF * HW;
+
+  // x into planes 0..63 (rows 1..16) by cp.async; everything else zeroed.
+  if (vec_in) {
+    for (int i = threadIdx.x; i < kWideNF * HW / 4; i += kThreads) {
+      const int c = i / (HW / 4);
+      const int p = 4 * (i - c * (HW / 4));
+      cp_async16(sm + c * kWidePlane + kWideSide + p, xb + c * HW + p);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kWideNF * HW; i += kThreads) {
+      const int c = i / HW;
+      cp_async4(sm + c * kWidePlane + kWideSide + (i - c * HW), xb + i);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = threadIdx.x; i < kWideSmem / 16; i += kThreads) {
+    const int f = 4 * i - kWideGuard;  // float offset from plane 0
+    const int r = f - (f / kWidePlane) * kWidePlane;
+    if (f < 0 || f >= kWideNF * kWidePlane || r < kWideSide || r >= kWideSide + HW) {
+      smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  int pix[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pix[mt][h] = (2 * warp + mt + 1) * kWideSide + gq + 8 * h;
+  }
+  const bool keep_l = gq != 0;
+  const bool keep_r = gq != 7;
+
+  const float4* wp = wfrag + lane;
+#pragma unroll 1
+  for (int s = 1; s <= 4; ++s) {
+    const int chunks = (kWideNF + (s - 1) * kWideGC) / 8;
+    float acc[2][4][4];
+    wide_stage<4>(sm, chunks, wp, bias + (s - 1) * kWideGC, pix, keep_l, keep_r, tq, acc);
+    wp += chunks * 9 * 4 * 32;
+    float* dst = sm + (kWideNF + (s - 1) * kWideGC) * kWidePlane;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int co = nt * 8 + 2 * tq + (r & 1);
+          const float v = acc[mt][nt][r];
+          dst[co * kWidePlane + pix[mt][r >> 1]] = v >= 0.f ? v : kWideSlope * v;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  {
+    float acc[2][8][4];
+    wide_stage<8>(sm, kWideCh / 8, wp, bias + 4 * kWideGC, pix, keep_l, keep_r, tq, acc);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int co = nt * 8 + 2 * tq + (r & 1);
+          const int p = pix[mt][r >> 1];
+          ob[co * HW + p - kWideSide] = fmaf(acc[mt][nt][r], kResScale, sm[co * kWidePlane + p]);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_wide(const float* x, const float* wpack, float* out, int B,
+                        cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      drb_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+  if (e != cudaSuccess) return e;
+  int frag_floats = 0;
+  for (int s = 1; s <= 5; ++s) {
+    frag_floats += 2 * 9 * (kWideNF + (s - 1) * kWideGC) * (s < 5 ? kWideGC : kWideNF);
+  }
+  const int vec_in = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  drb_kernel_wide<<<static_cast<unsigned>(B), kThreads, kWideSmem, stream>>>(
+      x, reinterpret_cast<const float4*>(wpack), wpack + frag_floats, out, vec_in);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -941,6 +1159,18 @@ int drb_forward_bf16(const void* x, const void* wpack, void* out, int B, int F, 
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// out = DRB(x) for ESRGAN's block: x, out (B, 64, 16, 16) contiguous fp32;
+// wpack: drb.py::pack_drb_weights of its five convs (64+32(s-1) -> 32, and
+// 192 -> 64), 16-byte aligned. Takes (NF, GC, H, W) = (64, 32, 16, 16) only.
+int drb_forward_f32_wide(const void* x, const void* wpack, void* out, int B, int NF, int GC,
+                         int H, int W, void* stream) {
+  if (B < 1 || NF != kWideNF || GC != kWideGC || H != kWideSide || W != kWideSide) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_wide(static_cast<const float*>(x), static_cast<const float*>(wpack),
+                     static_cast<float*>(out), B, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 kernel's dynamic shared memory per CTA and its resident CTAs per

@@ -1,6 +1,6 @@
 """Fused DenseResidualBlock forward: the CUDA kernel's wrapper, its weight
 packing, its build on first use, and its plain PyTorch twin, in fp32 and
-in bf16.
+in bf16, and ESRGAN's wide block in fp32.
 
 Counterpart of ``downgan_tpu/ops/pallas/drb.py`` (the Pallas TPU kernel
 ``drb_forward``). The kernels themselves are ``drb.cu`` beside this file;
@@ -9,7 +9,15 @@ are laid out (tensor-core implicit GEMMs over (sample, 16x16 tile) units:
 3xTF32 ``mma.sync`` for fp32; for bf16, ``wgmma`` with fp32 accumulators on
 a channel-last shared-memory frame, its weights and input brought in by
 bulk copies). A block computes in its input's dtype; its parameters (fp32
-in the models) are rounded to that dtype. Here:
+in the models) are rounded to that dtype.
+
+A block is (filters, growth, slope): stage s reads filters + growth (s - 1)
+channels and writes growth (stage 5: filters), LeakyReLU of ``slope`` on
+stages 1-4. DoWnGAN's block has growth = filters and slope 0.01
+(:data:`SLOPE`), ESRGAN's growth 32 and slope 0.2. The growth is read off
+the weights' shapes; the slope is an argument. The kernels take DoWnGAN's
+block at filters 8 and 16 (fp32, bf16) and ESRGAN's at (64, 32) and 16x16
+(fp32, ``drb_kernel_wide``). Here:
 
 * :func:`pack_drb_weights` lays a block's five OIHW conv weights out once
   per weight set in the order the kernel reads them, followed by the
@@ -58,6 +66,9 @@ from downgan_tpu_torch.utils.profiling import annotate
 SLOPE = 0.01  # torch nn.LeakyReLU() default, as in the generator
 RES_SCALE = 0.2
 SUPPORTED_FILTERS = (8, 16)
+#: ESRGAN's block, the wide kernel's only one: (filters, growth, slope), fp32, 16x16.
+WIDE_BLOCK = (64, 32, 0.2)
+WIDE_SIDE = 16
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 SOURCE = Path(__file__).with_name("drb.cu")
@@ -114,6 +125,9 @@ def load_library() -> ctypes.CDLL:
         lib.drb_forward_f32.restype = ctypes.c_int
         lib.drb_forward_bf16.argtypes = lib.drb_forward_f32.argtypes
         lib.drb_forward_bf16.restype = ctypes.c_int
+        lib.drb_forward_f32_wide.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                                             + [ctypes.c_void_p])
+        lib.drb_forward_f32_wide.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
         lib.drb_bf16_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -155,13 +169,22 @@ def bf16_chunks(f: int, s: int) -> int:
     return -(-s * f // 16)
 
 
-def packed_size(f: int, dtype: torch.dtype = torch.float32) -> int:
-    """Elements of :func:`pack_drb_weights`'s output for ``f`` filters: fp32
-    values for fp32, 32-bit words (two bf16 weights, or one fp32 bias) for
-    bf16."""
+def stage_widths(f: int, growth: int | None = None) -> list[tuple[int, int]]:
+    """(inputs, outputs) of the five stages of a block of ``f`` filters
+    growing by ``growth`` (default ``f``) channels a stage."""
+    g = f if growth is None else growth
+    return [(f + g * (s - 1), g if s < 5 else f) for s in range(1, 6)]
+
+
+def packed_size(f: int, dtype: torch.dtype = torch.float32, growth: int | None = None) -> int:
+    """Elements of :func:`pack_drb_weights`'s output for ``f`` filters (and
+    ``growth``, default ``f``; fp32 only otherwise): fp32 values for fp32,
+    32-bit words (two bf16 weights, or one fp32 bias) for bf16."""
     if dtype == torch.bfloat16:
         return 9 * f * 8 * sum(bf16_chunks(f, s) for s in range(1, 6)) + 5 * f
-    return 2 * 9 * f * f * 15 + 5 * f
+    if growth is None or growth == f:
+        return 2 * 9 * f * f * 15 + 5 * f
+    return sum(2 * 9 * cin * cout + cout for cin, cout in stage_widths(f, growth))
 
 
 def pack_drb_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -169,12 +192,13 @@ def pack_drb_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Ten
     """Five stages' OIHW weights (F, s*F, 3, 3) and biases (F,) -> one flat
     tensor of :func:`packed_size` elements for the kernel of ``dtype``
     (bf16, or the fp32 kernel's layout for any other dtype). Call once per
-    weight set.
+    weight set. The fp32 layout takes any stage widths that are multiples
+    of 8 (ESRGAN's (64 + 32(s - 1), 32) and (192, 64) for the wide kernel).
 
     fp32 (a float32 tensor): stage s (in order) holds its m16n8k8 TF32 B
     fragments, hi and lo: with ci = 8*chunk + 4*half + tq, co = 8*nt + gq,
-    tap = 3*dy + dx and NT = F/8, ``w[co, ci, dy, dx]``'s part p (0 = hi,
-    1 = lo) lands at ``((((chunk*9 + tap)*NT + nt)*32 + 4*gq + tq)*4 + 2*p
+    tap = 3*dy + dx and NT = the stage's outputs / 8, ``w[co, ci, dy, dx]``'s
+    part p (0 = hi, 1 = lo) lands at ``((((chunk*9 + tap)*NT + nt)*32 + 4*gq + tq)*4 + 2*p
     + half`` within the stage: each lane reads one float4 (hi b0, hi b1, lo
     b0, lo b1) per k-step and n-tile. The five biases follow the stages.
 
@@ -219,11 +243,13 @@ def pack_drb_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Ten
 
 def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
                           biases: Sequence[torch.Tensor],
-                          sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          sum_dtype: torch.dtype = torch.float32,
+                          slope: float = SLOPE) -> torch.Tensor:
     """Plain PyTorch DRB forward on (B, F, H, W) in x's dtype: per stage,
-    nine shifted (F, s*F) x (s*F, pixels) products over the zero-padded
-    concat (summed in fp32 for bf16 x, in x's dtype otherwise) — the
-    kernel's function, not a call to a convolution library.
+    nine shifted (outputs, inputs) x (inputs, pixels) products over the
+    zero-padded concat (summed in fp32 for bf16 x, in x's dtype otherwise),
+    LeakyReLU of ``slope`` on stages 1-4 — the kernel's function, not a call
+    to a convolution library. The stage widths are the weights' (any growth).
 
     bf16: x and the parameters rounded to bf16 and upcast (exact), the same
     fp32 sums, and ``.to(torch.bfloat16)`` at the kernel's three rounding
@@ -237,25 +263,26 @@ def drb_forward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
     def rnd(t):
         return t.to(torch.bfloat16).to(sum_dtype) if bf16 else t
 
-    b, f, h, w = x.shape
+    b, _, h, w = x.shape
     xf = x.to(sum_dtype) if bf16 else x
     weights, biases = [rnd(t) for t in weights], [rnd(t) for t in biases]
     acts = xf
     for s in range(5):
         padded = F.pad(acts, (1, 1, 1, 1))
-        acc = biases[s].reshape(1, f, 1, 1).expand(b, f, h, w)
+        cout = weights[s].shape[0]
+        acc = biases[s].reshape(1, cout, 1, 1).expand(b, cout, h, w)
         for t in range(9):
             dy, dx = divmod(t, 3)
             window = padded[:, :, dy:dy + h, dx:dx + w]
             acc = acc + torch.einsum("oc,bchw->bohw", weights[s][:, :, dy, dx], window)
         if s < 4:
-            acts = torch.cat([acts, rnd(F.leaky_relu(rnd(acc), SLOPE))], dim=1)
+            acts = torch.cat([acts, rnd(F.leaky_relu(rnd(acc), slope))], dim=1)
         else:
             return (rnd(acc) * RES_SCALE + xf).to(x.dtype)
 
 
 def cudnn_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                biases: Sequence[torch.Tensor]) -> torch.Tensor:
+                biases: Sequence[torch.Tensor], slope: float = SLOPE) -> torch.Tensor:
     """The same DRB as five convolutions and concats in x's dtype
     (``F.conv2d`` with the parameters cast to it: cuDNN on the card; in
     bf16 the residual is taken in fp32 and rounded once, as the kernel's). :func:`drb_backward` differentiates
@@ -266,7 +293,7 @@ def cudnn_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     for s in range(5):
         y = F.conv2d(acts, weights[s].to(dt), biases[s].to(dt), padding=1)
         if s < 4:
-            acts = torch.cat([acts, F.leaky_relu(y, SLOPE)], 1)
+            acts = torch.cat([acts, F.leaky_relu(y, slope)], 1)
     if dt == torch.bfloat16:
         return (y.float() * RES_SCALE + x.float()).to(dt)
     return y * RES_SCALE + x
@@ -274,7 +301,7 @@ def cudnn_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                  biases: Sequence[torch.Tensor], grad_out: torch.Tensor,
-                 needs: Sequence[bool] | None = None) -> list:
+                 needs: Sequence[bool] | None = None, slope: float = SLOPE) -> list:
     """Gradients of a DRB's output, weighted by ``grad_out``, with respect
     to x, the five weights and the five biases (in that order; ``None``
     where ``needs`` says no): the block is recomputed from x with
@@ -283,7 +310,7 @@ def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     needs = [True] * len(inputs) if needs is None else list(needs)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-        out = cudnn_chain(leaves[0], leaves[1:6], leaves[6:])
+        out = cudnn_chain(leaves[0], leaves[1:6], leaves[6:], slope)
         wanted = [t for t in leaves if t.requires_grad]
         grads = iter(torch.autograd.grad(out, wanted, grad_out))
     return [next(grads) if n else None for n in needs]
@@ -295,19 +322,21 @@ def _needs_grad(x, weights, biases) -> bool:
 
 
 def drb(x: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-        packed: torch.Tensor) -> torch.Tensor:
+        packed: torch.Tensor, slope: float = SLOPE) -> torch.Tensor:
     """A DRB on (B, F, H, W) wherever it runs: :class:`DRBFunction` when
     autograd needs a gradient through a CUDA tensor, :func:`drb_forward`
     otherwise (the kernel, or the plain twin on a CPU tensor, where autograd
     differentiates the twin itself)."""
     if x.device.type == "cuda" and _needs_grad(x, weights, biases):
-        return DRBFunction.apply(x, packed, *weights, *biases)
-    return drb_forward(x, weights, biases, packed)
+        return DRBFunction.apply(x, packed, *weights, *biases, slope)
+    return drb_forward(x, weights, biases, packed, slope)
 
 
 class DRBFunction(torch.autograd.Function):
     """The DRB under autograd on the card: ``apply(x, packed, w1..w5,
-    b1..b5)``, in x's dtype (``packed`` for it). The forward launches the
+    b1..b5[, slope])``, in x's dtype (``packed`` for it). Ten parameters
+    or ten and the slope: without it the slope is :data:`SLOPE` (the
+    florida block), and any other count raises. The forward launches the
     kernel (counted in ``drb_forward.launches``) and saves only x and the
     ten parameters; the backward is :func:`drb_backward`, a cuDNN recompute
     in the same dtype, not a kernel: with bf16 x and fp32 parameters it
@@ -319,33 +348,60 @@ class DRBFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, packed, *params):
+        if len(params) not in (10, 11):
+            raise TypeError(f"DRBFunction takes w1..w5, b1..b5 and an optional slope after x "
+                            f"and packed: got {len(params)} arguments after them")
+        ctx.with_slope = len(params) == 11
+        ctx.slope = params[10] if ctx.with_slope else SLOPE
+        params = params[:10]
         ctx.save_for_backward(x, *params)
-        return drb_forward(x, params[:5], params[5:], packed)
+        return drb_forward(x, params[:5], params[5:], packed, ctx.slope)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         with annotate("drb.backward"):  # on autograd's device thread
             x, *params = ctx.saved_tensors
-            needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:]]
-            grads = drb_backward(x, params[:5], params[5:], grad_out, needs)
-        return grads[0], None, *grads[1:]
+            needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:12]]
+            grads = drb_backward(x, params[:5], params[5:], grad_out, needs, ctx.slope)
+        return (grads[0], None, *grads[1:], *([None] if ctx.with_slope else []))
+
+
+def _wide_block(x: torch.Tensor, weights: Sequence[torch.Tensor], slope: float) -> bool:
+    """Whether ``drb_kernel_wide`` (True) or ``drb_kernel``/``drb_kernel_bf16``
+    (False) computes this block; raises for a block no kernel takes."""
+    b, f, h, w = x.shape
+    growth = weights[0].shape[0]
+    if growth == f and slope == SLOPE and f in SUPPORTED_FILTERS:
+        return False
+    if (f, growth, slope) == WIDE_BLOCK:
+        if x.dtype != torch.float32 or (h, w) != (WIDE_SIDE, WIDE_SIDE):
+            raise ValueError(
+                f"the wide DRB kernel takes float32 (B, {f}, {WIDE_SIDE}, {WIDE_SIDE}), got "
+                f"{tuple(x.shape)} {x.dtype}")
+        return True
+    raise ValueError(
+        f"the DRB kernel takes F in {SUPPORTED_FILTERS} with growth F and slope {SLOPE}, "
+        f"or (F, growth, slope) = {WIDE_BLOCK} in float32 at {WIDE_SIDE}x{WIDE_SIDE}; "
+        f"got F={f}, growth {growth}, slope {slope}")
 
 
 def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 biases: Sequence[torch.Tensor],
-                packed: torch.Tensor | None = None) -> torch.Tensor:
+                packed: torch.Tensor | None = None, slope: float = SLOPE) -> torch.Tensor:
     """DRB forward on (B, F, H, W) fp32 or bf16, computed in x's dtype.
 
     CPU tensor: the plain twin. CUDA tensor: the ``drb.cu`` kernel of x's
-    dtype, with ``packed`` from :func:`pack_drb_weights` for that dtype
-    (packed here when omitted); ``drb_forward.launches`` counts its
-    launches of either kernel and ``drb_forward.launches_bf16`` those of
-    the bf16 one. A call that autograd would have to differentiate raises:
-    the route to a gradient on the card is :class:`DRBFunction`.
+    dtype and block (:func:`_wide_block`), with ``packed`` from
+    :func:`pack_drb_weights` for that dtype (packed here when omitted);
+    ``drb_forward.launches`` counts its launches of any kernel,
+    ``drb_forward.launches_bf16`` those of the bf16 one and
+    ``drb_forward.launches_wide`` those of the wide one. A call that
+    autograd would have to differentiate raises: the route to a gradient
+    on the card is :class:`DRBFunction`.
     """
     if x.device.type == "cpu":
-        return drb_forward_reference(x, weights, biases)
+        return drb_forward_reference(x, weights, biases, slope=slope)
     if x.device.type != "cuda":
         raise ValueError(f"drb_forward runs on cpu or cuda tensors, not {x.device}")
     if _needs_grad(x, weights, biases):
@@ -357,24 +413,28 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
             f"drb_forward takes contiguous (B, F, H, W) float32 or bfloat16, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
     b, f, h, w = x.shape
-    if f not in SUPPORTED_FILTERS:
-        raise ValueError(f"the DRB kernel takes F in {SUPPORTED_FILTERS}, got F={f}")
+    wide = _wide_block(x, weights, slope)
     if b < 1 or h < 1 or w < 1:
         raise ValueError(f"empty input {tuple(x.shape)}")
     bf16 = x.dtype == torch.bfloat16
     if packed is None:
         packed = pack_drb_weights(weights, biases, x.dtype)
+    growth = weights[0].shape[0]
     if (packed.device != x.device or packed.dtype != (torch.int32 if bf16 else torch.float32)
-            or packed.numel() != packed_size(f, x.dtype)
+            or packed.numel() != packed_size(f, x.dtype, growth)
             or not packed.is_contiguous() or packed.data_ptr() % 16):
         raise ValueError("packed weights do not match this input; "
                          "repack with pack_drb_weights for its dtype")
     lib = load_library()
-    kernel = lib.drb_forward_bf16 if bf16 else lib.drb_forward_f32
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = kernel(x.data_ptr(), packed.data_ptr(), out.data_ptr(), b, f, h, w, stream)
+        if wide:
+            err = lib.drb_forward_f32_wide(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                                           b, f, growth, h, w, stream)
+        else:
+            kernel = lib.drb_forward_bf16 if bf16 else lib.drb_forward_f32
+            err = kernel(x.data_ptr(), packed.data_ptr(), out.data_ptr(), b, f, h, w, stream)
     if err:
         raise RuntimeError(
             f"DRB kernel launch failed: {lib.drb_error_string(err).decode()} "
@@ -382,8 +442,10 @@ def drb_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     with _count_lock:
         drb_forward.launches += 1
         drb_forward.launches_bf16 += bf16
+        drb_forward.launches_wide += wide
     return out
 
 
 drb_forward.launches = 0
 drb_forward.launches_bf16 = 0
+drb_forward.launches_wide = 0

@@ -460,7 +460,7 @@ class ShardedGenerator(nn.Module):
 
     def __init__(self, generator: nn.Module, group=None):
         super().__init__()
-        if not isinstance(generator, Generator):
+        if type(generator) is not Generator:
             raise ValueError(f"spatial sharding runs the RRDB generator only, not "
                              f"{type(generator).__name__} (generator_arch='rrdb')")
         self.module = generator

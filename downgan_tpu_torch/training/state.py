@@ -17,7 +17,7 @@ from torch import nn
 
 from downgan_tpu_torch.config.config import Config
 from downgan_tpu_torch.models.critic import Critic
-from downgan_tpu_torch.models.generator import Generator, SRResNetGenerator
+from downgan_tpu_torch.models.generator import ESRGANGenerator, Generator, SRResNetGenerator
 from downgan_tpu_torch.models.layers import init_torch_default_, torch_dtype
 
 # The critic draws from its own stream, so the generator's weights are the
@@ -38,7 +38,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 def make_generator(config: Config, device: str | torch.device = "cuda",
                    rng: Optional[torch.Generator] = None) -> nn.Module:
     """The generator of ``config.generator_arch`` (the RRDB
-    :class:`Generator` or the :class:`SRResNetGenerator`) for ``config``,
+    :class:`Generator`, the :class:`ESRGANGenerator`, fp32 only, or the
+    :class:`SRResNetGenerator`) for ``config``,
     in eval mode on ``device``, computing in ``config.hp.compute_dtype``
     (fp32 parameters, as the JAX package's ``make_models``), taking
     ``config.generator_in_channels`` inputs (the covariates, then
@@ -47,7 +48,7 @@ def make_generator(config: Config, device: str | torch.device = "cuda",
     default-init distribution."""
     if config.noise_channels < 0:
         raise ValueError(f"noise_channels must be >= 0, got {config.noise_channels}")
-    archs = {"rrdb": Generator, "srresnet": SRResNetGenerator}
+    archs = {"rrdb": Generator, "esrgan": ESRGANGenerator, "srresnet": SRResNetGenerator}
     if config.generator_arch not in archs:
         raise ValueError(f"unknown generator_arch {config.generator_arch!r}")
     dev = resolve_device(device)

@@ -84,7 +84,8 @@ def _drbs_on_twin(module: torch.nn.Module) -> torch.nn.Module:
 
     for block in module.modules():
         if isinstance(block, DenseResidualBlock):
-            block.forward = lambda x, block=block: drb_forward_reference(x, *block.stage_params())
+            block.forward = lambda x, block=block: drb_forward_reference(
+                x, *block.stage_params(), slope=block.slope)
     return module
 
 

@@ -156,6 +156,25 @@ def infer_generator_arch(sd: Mapping[str, Any]) -> Dict[str, int]:
             "num_upsample": len(ups)}
 
 
+def check_reference_layout(command: str, generator_arch: str = "rrdb",
+                           sd: Mapping[str, Any] | None = None) -> None:
+    """``export-torch`` and ``import-torch`` map the reference RRDB layout
+    only: DoWnGAN's dense blocks, which grow by ``filters`` channels a
+    stage. Raises a ``ValueError`` that names it for another
+    ``generator_arch``, or for a state dict ``sd`` whose first dense block
+    grows by another width (ESRGAN's 32)."""
+    first = "res_blocks.0.dense_blocks.0.b1.0.weight"
+    if generator_arch == "rrdb" and sd is not None and first in sd and "conv1.weight" in sd:
+        growth, filters = _shape(sd[first])[0], _shape(sd["conv1.weight"])[0]
+        if growth != filters:
+            raise ValueError(f"{command} maps the reference RRDB layout only (dense blocks "
+                             f"growing by filters); this state dict's grow by {growth} "
+                             f"channels at filters={filters} (generator_arch 'esrgan')")
+    if generator_arch != "rrdb":
+        raise ValueError(f"{command} maps the reference RRDB layout only (generator_arch "
+                         f"'rrdb'); this model is generator_arch={generator_arch!r}")
+
+
 def infer_critic_arch(sd: Mapping[str, Any]) -> Dict[str, int]:
     """The Critic's architecture read off a reference state dict
     (``networks/critic.py:9-40``): the base filter count and the predictand
