@@ -40,11 +40,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                against direct calls, /metrics against the traffic, and the
                DRB kernel's launch count (reset just before) against 48 per
                dispatch;
-8. drb_grad -- ``DRBFunction`` (the kernel's forward, a cuDNN recompute as
-               its backward) against autograd through the plain twin at the
-               training batch, B=128, and the backward's time beside the
-               kernel's and the cuDNN chain's; drb_grad_bf16 in bf16 against
-               the float64 gradient;
+8. drb_grad -- ``DRBFunction`` (the kernel's forward, the backward kernel
+               ``drb_backward_kernel`` and its reduction as its backward)
+               at the training batch, B=128: against the float64 twin of the
+               backward on the kernel's LeakyReLU sides, against autograd
+               through the plain twin, bit for bit across two calls, one
+               backward launch and no recompute; the backward kernel's time
+               (CUDA events, kernel and reduction) beside its bound, the
+               cuDNN recompute (``drb_backward``, the library yardstick,
+               which the port still runs for bf16, wide and banded blocks)
+               and the forward kernel's and cuDNN chain's times;
+               drb_grad_bf16 in bf16 against the float64 gradient;
    esrgan -- ESRGAN at its published widths (``generator_arch: "esrgan"``):
                the wide DRB kernel (nf 64, gc 32, slope 0.2) against its twin
                at B=1, 3, 128 and from an input 4 bytes off a 16-byte
@@ -390,9 +396,10 @@ def bf16_ulp(magnitude: float) -> float:
 
 
 def reset_launch_counts() -> None:
-    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
 
     drb_forward.launches = drb_forward.launches_bf16 = drb_forward.launches_wide = 0
+    drb_backward.launches = drb_backward.recomputes = 0
 
 
 def drb_params(f: int, rng: torch.Generator, device):
@@ -435,6 +442,24 @@ def block_on_sides(x, ws, bs, slope, sides):
         if s < 4:
             acts = torch.cat([acts, torch.where(sides[s], y, slope * y)], 1)
     return y * 0.2 + x
+
+
+@contextlib.contextmanager
+def drb_backward_on_recompute():
+    """Every ``DRBFunction`` backward on the cuDNN recompute while the block
+    runs: the route the spatial path's DRB bands take (they are not
+    16x16). A one-process yardstick of the sharded path then differentiates
+    each block on the same LeakyReLU sides as the bands do; the backward
+    kernel takes the forward kernel's sides, which differ from cuDNN's
+    fp32 recompute where a pre-activation lies within rounding of zero."""
+    from downgan_tpu_torch.ops.cuda import drb
+
+    real = drb.backward_on_kernel
+    drb.backward_on_kernel = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        drb.backward_on_kernel = real
 
 
 @contextlib.contextmanager
@@ -497,6 +522,11 @@ def phase_build():
             instance = "{} F={} pitch={}".format("bf16" if bf16 else "fp32", f, pitch)
         elif "15drb_kernel_wide" in ln and "Compiling" in ln:
             instance = "fp32 wide nf=64 gc=32"
+        elif "19drb_backward_kernelILi" in ln and "Compiling" in ln:
+            instance = "fp32 backward F={}".format(
+                re.search(r"19drb_backward_kernelILi(\d+)E", ln).group(1))
+        elif "15drb_grad_reduce" in ln and "Compiling" in ln:
+            instance = "fp32 backward reduction"
         elif "Used" in ln:
             usage[instance] = ln.split(":", 1)[1].strip()
     spills = [ln.strip() for ln in lines
@@ -506,8 +536,9 @@ def phase_build():
     emit("build", seconds=seconds, library=str(drb.library_path().relative_to(ROOT)),
          ptxas=usage, spills=spills, wgmma_notes=wgmma_notes)
     check(not spills, f"the DRB kernel spills registers: {spills}")
-    check(len(usage) == 9, f"expected 9 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
-          f"2 pitches, and the wide fp32 one), the compiler reports {sorted(usage)}")
+    check(len(usage) == 12, f"expected 12 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
+          f"2 pitches, the wide fp32 one, the fp32 backward at F in {{8, 16}} and its "
+          f"reduction), the compiler reports {sorted(usage)}")
 
 
 def time_drb(x, ws, bs, want, peaks):
@@ -783,36 +814,89 @@ def phase_serving(config, gen, rng):
     return launches
 
 
+def drb_backward_flops(b: int, f: int, h: int, w: int) -> int:
+    """The backward kernel's work: the recompute of stages 1-4, then each
+    stage's input gradient and weight gradient (each a forward's FLOPs)."""
+    recompute = sum(2 * 9 * (s * f) * f * h * w for s in range(1, 5)) * b
+    return recompute + 2 * drb_flops(b, f, h, w)
+
+
 def phase_drb_grad(rng, peaks, timing_b128):
-    """DRBFunction at the training batch against autograd through the twin,
-    and the time of its backward (a cuDNN recompute, not a kernel)."""
-    from downgan_tpu_torch.ops.cuda.drb import (DRBFunction, cudnn_chain, drb_backward,
+    """DRBFunction at the training batch: its backward kernel against the
+    float64 twin of the backward on the kernel's own LeakyReLU sides and
+    against autograd through the fp32 twin, bit for bit across two calls;
+    then the backward kernel's time beside its bound and the cuDNN
+    recompute's."""
+    import torch.nn.functional as F
+
+    from downgan_tpu_torch.ops.cuda.drb import (SLOPE, DRBFunction, cudnn_chain, drb_backward,
+                                                drb_backward_kernel, drb_backward_reference,
                                                 drb_forward_reference, pack_drb_weights)
 
-    ws, bs = drb_params(16, rng, "cuda")
-    x = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda()
-    weight = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda()  # a random-weighted sum
+    f = 16
+    ws, bs = drb_params(f, rng, "cuda")
+    x = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()
+    weight = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()  # a random-weighted sum
 
     def grads(fn):
         leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
         return torch.autograd.grad((fn(leaves) * weight).sum(), leaves)
 
+    reset_launch_counts()
     got = grads(lambda v: DRBFunction.apply(v[0], pack_drb_weights(ws, bs), *v[1:]))
-    want = grads(lambda v: drb_forward_reference(v[0], v[1:6], v[6:]))
     torch.cuda.synchronize()
+    routed = (drb_backward.launches, drb_backward.recomputes)
+    check(routed == (1, 0), f"DRBFunction's backward: {routed} (kernel, recompute) calls, not (1, 0)")
+    acts = torch.empty(B_TRAIN, 4 * f, 16, 16, device="cuda")
+    direct = drb_backward_kernel(x, ws, bs, weight, acts=acts)
+    again = drb_backward_kernel(x, ws, bs, weight)
+    twin = grads(lambda v: drb_forward_reference(v[0], v[1:6], v[6:]))
+    torch.cuda.synchronize()
+    bit_for_bit = all(torch.equal(p, q) for p, q in zip(got, direct)) and all(
+        torch.equal(p, q) for p, q in zip(direct, again))
+    x64, ws64, bs64 = x.double(), [t.double() for t in ws], [t.double() for t in bs]
+    sides, flips, a64 = [], 0, x64
+    for s in range(4):
+        y = F.conv2d(a64, ws64[s], bs64[s], padding=1)
+        side = acts[:, s * f:(s + 1) * f] > 0
+        flips += int((side != (y > 0)).sum())
+        sides.append(side)
+        a64 = torch.cat([a64, F.leaky_relu(y, SLOPE)], 1)
+    recompute_err = (acts.double() - a64[:, f:]).abs().max().item()
+    recompute_ok = torch.allclose(acts.double(), a64[:, f:], atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    want = drb_backward_reference(x64, ws64, bs64, weight.double(), sides=sides)
     names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
-    errors = {n: ((g - w).abs().max() / w.abs().max()).item() for n, g, w in zip(names, got, want)}
+    errors = {n: ((g.double() - w).abs().max() / w.abs().max()).item()
+              for n, g, w in zip(names, got, want)}
+    vs_twin = {n: ((g - w).abs().max() / w.abs().max()).item() for n, g, w in zip(names, got, twin)}
     worst = max(errors.values())
-    emit("drb_grad", shape=[B_TRAIN, 16, 16, 16], max_err_relative_to_largest=errors,
-         tolerance=DRB_GRAD_TOL, ok=worst <= DRB_GRAD_TOL)
-    check(worst <= DRB_GRAD_TOL, f"DRBFunction gradients disagree with the twin's: {errors}")
-    backward_ms = cuda_ms(lambda: drb_backward(x, ws, bs, weight), iters=20)
+    ok = worst <= DRB_GRAD_TOL and bit_for_bit and recompute_ok
+    emit("drb_grad", shape=[B_TRAIN, f, 16, 16], max_err_relative_to_largest_vs_fp64=errors,
+         max_err_relative_to_largest_vs_fp32_twin_autograd=vs_twin,
+         sides_unlike_float64=flips, recompute_max_abs_err_vs_fp64=recompute_err,
+         bit_for_bit_over_calls=bit_for_bit, tolerance=DRB_GRAD_TOL, ok=ok)
+    check(ok, f"the DRB backward kernel: {errors} vs float64, bit for bit {bit_for_bit}, "
+          f"recompute {recompute_err}")
+
+    backward_ms = cuda_ms(lambda: drb_backward_kernel(x, ws, bs, weight), iters=50)
+    recompute_ms = cuda_ms(lambda: drb_backward(x, ws, bs, weight), iters=20)
     leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
     chain_ms = cuda_ms(lambda: torch.autograd.grad(
         cudnn_chain(leaves[0], leaves[1:6], leaves[6:]), leaves, weight), iters=20)
-    emit("drb_grad_timing", shape=[B_TRAIN, 16, 16, 16], kernel_forward_ms=timing_b128["ms"],
-         backward_ms_cudnn_recompute=backward_ms, cudnn_chain_forward_ms=timing_b128["library_ms"],
+    flops = drb_backward_flops(B_TRAIN, f, 16, 16)
+    partial_bytes = B_TRAIN * (135 * f * f + 5 * f) * 4
+    nbytes = 3 * x.numel() * 4 + 2 * partial_bytes  # x, grad_out, dx; the partials out and in
+    floor_ms = 3 * flops / (peaks["tf32"] * 1e12) * 1e3
+    bytes_ms = nbytes / (peaks["hbm"] * 1e12) * 1e3
+    bound_ms = max(floor_ms, bytes_ms)
+    emit("drb_grad_timing", shape=[B_TRAIN, f, 16, 16], backward_kernel_ms=backward_ms,
+         backward_bound_ms=bound_ms, backward_share_of_bound=bound_ms / backward_ms,
+         backward_bound_by="operations" if floor_ms >= bytes_ms else "bytes",
+         backward_flops=flops, backward_bytes=nbytes, backward_target_ms=0.25,
+         backward_ms_cudnn_recompute=recompute_ms, vs_recompute=recompute_ms / backward_ms,
+         kernel_forward_ms=timing_b128["ms"], cudnn_chain_forward_ms=timing_b128["library_ms"],
          cudnn_chain_forward_plus_backward_ms=chain_ms, kernel_bound_ms=timing_b128["bound_ms"])
+    check(backward_ms <= 0.25, f"the DRB backward kernel takes {backward_ms} ms a block at B=128")
     return backward_ms
 
 
@@ -842,8 +926,8 @@ def phase_esrgan(rng, peaks):
     from downgan_tpu_torch.config.config import Config
     from downgan_tpu_torch.data.dataset import DeviceDataset
     from downgan_tpu_torch.ops.cuda.drb import (WIDE_BLOCK, DRBFunction, cudnn_chain,
-                                                drb_forward, drb_forward_reference,
-                                                pack_drb_weights)
+                                                drb_backward, drb_forward,
+                                                drb_forward_reference, pack_drb_weights)
     from downgan_tpu_torch.training.state import make_generator
     from downgan_tpu_torch.training.trainer import Trainer
 
@@ -961,10 +1045,13 @@ def phase_esrgan(rng, peaks):
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
     launched = (drb_forward.launches, drb_forward.launches_wide)
+    backward_routes = (drb_backward.launches, drb_backward.recomputes)
     finite = all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
     # a round: 5 critic fakes, 1 generator update, 5 metric-pass fakes
     check(finite and launched == (69 * 11, 69 * 11), f"ESRGAN round: finite={finite}, "
           f"{launched} (all, wide) launches (69 x 11 wide forwards expected)")
+    check(backward_routes == (0, 69), f"ESRGAN round: {backward_routes} (kernel, recompute) "
+          f"DRB backwards; the wide block keeps the recompute")
     emit("esrgan_training", batch=32, steps=5, launches=launched[0], wide_launches=launched[1],
          round_s=round_s, critic_loss=[float(m["critic_loss"]) for m in metrics],
          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -1383,14 +1470,14 @@ def phase_training(tracking_root: Path):
     from torch.profiler import ProfilerActivity, profile
 
     from downgan_tpu_torch.cli.__main__ import main as cli_main
-    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
 
     step_metrics = []  # every step's metrics
     torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold
     with launches_per_generator_forward() as per_forward, \
             after_each_train_step(lambda state, metrics: step_metrics.append(metrics)):
-        drb_forward.launches = 0  # the training path's run starts here
+        reset_launch_counts()  # the training path's run starts here
         t0 = time.perf_counter()
         trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
                             "--synthetic", "--samples", "1440", "--epochs", "2",
@@ -1398,6 +1485,7 @@ def phase_training(tracking_root: Path):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = drb_forward.launches  # the training path's run ends here
+        backward_routes = (drb_backward.launches, drb_backward.recomputes)
     peak_bytes = torch.cuda.max_memory_allocated()
 
     history, forwards = trainer.history, dict(trainer.forwards)
@@ -1416,6 +1504,10 @@ def phase_training(tracking_root: Path):
           f"DRB launches per generator forward {sorted(set(per_forward))} over "
           f"{len(per_forward)} forwards")
     check(launches == 48 * sum(forwards.values()), f"{launches} DRB launches")
+    # each generator update's backward: 48 backward kernels, no cuDNN recompute
+    check(backward_routes == (48 * forwards["update"], 0),
+          f"{backward_routes} (kernel, recompute) DRB backwards over {forwards['update']} "
+          f"generator updates, not 48 kernels and 0 recomputes each")
     gen_losses = [float(m["gen_loss"]) for m in step_metrics]
     for e, r in enumerate(history):
         window = gen_losses[r["steps"] * e:r["steps"] * (e + 1)]
@@ -1494,7 +1586,8 @@ def phase_training(tracking_root: Path):
     emit("training", command="cli train --config examples/florida.json --synthetic --samples 1440 "
          "--epochs 2", batch=B_TRAIN, epochs=history, wall_s_including_data=wall_s,
          step0_critic_loss=c0, generator_forwards=forwards, drb_launches=launches,
-         drb_launches_per_forward=48, peak_memory_bytes=peak_bytes,
+         drb_launches_per_forward=48, drb_backward_launches=backward_routes[0],
+         drb_backward_recomputes=backward_routes[1], peak_memory_bytes=peak_bytes,
          peak_memory_above_start_bytes=peak_bytes - start_bytes,
          ms_per_update_step=float(np.mean(update_ms)), ms_per_critic_only_step=float(np.mean(critic_ms)),
          update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
@@ -1637,7 +1730,7 @@ def phase_training_tuned(tracking_root: Path):
     the reused fake) at batch 128, then timed and profiled rounds and the
     round's parts of the same trainer."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
-    from downgan_tpu_torch.ops.cuda.drb import drb_forward
+    from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
     from downgan_tpu_torch.ops.msssim import msssim_metric
     from downgan_tpu_torch.training.wgan import critic_loss, generator_loss
 
@@ -1653,6 +1746,7 @@ def phase_training_tuned(tracking_root: Path):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
+        backward_routes = (drb_backward.launches, drb_backward.recomputes)
     peak_bytes = torch.cuda.max_memory_allocated()
     # What the run ended with, for serving_bf16 (the timed rounds below move it on).
     trained = {k: v.detach().cpu().clone() for k, v in trainer.state.generator.state_dict().items()}
@@ -1677,6 +1771,8 @@ def phase_training_tuned(tracking_root: Path):
           f"DRB launches per generator forward {sorted(set(per_forward))} over "
           f"{len(per_forward)} forwards")
     check(launches == (1344, 1344), f"{launches} (all, bf16) DRB launches, not 1,344 bf16")
+    check(backward_routes == (0, 48 * forwards["update"]),
+          f"{backward_routes} (kernel, recompute) bf16 DRB backwards: bf16 keeps the recompute")
     gen_losses = [float(m["gen_loss"]) for m in round_metrics]
     for e, r in enumerate(history):  # the rounds' own gen_loss, not rescaled
         check(abs(r["train"]["gen_loss"] - sum(gen_losses[2 * e:2 * e + 2]) / 2)
@@ -3319,7 +3415,9 @@ def spatial_rank(rank: int, world: int, store: str, workdir: str) -> None:
                 ("dp", lambda st: build_train_step(config, st.generator, st.critic,
                                                    sync=GroupSync(data_group)))):
             leg_state = spatial_state(config)
-            out[name] = spatial_steps(build(leg_state), leg_state, *rows)
+            # DP's rows are whole 16x16 samples: the bands' backward route for it too
+            with drb_backward_on_recompute() if name == "dp" else contextlib.nullcontext():
+                out[name] = spatial_steps(build(leg_state), leg_state, *rows)
             del leg_state
         torch.cuda.synchronize()
         out["launches"] = drb_forward.launches  # ... and ends here
@@ -3451,11 +3549,17 @@ def phase_spatial(smi: str) -> int:
 
     # (b) the generator's parameter gradients, the critic and the GP over 2 shards
     coarse, cotangent = (t.cuda() for t in spatial_generator_inputs(config))
-    gen_grads = generator_gradients(lambda gen, x: gen(x), state.generator, coarse, cotangent)
-    gen_grad_gaps = []
+    with drb_backward_on_recompute():  # the bands' backward route
+        gen_grads = generator_gradients(lambda gen, x: gen(x), state.generator, coarse, cotangent)
+    # For information: against the backward kernel's gradients (the forward's
+    # sides), the few pre-activations within rounding of zero on the other
+    # side move a DRB weight's gradient by a share of itself.
+    kernel_route = generator_gradients(lambda gen, x: gen(x), state.generator, coarse, cotangent)
+    gen_grad_gaps, kernel_route_gaps = [], []
     for r, run in enumerate(ranks):
         worst = gradient_gaps(run["generator_grads"], gen_grads)
         gen_grad_gaps.append(max(worst.values()))
+        kernel_route_gaps.append(max(gradient_gaps(run["generator_grads"], kernel_route).values()))
         check(gen_grad_gaps[-1] <= SP_GRAD_REL,
               f"spatial leg b: rank {r} generator parameter gradients {worst}")
     real, fake, alpha = (t.cuda() for t in spatial_critic_inputs(config))
@@ -3480,7 +3584,8 @@ def phase_spatial(smi: str) -> int:
               f"spatial leg b: rank {r} GP parameter gradients {worst}")
     emit("spatial", leg="b_gradients_critic_gp", card=smi, batch=SP_B_STEP, shards=2,
          generator_param_grad_rel_diff_by_rank=gen_grad_gaps,
-         generator_param_grad_tolerance_rel=SP_GRAD_REL, score_max_abs_diff_by_rank=score_gaps, score_tolerance={"atol": 3e-4, "rtol": 1e-4},
+         generator_param_grad_tolerance_rel=SP_GRAD_REL,
+         generator_param_grad_rel_diff_by_rank_vs_backward_kernel_information=kernel_route_gaps, score_max_abs_diff_by_rank=score_gaps, score_tolerance={"atol": 3e-4, "rtol": 1e-4},
          gp=gp, gp_rel_diff_by_rank=gp_gaps, gp_tolerance_rel=1e-3,
          gp_param_grad_rel_diff_by_rank=grad_gaps, gp_param_grad_tolerance_rel=SP_GRAD_REL)
     del state
@@ -3489,8 +3594,9 @@ def phase_spatial(smi: str) -> int:
     n_critic = config.hp.critic_iterations
     coarse, fine = spatial_inputs(config, 21, SP_STEPS, SP_B_STEP)
     one_state = spatial_state(config)
-    one = spatial_steps(build_train_step(config, one_state.generator, one_state.critic),
-                        one_state, coarse, fine)
+    with drb_backward_on_recompute():  # the bands' backward route
+        one = spatial_steps(build_train_step(config, one_state.generator, one_state.critic),
+                            one_state, coarse, fine)
     del one_state
     r0, r1 = ranks[0]["step"], ranks[1]["step"]
     unequal = sorted(k for k in r0["weights"] if not torch.equal(r0["weights"][k], r1["weights"][k]))
@@ -4229,7 +4335,9 @@ def main() -> int:
           "the tooling paths launched no DRB kernel")
     common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
               "replaces": "downgan_tpu/ops/pallas/drb.py:120",
-              "backward": "cuDNN recompute (ops/cuda/drb.py::drb_backward), not a kernel",
+              "backward": "fp32 16x16: drb.cu::drb_backward_kernel and drb_grad_reduce; "
+                          "bf16, wide and banded blocks: the cuDNN recompute "
+                          "(ops/cuda/drb.py::drb_backward)",
               "card": smi}
     print(json.dumps({"kernels": [{
         "name": "drb_forward", "dtype": "float32", **common,

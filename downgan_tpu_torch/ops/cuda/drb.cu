@@ -1,5 +1,7 @@
 // Fused DenseResidualBlock (DRB) forward for Hopper (sm_90a): fp32 in and out
-// (drb_kernel, below) and bf16 in and out (drb_kernel_bf16, further down).
+// (drb_kernel, below) and bf16 in and out (drb_kernel_bf16, further down);
+// ESRGAN's wide block in fp32 (drb_kernel_wide); and the fp32 block's
+// backward at 16x16 (drb_backward_kernel and drb_grad_reduce, at the end).
 //
 // Replaces the Pallas TPU kernel downgan_tpu/ops/pallas/drb.py::drb_forward
 // (lines 104-128, pallas_call at :120). One DRB is five 3x3 SAME convs over
@@ -1119,6 +1121,520 @@ cudaError_t launch_wide(const float* x, const float* wpack, float* out, int B,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 backward: drb_backward_kernel, then drb_grad_reduce
+//
+// The gradients of DoWnGAN's block (F in {8, 16}, growth F, LeakyReLU 0.01)
+// at 16x16 in fp32: dx and the five weight and bias gradients of
+// sum(grad_out * DRB(x)), in one kernel a block and a fixed-order reduction.
+// It replaces no TPU kernel: the JAX package differentiates its DRB with XLA
+// convolutions. drb.py::drb_backward_reference is its plain twin.
+//
+// What it computes. The block's stage outputs y_s (s = 1..5) over the concat
+// a_s = (x, c_1 .. c_{s-1}), c_s = LeakyReLU(y_s), out = 0.2 y_5 + x. Walking
+// back from dy_5 = 0.2 g (g = grad_out):
+//   wgrad  dW_s[co, ci, tap] = sum over samples and pixels p of
+//          dy_s[co, p] a_s[ci, p + tap];  db_s[co] = sum of dy_s[co, p];
+//   dgrad  da_s[ci, q] = sum over co, tap of W_s[co, ci, tap] dy_s[co, q - tap],
+//          added to the concat's gradient dc (channels 0 .. sF - 1);
+//   mask   dy_s = dc[c_s] where c_s > 0, else 0.01 dc[c_s] (the slope is
+//          positive, so the stored activation's sign is the pre-activation's);
+//   dx = g + dc[x].
+//
+// What bounds it. A sample at F = 16 is the recompute of stages 1-4
+// (11.80 MFLOP; stage 5's output is not needed), the dgrad (17.69) and the
+// wgrad (17.69): 47.19 MFLOP, 6.04 GFLOP at B = 128, as three TF32 products
+// 0.0366 ms at 495 TFLOP/s. The bytes: x, g and dx (6.3 MB) and the weight
+// partials written and read once (2 x 17.7 MB), 0.0125 ms at 3.35 TB/s. The
+// cuDNN recompute it replaces took 0.86-5.12 ms a block and ~40 launches.
+//
+// Design.
+//  * One CTA per sample (B = 128: one wave on 128 of 132 SMs), 8 warps, one
+//    CTA per SM. Shared memory (F = 16): the concat x, c_1 .. c_4 as the
+//    forward's 18x18 zero-ringed planes (104,960 B), the stage's output
+//    gradient dy in the same frame (20,992 B), and two weight buffers, odd
+//    and even stages (46,080 + 36,864 B): 208,896 B.
+//  * The recompute is drb_kernel's arithmetic in its order (same k-steps,
+//    same three products per accumulator, weights split hi = rna(w), lo =
+//    rna(w - hi) as pack_drb_weights splits them), so c_1 .. c_4 are the
+//    forward kernel's bit for bit and the masks are the forward's sides.
+//  * Every product is 3xTF32 (lo*lo dropped), as in the forward: the
+//    configuration is fp32 with TF32 off.
+//  * dgrad: M = the warp's 32 pixels (image rows 2w, 2w + 1), N = the
+//    stage's sF input channels, K = F output channels x 9 taps, the A operand
+//    read from dy's frame at q - tap. The concat's gradient stays in
+//    registers across the walk (2 x 5F/8 x 4 floats a thread), so each
+//    stage adds into it and the mask of c_s reads it where it was summed.
+//  * wgrad: M = the F output channels (F = 8 leaves rows 8-15 zero), N = the
+//    stage's (8-channel chunk, tap) units, K = the sample's 256 pixels. A
+//    warp takes every 8th unit, up to kBwdUnits at a time, and reuses each
+//    k-step's dy fragment across them. Per-sample partials go to a scratch
+//    buffer ([stage][tap][co][ci], then the biases); drb_grad_reduce sums
+//    them over samples in sample order, one thread an entry, into OIHW. No
+//    float atomics: two calls agree bit for bit.
+//  * The stage is a template argument of the wgrad and dgrad bodies (a
+//    switch picks the instance), so their unit and n-tile loops unroll with
+//    no branch between a k-step's loads and its MMAs: with a runtime guard
+//    per unit the wgrad took 175K of a sample's 340K cycles, without it
+//    80K of 207K (clock64 in CTA 0 on the H100; PERF.md).
+//  * Weights: read as they are (OIHW fp32) by 4-byte cp.async into shared
+//    memory, a stage ahead of its use, in 8x8 (ci, co) blocks a tap with a
+//    swizzle (wsw) that serves both fragment patterns without bank
+//    conflicts: the forward's (co by lane group, ci by thread) and the
+//    dgrad's transpose. No packed copy, no cache.
+//  * Frames: plane c starts at c * 328 + 4 ((c >> 2) & 1). The forward's
+//    pattern (channel by thread, pixel by lane group) is conflict-free with
+//    the 8 mod 32 stride alone; the wgrad's (channel by lane group, pixel by
+//    thread) needs the 4-float skew between channel quads.
+
+constexpr int kBwdSide = 16;               // H = W = 16: the whole image, one CTA
+constexpr int kBwdPitch = kBwdSide + 2;    // frame rows and columns, zero ring included
+constexpr int kBwdFrame = kBwdPitch * kBwdPitch;  // 324 floats
+constexpr int kBwdPlane = 328;             // 324 padded to 8 mod 32
+static_assert(kBwdPlane % 32 == 8 && kBwdPlane >= kBwdFrame + 4,
+              "a plane's stride is 8 mod 32 and holds the frame behind its 4-float skew");
+constexpr int kBwdUnits = 9;               // most wgrad units a warp holds at once
+
+struct BwdParams {
+  const float* w[5];  // OIHW (F, sF, 3, 3)
+  const float* b[5];  // (F,)
+};
+
+__device__ __forceinline__ int bwd_plane(int c) { return c * kBwdPlane + 4 * ((c >> 2) & 1); }
+
+// Floats a sample's weight and bias partials take, and where stage s's start.
+__host__ __device__ __forceinline__ int bwd_partial_size(int F) { return 135 * F * F + 5 * F; }
+__host__ __device__ __forceinline__ int bwd_stage_offset(int F, int s) {
+  return 9 * F * F * (s * (s - 1) / 2);
+}
+
+// Where w[co, ci, tap] of a stage with cin8 input chunks sits in shared memory.
+__device__ __forceinline__ int wsw(int co, int ci, int tap, int cin8, int f8) {
+  return ((tap * cin8 + (ci >> 3)) * f8 + (co >> 3)) * 64 + ((ci >> 2) & 1) * 32 + (co & 3) +
+         ((ci & 3) << 2) + ((((co >> 2) ^ (ci >> 2)) & 1) << 4);
+}
+
+// The forward's weight split: hi = rna(w), lo = rna(w - hi).
+__device__ __forceinline__ void split_tf32_w(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);  // small terms first, as drb_kernel
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ const float* stage_w(const BwdParams& p, int s) {
+  return s == 1 ? p.w[0] : s == 2 ? p.w[1] : s == 3 ? p.w[2] : s == 4 ? p.w[3] : p.w[4];
+}
+
+__device__ __forceinline__ const float* stage_b(const BwdParams& p, int s) {
+  return s == 1 ? p.b[0] : s == 2 ? p.b[1] : s == 3 ? p.b[2] : s == 4 ? p.b[3] : p.b[4];
+}
+
+// Stage s's OIHW weights into dst (wsw's layout) by 4-byte cp.async: a
+// thread a (co, ci) pair, its 9 taps contiguous in w.
+template <int F>
+__device__ __forceinline__ void stage_weights(float* dst, const float* __restrict__ w, int s) {
+  const int cin = s * F;
+  for (int pair = threadIdx.x; pair < F * cin; pair += kThreads) {
+    const int co = pair / cin;
+    const int ci = pair - co * cin;
+    float* d = dst + wsw(co, ci, 0, s * F / 8, F / 8);
+    const float* src = w + 9 * pair;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) cp_async4(d + tap * cin * F, src + tap);
+  }
+}
+
+// Frame offset of tap (dy, dx) = (tap / 3 - 1, tap % 3 - 1).
+__device__ __forceinline__ int bwd_toff(int tap) { return (tap / 3 - 1) * kBwdPitch + tap % 3 - 1; }
+
+// Stage S's weight gradient partials of one sample: units u = (chunk, tap)
+// = (u / 9, u % 9) of the 9 * S * F / 8, u = warp + 8 j. A warp holds its
+// units in batches of UB accumulators, every slot computed (a slot past the
+// last unit repeats it and is not stored), so no branch stands between a
+// k-step's loads and its MMAs. Each k-step's dy fragment serves the batch.
+template <int F, int S>
+__device__ __forceinline__ void wgrad_stage(const float* act, const float* dyf, float* pw,
+                                            int warp, int gq, int tq) {
+  constexpr int kUnits = 9 * S * F / 8;
+  constexpr int kPerWarp = (kUnits + kWarps - 1) / kWarps;
+  constexpr int kBatches = (kPerWarp + kBwdUnits - 1) / kBwdUnits;
+  constexpr int UB = (kPerWarp + kBatches - 1) / kBatches;
+  constexpr int HW = kBwdSide * kBwdSide;
+  constexpr int cin = S * F;
+#pragma unroll 1
+  for (int j0 = 0; j0 < kBatches * UB; j0 += UB) {
+    float wacc[UB][4];
+    int boff[UB];
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int u = min(warp + kWarps * (j0 + i), kUnits - 1);
+      boff[i] = bwd_plane(8 * (u / 9) + gq) + bwd_toff(u % 9);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) wacc[i][r] = 0.f;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < HW / 8; ++kk) {  // 8 pixels of a row a k-step
+      const int base = ((kk >> 1) + 1) * kBwdPitch + (kk & 1) * 8 + 1 + tq;
+      uint32_t ah[4], al[4];
+      split_tf32(dyf[bwd_plane(gq) + base], ah[0], al[0]);
+      split_tf32(dyf[bwd_plane(gq) + base + 4], ah[2], al[2]);
+      if (F == 16) {
+        split_tf32(dyf[bwd_plane(gq + 8) + base], ah[1], al[1]);
+        split_tf32(dyf[bwd_plane(gq + 8) + base + 4], ah[3], al[3]);
+      } else {
+        ah[1] = al[1] = ah[3] = al[3] = 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < UB; ++i) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(act[boff[i] + base], bh0, bl0);
+        split_tf32(act[boff[i] + base + 4], bh1, bl1);
+        mma3(wacc[i], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int u = warp + kWarps * (j0 + i);
+      if (u >= kUnits) continue;
+      const int ci = 8 * (u / 9) + 2 * tq;
+      const int tap = u % 9;
+      *reinterpret_cast<float2*>(pw + (tap * F + gq) * cin + ci) =
+          make_float2(wacc[i][0], wacc[i][1]);
+      if (F == 16) {
+        *reinterpret_cast<float2*>(pw + (tap * F + gq + 8) * cin + ci) =
+            make_float2(wacc[i][2], wacc[i][3]);
+      }
+    }
+  }
+}
+
+// Stage S's input gradient added into the concat's gradient dc (channels
+// 0 .. SF - 1, n-tiles 0 .. SF/8 - 1): W_S's transpose times dy_S, the
+// tap's shift on dy's side. wd0, wd1: the lane's parts of wsw.
+template <int F, int S>
+__device__ __forceinline__ void dgrad_stage(const float* wsm, const float* dyf,
+                                            const int (&pix)[2][2], int wd0, int wd1, int tq,
+                                            float (&dc)[2][5 * F / 8][4]) {
+  constexpr int NT = F / 8;
+  constexpr int cin8 = S * NT;
+#pragma unroll
+  for (int jj = 0; jj < NT; ++jj) {
+    const float* d0 = dyf + bwd_plane(8 * jj + tq);
+    const float* d4 = dyf + bwd_plane(8 * jj + tq + 4);
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = bwd_toff(tap);
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        split_tf32(d0[pix[mt][0] - toff], ah[mt][0], al[mt][0]);
+        split_tf32(d0[pix[mt][1] - toff], ah[mt][1], al[mt][1]);
+        split_tf32(d4[pix[mt][0] - toff], ah[mt][2], al[mt][2]);
+        split_tf32(d4[pix[mt][1] - toff], ah[mt][3], al[mt][3]);
+      }
+      const float* wt = wsm + (tap * cin8 * NT + jj) * 64;
+#pragma unroll
+      for (int nt = 0; nt < cin8; ++nt) {
+        const float* wb = wt + nt * NT * 64;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_w(wb[wd0], bh0, bl0);
+        split_tf32_w(wb[wd1], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma3(dc[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads, 1)
+drb_backward_kernel(const float* __restrict__ x, const float* __restrict__ gout, BwdParams p,
+                    float* __restrict__ dx, float* __restrict__ partial, float* __restrict__ acts) {
+  constexpr int NT = F / 8;
+  constexpr int HW = kBwdSide * kBwdSide;
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);  // 5F planes: x, c_1 .. c_4
+  float* dyf = act + 5 * F * kBwdPlane;           // F planes: dy of the current stage
+  float* w_odd = dyf + F * kBwdPlane;             // stages 1, 3, 5 (45 F^2 floats)
+  float* w_even = w_odd + 45 * F * F;             // stages 2, 4 (36 F^2 floats)
+
+  const int b = blockIdx.x;
+  const float* xb = x + static_cast<size_t>(b) * F * HW;
+  const float* gb = gout + static_cast<size_t>(b) * F * HW;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+
+  // The concat's and dy's frames zeroed (the rings stay zero); then x into
+  // group 0 by cp.async and 0.2 g into dy's frame. W_1 and W_2 follow, a
+  // commit group each.
+  for (int i = tid; i < 6 * F * kBwdPlane / 4; i += kThreads) {
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  constexpr int kPerThread = F * HW / kThreads;
+  float gv[kPerThread];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) gv[k] = __ldg(gb + k * kThreads + tid);
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int i = k * kThreads + tid;  // (channel, pixel) of the sample
+    const int c = i / HW;
+    const int pos = ((i - c * HW) / kBwdSide + 1) * kBwdPitch + i % kBwdSide + 1;
+    cp_async4(act + bwd_plane(c) + pos, xb + i);
+    dyf[bwd_plane(c) + pos] = kResScale * gv[k];
+  }
+  stage_weights<F>(w_odd, p.w[0], 1);
+  cp_async_commit();
+  stage_weights<F>(w_even, p.w[1], 2);
+  cp_async_commit();
+
+  // The thread's 4 pixels (m-tile rows gq, gq + 8 of image rows 2w, 2w + 1).
+  int pix[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pix[mt][h] = (2 * warp + mt + 1) * kBwdPitch + 8 * h + gq + 1;
+  }
+  // Lane parts of wsw: the forward's B fragment (co = 8nt + gq, ci = 8c + tq
+  // and + 4) and the dgrad's (co = 8j + tq and + 4, ci = 8nt + gq).
+  const int wf0 = (gq & 3) + (tq << 2) + ((gq >> 2) << 4);
+  const int wf1 = 32 + (gq & 3) + (tq << 2) + (((gq >> 2) ^ 1) << 4);
+  const int wd0 = ((gq >> 2) << 5) + tq + ((gq & 3) << 2) + ((gq >> 2) << 4);
+  const int wd1 = ((gq >> 2) << 5) + tq + ((gq & 3) << 2) + (((gq >> 2) ^ 1) << 4);
+
+  // Recompute c_1 .. c_4: drb_kernel's stages at 16x16, k-steps in its order.
+#pragma unroll 1
+  for (int s = 1; s <= 4; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* wsm = (s & 1) ? w_odd : w_even;
+    const int cin8 = s * NT;
+    const float* bias = stage_b(p, s);
+    float acc[2][NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float b0 = __ldg(bias + nt * 8 + 2 * tq);
+      const float b1 = __ldg(bias + nt * 8 + 2 * tq + 1);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        acc[mt][nt][0] = b0;
+        acc[mt][nt][1] = b1;
+        acc[mt][nt][2] = b0;
+        acc[mt][nt][3] = b1;
+      }
+    }
+#pragma unroll 1
+    for (int c8 = 0; c8 < cin8; ++c8) {
+      const float* ch0 = act + bwd_plane(8 * c8 + tq);
+      const float* ch4 = act + bwd_plane(8 * c8 + tq + 4);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int toff = bwd_toff(tap);
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          split_tf32(ch0[pix[mt][0] + toff], ah[mt][0], al[mt][0]);
+          split_tf32(ch0[pix[mt][1] + toff], ah[mt][1], al[mt][1]);
+          split_tf32(ch4[pix[mt][0] + toff], ah[mt][2], al[mt][2]);
+          split_tf32(ch4[pix[mt][1] + toff], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* wb = wsm + ((tap * cin8 + c8) * NT + nt) * 64;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_w(wb[wf0], bh0, bl0);
+          split_tf32_w(wb[wf1], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma3(acc[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int co = nt * 8 + 2 * tq + (r & 1);
+          const float v = acc[mt][nt][r];
+          const float c = v >= 0.f ? v : kSlope * v;
+          act[bwd_plane(s * F + co) + pix[mt][r >> 1]] = c;
+          if (acts) {
+            acts[(static_cast<size_t>(b) * 4 * F + (s - 1) * F + co) * HW +
+                 (2 * warp + mt) * kBwdSide + 8 * (r >> 1) + gq] = c;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (s <= 3) stage_weights<F>((s & 1) ? w_odd : w_even, stage_w(p, s + 2), s + 2);
+    cp_async_commit();  // empty after stage 4: the walk starts with W_5, W_4 is in place
+  }
+
+  // The walk back, stage 5 to 1. dc: the concat's gradient, 5F channels at
+  // the thread's pixels, in the dgrad's accumulator layout.
+  float dc[2][5 * NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 5 * NT; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dc[mt][nt][r] = 0.f;
+    }
+  }
+  float* pb = partial ? partial + static_cast<size_t>(b) * bwd_partial_size(F) : nullptr;
+
+#pragma unroll 1
+  for (int s = 5; s >= 1; --s) {
+    if (s < 5) {  // c_s's gradient is whole: mask it into dy's frame
+#pragma unroll
+      for (int g = 1; g <= 4; ++g) {
+        if (g != s) continue;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int co = nt * 8 + 2 * tq + (r & 1);
+              const int pos = pix[mt][r >> 1];
+              const float v = dc[mt][g * NT + nt][r];
+              dyf[bwd_plane(co) + pos] = act[bwd_plane(g * F + co) + pos] > 0.f ? v : kSlope * v;
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* wsm = (s & 1) ? w_odd : w_even;
+
+    if (pb) {
+      float* pw = pb + bwd_stage_offset(F, s);
+      switch (s) {
+        case 5: wgrad_stage<F, 5>(act, dyf, pw, warp, gq, tq); break;
+        case 4: wgrad_stage<F, 4>(act, dyf, pw, warp, gq, tq); break;
+        case 3: wgrad_stage<F, 3>(act, dyf, pw, warp, gq, tq); break;
+        case 2: wgrad_stage<F, 2>(act, dyf, pw, warp, gq, tq); break;
+        default: wgrad_stage<F, 1>(act, dyf, pw, warp, gq, tq); break;
+      }
+      // db_s: kThreads / F threads a channel sum its pixels, then a butterfly.
+      {
+        constexpr int T = kThreads / F;
+        constexpr int PX = HW / T;
+        const int co = tid / T;
+        const int first = (tid % T) * PX;
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < PX; ++q) {
+          const int px = first + q;
+          sum += dyf[bwd_plane(co) + (px / kBwdSide + 1) * kBwdPitch + px % kBwdSide + 1];
+        }
+#pragma unroll
+        for (int o = T / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (tid % T == 0) pb[135 * F * F + (s - 1) * F + co] = sum;
+      }
+    }
+
+    if (s > 1 || dx) {
+      switch (s) {
+        case 5: dgrad_stage<F, 5>(wsm, dyf, pix, wd0, wd1, tq, dc); break;
+        case 4: dgrad_stage<F, 4>(wsm, dyf, pix, wd0, wd1, tq, dc); break;
+        case 3: dgrad_stage<F, 3>(wsm, dyf, pix, wd0, wd1, tq, dc); break;
+        case 2: dgrad_stage<F, 2>(wsm, dyf, pix, wd0, wd1, tq, dc); break;
+        default: dgrad_stage<F, 1>(wsm, dyf, pix, wd0, wd1, tq, dc); break;
+      }
+    }
+    __syncthreads();
+    if (s >= 3) stage_weights<F>((s & 1) ? w_odd : w_even, stage_w(p, s - 2), s - 2);
+    cp_async_commit();
+  }
+
+  if (dx) {
+    float* dxb = dx + static_cast<size_t>(b) * F * HW;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int co = nt * 8 + 2 * tq + (r & 1);
+          const int px = (2 * warp + mt) * kBwdSide + 8 * (r >> 1) + gq;
+          dxb[co * HW + px] = __ldg(gb + co * HW + px) + dc[mt][nt][r];
+        }
+      }
+    }
+  }
+}
+
+// out[j] = sum over b = 0 .. B-1, in that order, of the partials' entry i
+// (one thread an entry), j = i moved from [tap][co][ci] to OIHW within its
+// stage; the biases keep their place.
+__global__ void __launch_bounds__(kThreads)
+drb_grad_reduce(const float* __restrict__ partial, int B, int F, float* __restrict__ out) {
+  const int size = bwd_partial_size(F);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= size) return;
+  const float* p = partial + i;
+  float sum = 0.f;
+  int b = 0;
+  for (; b + 16 <= B; b += 16) {
+    float v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = __ldg(p + static_cast<size_t>(b + k) * size);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) sum += v[k];
+  }
+  for (; b < B; ++b) sum += __ldg(p + static_cast<size_t>(b) * size);
+  int j = i;
+  if (i < 135 * F * F) {
+    int s = 1;
+    while (i >= bwd_stage_offset(F, s + 1)) ++s;
+    const int cin = s * F;
+    const int k = i - bwd_stage_offset(F, s);
+    const int tap = k / (F * cin);
+    const int co = (k - tap * F * cin) / cin;
+    const int ci = k - (tap * F + co) * cin;
+    j = bwd_stage_offset(F, s) + (co * cin + ci) * 9 + tap;
+  }
+  out[j] = sum;
+}
+
+template <int F>
+cudaError_t launch_backward(const float* x, const float* gout, const BwdParams& p, float* dx,
+                            float* partial, float* dparams, float* acts, int B,
+                            cudaStream_t stream) {
+  const int smem = ((6 * kBwdPlane + 81 * F) * F) * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(drb_backward_kernel<F>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  drb_backward_kernel<F><<<static_cast<unsigned>(B), kThreads, smem, stream>>>(
+      x, gout, p, dx, partial, acts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || partial == nullptr) return e;
+  const int blocks = (bwd_partial_size(F) + kThreads - 1) / kThreads;
+  drb_grad_reduce<<<blocks, kThreads, 0, stream>>>(partial, B, F, dparams);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1182,6 +1698,42 @@ int drb_bf16_occupancy(int F, int H, int W, int* smem_bytes, int* ctas_per_sm) {
       return occupancy_bf16<8>(H, W, smem_bytes, ctas_per_sm);
     case 16:
       return occupancy_bf16<16>(H, W, smem_bytes, ctas_per_sm);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The gradients of sum(gout * DRB(x)) for DoWnGAN's block in fp32 at 16x16:
+// x, gout (B, F, 16, 16) contiguous fp32; params: 10 device pointers, the
+// five OIHW weights (F, sF, 3, 3) then the five biases (F,), contiguous fp32.
+// dx (B, F, 16, 16) or null (not wanted); partial (B x (135 F^2 + 5 F)
+// floats of scratch) and dparams (135 F^2 + 5 F floats: the five weight
+// gradients in OIHW, then the five bias gradients) or both null (not
+// wanted); acts (B, 4F, 16, 16), the recomputed c_1 .. c_4, or null.
+// Launches drb_backward_kernel and, for the parameters, drb_grad_reduce.
+int drb_backward_f32(const void* x, const void* gout, const void* const* params, void* dx,
+                     void* partial, void* dparams, void* acts, int B, int F, int H, int W,
+                     void* stream) {
+  if (B < 1 || H != kBwdSide || W != kBwdSide || (partial == nullptr) != (dparams == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  BwdParams p;
+  for (int s = 0; s < 5; ++s) {
+    p.w[s] = static_cast<const float*>(params[s]);
+    p.b[s] = static_cast<const float*>(params[5 + s]);
+  }
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(gout);
+  float* dxf = static_cast<float*>(dx);
+  float* pf = static_cast<float*>(partial);
+  float* df = static_cast<float*>(dparams);
+  float* af = static_cast<float*>(acts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 8:
+      return launch_backward<8>(xf, gf, p, dxf, pf, df, af, B, st);
+    case 16:
+      return launch_backward<16>(xf, gf, p, dxf, pf, df, af, B, st);
     default:
       return cudaErrorInvalidValue;
   }

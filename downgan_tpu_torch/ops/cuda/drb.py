@@ -32,11 +32,16 @@ block at filters 8 and 16 (fp32, bf16) and ESRGAN's at (64, 32) and 16x16
   bf16 rounded at the kernel's three points) in PyTorch. Tests, CPU runs
   and ``chip_smoke.py`` hold the kernel against it;
 * :class:`DRBFunction` is the DRB under autograd on the card: its forward
-  is the kernel; its backward (:func:`drb_backward`) recomputes the block
-  from the saved input with :func:`cudnn_chain` (five ``F.conv2d`` in the
-  input's dtype, cuDNN on the card) and differentiates that. It is first
-  order only. The JAX package's DRB has no backward kernel either: its
-  gradients are XLA convolutions, whose counterpart here is cuDNN;
+  is the kernel. Its backward is :func:`drb_backward_kernel` (one
+  ``drb_backward_kernel`` launch and a fixed-order reduction) for DoWnGAN's
+  block in fp32 at 16x16, and :func:`drb_backward` for every other input:
+  it recomputes the block from the saved input with :func:`cudnn_chain`
+  (five ``F.conv2d`` in the input's dtype, cuDNN on the card) and
+  differentiates that. It is first order only. The JAX package's DRB has no
+  backward kernel: its gradients are XLA convolutions;
+* :func:`drb_backward_reference` is the backward kernel's plain twin: the
+  recompute, then per stage the mask, the weight and bias sums and the
+  shifted-product input gradient, in PyTorch;
 * :func:`drb` is what the generator's blocks call: ``DRBFunction`` when
   autograd needs a gradient through a CUDA tensor, ``drb_forward``
   otherwise;
@@ -69,6 +74,8 @@ SUPPORTED_FILTERS = (8, 16)
 #: ESRGAN's block, the wide kernel's only one: (filters, growth, slope), fp32, 16x16.
 WIDE_BLOCK = (64, 32, 0.2)
 WIDE_SIDE = 16
+#: The backward kernel's only spatial size (florida's trunk, whole samples).
+BACKWARD_SIDE = 16
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 SOURCE = Path(__file__).with_name("drb.cu")
@@ -128,6 +135,10 @@ def load_library() -> ctypes.CDLL:
         lib.drb_forward_f32_wide.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                                              + [ctypes.c_void_p])
         lib.drb_forward_f32_wide.restype = ctypes.c_int
+        lib.drb_backward_f32.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_void_p * 10]
+                                         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                         + [ctypes.c_void_p])
+        lib.drb_backward_f32.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
         lib.drb_bf16_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -305,15 +316,157 @@ def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """Gradients of a DRB's output, weighted by ``grad_out``, with respect
     to x, the five weights and the five biases (in that order; ``None``
     where ``needs`` says no): the block is recomputed from x with
-    :func:`cudnn_chain` and differentiated by autograd."""
+    :func:`cudnn_chain` and differentiated by autograd. Counted in
+    ``drb_backward.recomputes``; ``drb_backward.launches`` counts the calls
+    of :func:`drb_backward_kernel`. Both are process-wide and never reset,
+    as ``drb_forward.launches``."""
     inputs = [x, *weights, *biases]
     needs = [True] * len(inputs) if needs is None else list(needs)
+    with _count_lock:
+        drb_backward.recomputes += 1
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         out = cudnn_chain(leaves[0], leaves[1:6], leaves[6:], slope)
         wanted = [t for t in leaves if t.requires_grad]
         grads = iter(torch.autograd.grad(out, wanted, grad_out))
     return [next(grads) if n else None for n in needs]
+
+
+drb_backward.launches = 0
+drb_backward.recomputes = 0
+
+
+def drb_backward_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                           biases: Sequence[torch.Tensor], grad_out: torch.Tensor,
+                           slope: float = SLOPE, sides: Sequence[torch.Tensor] | None = None
+                           ) -> list:
+    """Plain PyTorch twin of :func:`drb_backward_kernel`'s arithmetic, in
+    x's dtype: [dx, dW_1 .. dW_5, db_1 .. db_5] of sum(grad_out * DRB(x)).
+
+    The stage activations c_1 .. c_4 are recomputed as
+    :func:`drb_forward_reference` computes them. Then, from dy_5 = 0.2
+    grad_out, stage by stage from 5 to 1: the stage's output gradient is its
+    activation's, masked by LeakyReLU's slope where c_s is not above zero
+    (``sides[s - 1]``, a boolean tensor of c_s's shape, replaces c_s > 0
+    where given); its weight gradient is, per tap, the product of dy_s with
+    the shifted concat summed over samples and pixels; its bias gradient
+    dy_s summed likewise; and the concat's gradient gains, per tap, W_s's
+    transpose times dy_s shifted the other way. dx is grad_out plus the
+    concat's gradient at x. Any growth (the stage widths are the
+    weights')."""
+    b, f, h, w = x.shape
+    acts = x
+    for s in range(4):
+        padded = F.pad(acts, (1, 1, 1, 1))
+        y = biases[s].reshape(1, -1, 1, 1).expand(b, -1, h, w)
+        for t in range(9):
+            ky, kx = divmod(t, 3)
+            y = y + torch.einsum("oc,bchw->bohw", weights[s][:, :, ky, kx],
+                                 padded[:, :, ky:ky + h, kx:kx + w])
+        acts = torch.cat([acts, F.leaky_relu(y, slope)], dim=1)
+    starts = [wt.shape[1] for wt in weights]  # stage s + 1's output is concat channels starts[s]..
+    dcat = torch.zeros_like(acts)
+    dy = grad_out * RES_SCALE
+    dws, dbs = [None] * 5, [None] * 5
+    for s in range(4, -1, -1):
+        cin = weights[s].shape[1]
+        if s < 4:
+            dc = dcat[:, starts[s]:starts[s + 1]]
+            up = acts[:, starts[s]:starts[s + 1]] > 0 if sides is None else sides[s]
+            dy = torch.where(up, dc, dc * slope)
+        padded = F.pad(acts[:, :cin], (1, 1, 1, 1))
+        dpad = F.pad(dy, (1, 1, 1, 1))
+        dw = torch.empty_like(weights[s])
+        for t in range(9):
+            ky, kx = divmod(t, 3)
+            dw[:, :, ky, kx] = torch.einsum("bohw,bchw->oc", dy,
+                                            padded[:, :, ky:ky + h, kx:kx + w])
+            dcat[:, :cin] += torch.einsum("oc,bohw->bchw", weights[s][:, :, ky, kx],
+                                          dpad[:, :, 2 - ky:2 - ky + h, 2 - kx:2 - kx + w])
+        dws[s], dbs[s] = dw, dy.sum(dim=(0, 2, 3))
+    return [grad_out + dcat[:, :f], *dws, *dbs]
+
+
+def backward_on_kernel(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                       biases: Sequence[torch.Tensor], slope: float = SLOPE) -> bool:
+    """Whether :class:`DRBFunction` differentiates this block with
+    :func:`drb_backward_kernel` (True) or the cuDNN recompute: a CUDA fp32
+    (B, F, 16, 16) input, F in :data:`SUPPORTED_FILTERS`, growth F, slope
+    :data:`SLOPE` and fp32 parameters. Read off the input alone."""
+    return (x.device.type == "cuda" and x.dtype == torch.float32 and x.dim() == 4
+            and tuple(x.shape[2:]) == (BACKWARD_SIDE, BACKWARD_SIDE)
+            and x.shape[1] in SUPPORTED_FILTERS and weights[0].shape[0] == x.shape[1]
+            and slope == SLOPE
+            and all(t.dtype == torch.float32 for t in (*weights, *biases)))
+
+
+def drb_backward_kernel(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                        biases: Sequence[torch.Tensor], grad_out: torch.Tensor,
+                        needs: Sequence[bool] | None = None,
+                        acts: torch.Tensor | None = None) -> list:
+    """:func:`drb_backward` for DoWnGAN's block in fp32 at 16x16 on the
+    card, by ``drb_backward_kernel`` (the block recomputed and walked back
+    in one launch a block, 3xTF32) and ``drb_grad_reduce`` (the weight and
+    bias gradients summed over samples in sample order): two identical
+    calls agree bit for bit. Returns [dx, dW_1 .. dW_5, db_1 .. db_5],
+    ``None`` where ``needs`` says no; the parameter gradients are views of
+    one buffer, computed when any of them is wanted. ``acts``, a contiguous
+    fp32 (B, 4F, 16, 16) tensor, receives the recomputed c_1 .. c_4 (for
+    tests). Counted in ``drb_backward.launches``."""
+    params = [*weights, *biases]
+    needs = [True] * 11 if needs is None else list(needs)
+    if not backward_on_kernel(x, weights, biases):
+        raise ValueError(
+            f"the DRB backward kernel takes CUDA float32 (B, F, {BACKWARD_SIDE}, "
+            f"{BACKWARD_SIDE}) with F in {SUPPORTED_FILTERS}, growth F and float32 parameters, "
+            f"got {tuple(x.shape)} {x.dtype}")
+    b, f, h, w = x.shape
+    x, grad_out = x.contiguous(), grad_out.contiguous()
+    if grad_out.shape != x.shape or grad_out.dtype != x.dtype or grad_out.device != x.device:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} on "
+                         f"{grad_out.device} does not match x {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+    for s, (wt, bt) in enumerate(zip(weights, biases), start=1):
+        if (tuple(wt.shape) != (f, s * f, 3, 3) or tuple(bt.shape) != (f,)
+                or wt.device != x.device or bt.device != x.device
+                or not wt.is_contiguous() or not bt.is_contiguous()):
+            raise ValueError(f"stage {s}: weight {tuple(wt.shape)}, bias {tuple(bt.shape)} are "
+                             f"not a contiguous ({f}, {s * f}, 3, 3) and ({f},) on {x.device}")
+    if acts is not None and (acts.shape != (b, 4 * f, h, w) or acts.dtype != torch.float32
+                             or acts.device != x.device or not acts.is_contiguous()):
+        raise ValueError(f"acts must be a contiguous float32 ({b}, {4 * f}, {h}, {w}) tensor")
+    size = 135 * f * f + 5 * f  # a sample's weight and bias partials
+    dx = torch.empty_like(x) if needs[0] else None
+    if any(needs[1:]):
+        partial = torch.empty(b * size, device=x.device, dtype=torch.float32)
+        flat = torch.empty(size, device=x.device, dtype=torch.float32)
+    else:
+        partial = flat = None
+    lib = load_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.drb_backward_f32(x.data_ptr(), grad_out.data_ptr(),
+                                   (ctypes.c_void_p * 10)(*(t.data_ptr() for t in params)),
+                                   ptr(dx), ptr(partial), ptr(flat), ptr(acts), b, f, h, w, stream)
+    if err:
+        raise RuntimeError(f"DRB backward kernel launch failed: "
+                           f"{lib.drb_error_string(err).decode()} (input {tuple(x.shape)})")
+    with _count_lock:
+        drb_backward.launches += 1
+    grads = [dx]
+    off = 0
+    for s in range(1, 6):
+        n = 9 * f * s * f
+        grads.append(None if flat is None else flat[off:off + n].view(f, s * f, 3, 3))
+        off += n
+    for _ in range(5):
+        grads.append(None if flat is None else flat[off:off + f])
+        off += f
+    return [g if n else None for g, n in zip(grads, needs)]
 
 
 def _needs_grad(x, weights, biases) -> bool:
@@ -338,10 +491,11 @@ class DRBFunction(torch.autograd.Function):
     or ten and the slope: without it the slope is :data:`SLOPE` (the
     florida block), and any other count raises. The forward launches the
     kernel (counted in ``drb_forward.launches``) and saves only x and the
-    ten parameters; the backward is :func:`drb_backward`, a cuDNN recompute
-    in the same dtype, not a kernel: with bf16 x and fp32 parameters it
-    gives a bf16 gradient of x and fp32 gradients of the parameters, as
-    autograd through their casts would.
+    ten parameters. The backward is :func:`drb_backward_kernel` where
+    :func:`backward_on_kernel` says so (fp32, DoWnGAN's block, 16x16), and
+    otherwise :func:`drb_backward`, a cuDNN recompute in the same dtype:
+    with bf16 x and fp32 parameters it gives a bf16 gradient of x and fp32
+    gradients of the parameters, as autograd through their casts would.
     First order only: the gradient penalty differentiates the critic alone
     and the critic's fake is made without a graph, so no double backward
     of the DRB is ever taken, and one raises."""
@@ -363,7 +517,10 @@ class DRBFunction(torch.autograd.Function):
         with annotate("drb.backward"):  # on autograd's device thread
             x, *params = ctx.saved_tensors
             needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:12]]
-            grads = drb_backward(x, params[:5], params[5:], grad_out, needs, ctx.slope)
+            if backward_on_kernel(x, params[:5], params[5:], ctx.slope):
+                grads = drb_backward_kernel(x, params[:5], params[5:], grad_out, needs)
+            else:
+                grads = drb_backward(x, params[:5], params[5:], grad_out, needs, ctx.slope)
         return (grads[0], None, *grads[1:], *([None] if ctx.with_slope else []))
 
 

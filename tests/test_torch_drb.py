@@ -1,8 +1,9 @@
 """The port's DenseResidualBlock: its plain twin against the JAX package's
 DRB (the XLA reference formulation, the Pallas kernel in interpret mode, and
 the flax module) on the same weights and inputs; its weight packing; its
-gradients (``DRBFunction``'s recompute backward, the packed-weight cache
-after an Adam step); and, on a CUDA card only, the CUDA kernel and
+gradients (``DRBFunction``'s recompute backward, the backward kernel's
+plain twin against autograd, the packed-weight cache after an Adam step);
+and, on a CUDA card only, the CUDA kernels (forward and backward) and
 ``DRBFunction`` against the twin.
 
 The JAX side is imported inside a fixture, so the CUDA legs also run where
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+F = torch.nn.functional
 
 from downgan_tpu_torch.config.config import Config  # noqa: E402
 from downgan_tpu_torch.models.generator import DenseResidualBlock  # noqa: E402
@@ -21,8 +23,12 @@ from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     SLOPE,
     RES_SCALE,
     DRBFunction,
+    WIDE_BLOCK,
+    backward_on_kernel,
     cudnn_chain,
     drb_backward,
+    drb_backward_kernel,
+    drb_backward_reference,
     drb_forward,
     drb_forward_reference,
     pack_drb_weights,
@@ -296,6 +302,58 @@ def test_drb_backward_computes_only_what_is_needed():
         torch.testing.assert_close(g, w, atol=ATOL, rtol=ATOL)
 
 
+@pytest.mark.parametrize("f", [8, 16])
+def test_backward_twin_matches_autograd_through_the_twin_in_float64(f):
+    """``drb_backward_reference`` (the backward kernel's arithmetic written
+    out: recompute, mask, wgrad, bias sums, shifted-product dgrad) against
+    autograd through ``drb_forward_reference``, both in float64."""
+    ws, bs = init_scale_block(f, seed=30 + f, requires_grad=False)
+    ws, bs = [t.double() for t in ws], [t.double() for t in bs]
+    rng = torch.Generator().manual_seed(31)
+    x = torch.randn(3, f, 16, 16, generator=rng, dtype=torch.float64)
+    weight = torch.randn(3, f, 16, 16, generator=rng, dtype=torch.float64)
+    got = drb_backward_reference(x, ws, bs, weight)
+    for g, w in zip(got, twin_grads(x, ws, bs, weight)):
+        assert g.shape == w.shape
+        assert (g - w).abs().max() <= 1e-12 * w.abs().max()
+
+
+def test_backward_twin_takes_the_given_sides():
+    """``sides`` replaces c_s > 0 in the masks: the twin's own sides give
+    its result bit for bit, and flipping one element's side changes only
+    what that element's gradient reaches."""
+    ws, bs = init_scale_block(8, seed=32, requires_grad=False)
+    rng = torch.Generator().manual_seed(33)
+    x = torch.randn(2, 8, 16, 16, generator=rng, dtype=torch.float64)
+    weight = torch.randn(2, 8, 16, 16, generator=rng, dtype=torch.float64)
+    ws, bs = [t.double() for t in ws], [t.double() for t in bs]
+    acts = x
+    sides = []
+    for s in range(4):
+        y = F.conv2d(acts, ws[s], bs[s], padding=1)
+        sides.append(y > 0)
+        acts = torch.cat([acts, F.leaky_relu(y, SLOPE)], 1)
+    plain = drb_backward_reference(x, ws, bs, weight)
+    for g, w in zip(drb_backward_reference(x, ws, bs, weight, sides=sides), plain):
+        assert torch.equal(g, w)
+    flipped = [t.clone() for t in sides]
+    flipped[3][1, 5, 7, 9] = ~flipped[3][1, 5, 7, 9]
+    got = drb_backward_reference(x, ws, bs, weight, sides=flipped)
+    assert not torch.equal(got[4], plain[4]) and torch.equal(got[5], plain[5])
+    assert torch.equal(got[10], plain[10])  # stage 5 lies above the flip
+
+
+def test_drb_function_on_cpu_counts_a_recompute():
+    """On CPU tensors ``DRBFunction``'s backward is the recompute: one
+    ``drb_backward.recomputes``, no ``drb_backward.launches``."""
+    ws, bs = init_scale_block(8, seed=34)
+    x = torch.randn(1, 8, 16, 16, generator=torch.Generator().manual_seed(35), requires_grad=True)
+    before = (drb_backward.launches, drb_backward.recomputes)
+    assert not backward_on_kernel(x, ws, bs)
+    DRBFunction.apply(x, pack_drb_weights(ws, bs), *ws, *bs).square().sum().backward()
+    assert (drb_backward.launches, drb_backward.recomputes) == (before[0], before[1] + 1)
+
+
 def test_drb_function_refuses_a_double_backward():
     ws, bs = init_scale_block(8, seed=16)
     x = torch.randn(1, 8, 16, 16, generator=torch.Generator().manual_seed(17), requires_grad=True)
@@ -413,11 +471,11 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_drb_function_gradients_match_the_twin_at_b128(cuda_device):
-    """Forward from the kernel, backward from the cuDNN recompute, against
-    autograd through the twin. The backward never reads the kernel's
-    output; weight gradients sum 32,768 pixel terms, about sqrt(32768/720)
-    ~ 7x the forward's longest sum, so 1e-4 of each gradient's largest
-    entry."""
+    """Forward from the kernel, backward from the backward kernel (fp32,
+    16x16), against autograd through the twin. The backward never reads the
+    kernel's output; weight gradients sum 32,768 pixel terms, about
+    sqrt(32768/720) ~ 7x the forward's longest sum, so 1e-4 of each
+    gradient's largest entry."""
     ws, bs = init_scale_block(16, seed=19, device=cuda_device)
     rng = torch.Generator().manual_seed(20)
     x = torch.randn(128, 16, 16, 16, generator=rng).to(cuda_device).requires_grad_()
@@ -429,6 +487,114 @@ def test_cuda_drb_function_gradients_match_the_twin_at_b128(cuda_device):
     assert drb_forward.launches == before + 1
     for g, w in zip(got, twin_grads(x, ws, bs, weight)):
         assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def kernel_backward_case(f, b, seed, device):
+    """A block at the generator's init scale, x and an output weighting."""
+    ws, bs = init_scale_block(f, seed=seed, device=device, requires_grad=False)
+    rng = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(b, f, 16, 16, generator=rng).to(device)
+    weight = torch.randn(b, f, 16, 16, generator=rng).to(device)
+    return x, ws, bs, weight
+
+
+def stage_preactivations(x, ws, bs):
+    """y_1 .. y_4 of the block, by convolutions in x's dtype."""
+    acts, ys = x, []
+    for s in range(4):
+        ys.append(F.conv2d(acts, ws[s], bs[s], padding=1))
+        acts = torch.cat([acts, F.leaky_relu(ys[-1], SLOPE)], 1)
+    return ys
+
+
+# The backward kernel against float64: the plain twin of its arithmetic in
+# float64, masked on the kernel's own LeakyReLU sides (its recomputed c_s,
+# bit for bit the forward kernel's). A pre-activation within fp32 rounding
+# of zero may lie on the other side in float64 (2 of 2.1 M at B=128, F=16 on
+# the card); there the float64 twin differentiates another piecewise-linear
+# function, off by up to ~5e-3 of a weight gradient's largest entry. Each
+# such element must be within 1e-5 of zero; where there is none, the
+# kernel is held to float64 autograd through the twin directly. 1e-4 of each
+# gradient's largest entry, as test_cuda_drb_function_gradients_match_the_twin_at_b128.
+BACKWARD_KERNEL_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [8, 16])
+@pytest.mark.parametrize("b", [1, 3, 128])
+def test_cuda_backward_kernel_matches_float64(cuda_device, f, b):
+    x, ws, bs, weight = kernel_backward_case(f, b, seed=40 + f + b, device=cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+    before = (drb_backward.launches, drb_backward.recomputes)
+    out = DRBFunction.apply(leaves[0], pack_drb_weights(ws, bs), *leaves[1:])
+    got = torch.autograd.grad((out * weight).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (drb_backward.launches, drb_backward.recomputes) == (before[0] + 1, before[1])
+    acts = torch.empty(b, 4 * f, 16, 16, device=cuda_device)
+    direct = drb_backward_kernel(x, ws, bs, weight, acts=acts)
+    assert all(torch.equal(g, d) for g, d in zip(got, direct))
+    x64, ws64, bs64 = x.double(), [t.double() for t in ws], [t.double() for t in bs]
+    ys = stage_preactivations(x64, ws64, bs64)
+    c64 = torch.cat([F.leaky_relu(y, SLOPE) for y in ys], 1)
+    torch.testing.assert_close(acts.double(), c64, atol=ATOL, rtol=ATOL)
+    sides = [acts[:, s * f:(s + 1) * f] > 0 for s in range(4)]
+    flipped = torch.cat([(side != (y > 0)) for side, y in zip(sides, ys)], 1)
+    assert (torch.cat(ys, 1)[flipped].abs() <= 1e-5).all()
+    want = drb_backward_reference(x64, ws64, bs64, weight.double(), sides=sides)
+    if not flipped.any():
+        for w, v in zip(want, twin_grads(x64, ws64, bs64, weight.double())):
+            assert (w - v).abs().max() <= 1e-12 * v.abs().max()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g.double() - w).abs().max() <= BACKWARD_KERNEL_TOL * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_is_bit_for_bit_and_computes_only_what_is_needed(cuda_device):
+    """Two identical calls agree bit for bit (the weight gradients are
+    summed over samples in sample order, with no atomics); ``needs`` drops
+    dx and the biases, and the rest equals the full call's."""
+    x, ws, bs, weight = kernel_backward_case(16, 128, seed=50, device=cuda_device)
+    first = drb_backward_kernel(x, ws, bs, weight)
+    second = drb_backward_kernel(x, ws, bs, weight)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    needs = [False] + [True] * 5 + [False] * 5
+    part = drb_backward_kernel(x, ws, bs, weight, needs)
+    assert part[0] is None and all(g is None for g in part[6:])
+    assert all(torch.equal(p, q) for p, q in zip(part[1:6], first[1:6]))
+    no_params = drb_backward_kernel(x, ws, bs, weight, [True] + [False] * 10)
+    assert torch.equal(no_params[0], first[0]) and all(g is None for g in no_params[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fp32-16x16", "bf16", "wide", "fp32-12x20"])
+def test_cuda_drb_function_backward_route_is_counted(cuda_device, route):
+    """fp32 DoWnGAN blocks at 16x16 take the backward kernel; bf16, the
+    wide ESRGAN block and other shapes the cuDNN recompute."""
+    f, h, w, dtype, slope = 16, 16, 16, torch.float32, SLOPE
+    if route == "wide":
+        f, growth, slope = WIDE_BLOCK
+        gen = torch.Generator().manual_seed(60)
+        ws = [(torch.rand(growth if s < 4 else f, f + growth * s, 3, 3, generator=gen) - 0.5)
+              / (9 * (f + growth * s)) ** 0.5 for s in range(5)]
+        bs = [torch.zeros(t.shape[0]) for t in ws]
+        ws, bs = [t.to(cuda_device) for t in ws], [t.to(cuda_device) for t in bs]
+    else:
+        ws, bs = init_scale_block(f, seed=61, device=cuda_device, requires_grad=False)
+        if route == "bf16":
+            dtype = torch.bfloat16
+        elif route == "fp32-12x20":
+            h, w = 12, 20
+    x = torch.randn(4, f, h, w, generator=torch.Generator().manual_seed(62)).to(cuda_device, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+    before = (drb_backward.launches, drb_backward.recomputes)
+    out = DRBFunction.apply(leaves[0], pack_drb_weights(ws, bs, dtype), *leaves[1:], slope)
+    torch.autograd.grad(out.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    kernel = route == "fp32-16x16"
+    assert backward_on_kernel(x, ws, bs, slope) == kernel
+    assert (drb_backward.launches - before[0], drb_backward.recomputes - before[1]) == (
+        (1, 0) if kernel else (0, 1))
 
 
 @pytest.mark.cuda
