@@ -1,70 +1,48 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port (``downgan_tpu_torch``).
+"""On-card smoke run of the PyTorch/CUDA port (``downgan_tpu_torch``): the
+end-to-end flows that the CPU tests cannot run, checked on one CUDA card.
 
 Run from the root of a checkout on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
+It measures no speed: the benchmark (``python3 -m portbench.run``) times
+the port end to end and ``tools/time_kernels.py`` times each kernel alone.
+The kernels against their plain twins, shape by shape, are the
+``cuda``-marked tests of ``tests/test_torch_*.py``; the smoke runs their
+cases at the main paths' shapes (``KERNEL_TESTS``).
+
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device   -- the card (``nvidia-smi`` name and power limit on a line of
                its own), torch and CUDA versions;
-2. build    -- builds ``downgan_tpu_torch/ops/cuda/drb.cu`` (the fp32 and the
-               bf16 DRB kernel) for sm_90a from the checkout, with the
-               compiler's register report (and fails on a spill);
-3. kernel   -- the fp32 DRB kernel against its plain PyTorch twin on the card
-               (TF32 off), at the generator's shapes, domain bands, images of
-               several 16x16 tiles (halo'd on every side, ragged), F=8 and
-               the halo-extended bands the spatial phase gives it;
-               at B=150 (serving), B=128 (training) and a domain band it
-               times the kernel, the twin and the cuDNN five-conv chain
-               beside the kernel's bound (the 3xTF32 tensor-core floor, or
-               the bytes if they take longer);
-4. kernel_bf16 -- the bf16 DRB kernel (wgmma) and its bf16 twin, both held
-               to a float64 evaluation of the same function, at B=150,
-               B=128, B=132, the band, a ragged image and F=8; times at the
-               first four beside the twin, the bf16 cuDNN chain and the bound
-               (the bf16 tensor-core rate, or the bytes), with the kernel's
-               shared memory per CTA and CTAs per SM;
-5. generator-- the florida generator at full width (1,696,514 params,
+2. build    -- builds ``downgan_tpu_torch/ops/cuda/drb.cu`` (the fp32, bf16
+               and wide DRB kernels, the backward kernel and its reduction)
+               for sm_90a from the checkout, with the compiler's register
+               report (and fails on a spill); kernels -- ``KERNEL_TESTS``
+               by pytest in a child process, each kernel's wrapper against
+               its plain twin at the main paths' shapes (fp32 at B=150, 128
+               and the spatial halo bands, the backward kernel at B=128,
+               bf16 at B=150 and 128, wide at B=128): all pass, none skip;
+3. generator-- the florida generator at full width (1,696,514 params,
                seeded weights): the kernel path against every DRB on the
-               plain twin at B=150, against the CPU at B=2, and its forward
-               throughput; generator_bf16 the same in bf16 (48 bf16 launches
-               a forward) beside the fp32 forward's time;
-6. profile  -- ``torch.profiler`` over 3 forwards at B=150: device time by
-               kernel name (a report: where the profiler sees no device
-               time it says so and the run goes on);
-7. serving  -- the serving path: ``serve_model(BatchingSRModel(...))``
+               plain twin at B=150 and against the CPU at B=2, and a
+               generator built inside ``torch.inference_mode()`` against the
+               normal build, bit for bit; generator_bf16 the same in bf16
+               (48 bf16 launches a forward);
+4. serving  -- the serving path: ``serve_model(BatchingSRModel(...))``
                answers concurrent /v1/generate requests and a
                /v1/generate-domain request over HTTP; responses are checked
                against direct calls, /metrics against the traffic, and the
                DRB kernel's launch count (reset just before) against 48 per
                dispatch;
-8. drb_grad -- ``DRBFunction`` (the kernel's forward, the backward kernel
-               ``drb_backward_kernel`` and its reduction as its backward)
-               at the training batch, B=128: against the float64 twin of the
-               backward on the kernel's LeakyReLU sides, against autograd
-               through the plain twin, bit for bit across two calls, one
-               backward launch and no recompute; the backward kernel's time
-               (CUDA events, kernel and reduction) beside its bound, the
-               cuDNN recompute (``drb_backward``, the library yardstick,
-               which the port still runs for bf16, wide and banded blocks)
-               and the forward kernel's and cuDNN chain's times;
-               drb_grad_bf16 in bf16 against the float64 gradient;
-   esrgan -- ESRGAN at its published widths (``generator_arch: "esrgan"``):
-               the wide DRB kernel (nf 64, gc 32, slope 0.2) against its twin
-               at B=1, 3, 128 and from an input 4 bytes off a 16-byte
-               boundary, timed at B=128 beside the fp32 cuDNN five-conv
-               chain (TF32 off), its bound and the twin (``esrgan_kernel``);
-               ``DRBFunction`` against float64 autograd on the fp32 chain's
-               LeakyReLU sides at B=128;
-               the generator (17,068,994 params) through ``make_generator``,
-               69 wide launches a forward, against its DRBs on the twin; a
-               5-step round of ``Trainer.step_fn`` at B=32, 759 wide
-               launches. To run it alone: a script under ``build/`` that
-               calls ``phase_device``, ``phase_build`` and
-               ``phase_esrgan(rng, card_peaks(name))`` (~40 s);
-9. train_parity -- six florida train steps (full width, batch 4) on the card
+5. esrgan   -- ESRGAN at its published widths (``generator_arch:
+               "esrgan"``): the generator (17,068,994 params) through
+               ``make_generator`` at B=128, 69 wide launches a forward,
+               against its DRBs on the twin; a 5-step round of
+               ``Trainer.step_fn`` at B=32, 759 wide launches and the
+               recompute backward;
+6. train_parity -- six florida train steps (full width, batch 4) on the card
                and on the CPU from the same weights and alphas: step-0
                gradients, per-step losses and metrics, the final parameters,
                48 DRB launches per generator forward, and the kernel path
@@ -72,22 +50,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                packed weights were refreshed); fused_parity one fused round
                of examples/production_tuned.json at batch 4, card against
                CPU, in fp32 (the same tolerances) and in bf16 (loose ones);
-10. training -- the training path: ``cli train --config examples/florida.json
-               --synthetic --samples 1440 --epochs 2`` in-process at florida
-               batch 128, its epoch means, 48 DRB launches in each of its
-               generator forwards (counted by kind), step times with CUDA
-               events, peak memory, the step's parts timed alone, and a
-               ``torch.profiler`` split of one 5-step round by kernel class;
-11. training_tuned -- the tuned path: ``cli train --config
-               examples/production_tuned.json --synthetic --samples 1440
-               --epochs 2`` (bf16, fused 5-critic rounds, the metric pass on
-               the reused fake): 2 rounds an epoch, 28 generator forwards,
-               1,344 bf16 DRB launches, round times, peak memory, the parts
-               and a profiler split of the bf16 critic update and a round;
-12. serving_bf16 -- that run restored as ``serve --checkpoint`` restores it
-               (a bf16 model) and served over HTTP, patches and a domain
-               request against the bf16 model's direct forward;
-13. resume  -- the same command as 10, checkpointed, sent SIGTERM after its
+7. variants_parity -- three florida steps at batch 4 with every training
+               variant on (frequency separation, the conditional critic,
+               flips, the divergence, vorticity and EOF terms, grad_accum 2,
+               a cosine schedule with warmup) and critic_iterations 2, so
+               that the generator's second update runs at the full rate,
+               card against CPU from the same weights, EOF basis, alphas and
+               flip masks, 48 DRB launches in every generator forward;
+8. training -- ``cli train --config examples/florida.json --synthetic
+               --samples 1440 --epochs 2`` in-process at florida batch 128:
+               its epoch means, 48 DRB launches in each of its generator
+               forwards (counted by kind), 48 backward kernels and no
+               recompute a generator update;
+9. training_tuned -- ``cli train --config examples/production_tuned.json
+               --synthetic --samples 1440 --epochs 2`` (bf16, fused
+               5-critic rounds, the metric pass on the reused fake): 2 rounds
+               an epoch, 28 generator forwards, 1,344 bf16 DRB launches;
+               serving_bf16 that run restored as ``serve --checkpoint``
+               restores it (a bf16 model) and served over HTTP, patches and a
+               domain request against the bf16 model's direct forward;
+10. resume  -- the same command as 8, checkpointed, sent SIGTERM after its
                step 3 and run again with ``--resume``, against an
                uninterrupted run (epoch-1 means, every parameter and Adam
                moment: bit for bit, cuDNN deterministic), once plain and once
@@ -96,39 +78,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                resolution, served over HTTP against the EMA generator's direct
                forward; 48 DRB launches in every generator forward (test
                passes and EMA scoring included); the kernel path against the
-               twin after EMA updates and after a checkpoint load; checkpoint
-               bytes and save and load times;
-14. host_feed -- the same command as 10 with ``--host-feed`` (the set in
+               twin after EMA updates and after a checkpoint load;
+               checkpoint bytes;
+11. host_feed -- the same command as 8 with ``--host-feed`` (the set in
                host RAM, batches through pinned buffers and a copy stream),
-               cuDNN deterministic, held bit for bit against 13's
+               cuDNN deterministic, held bit for bit against 10's
                uninterrupted plain run (every epoch's means, the final
-               state); epoch and step times beside that run's, the device
-               ms the step waited on the copies, the reader thread's ms per
-               batch, pinned bytes, 48 DRB launches per generator forward;
-15. stream  -- the same 1,440 samples as int16 CF-packed ``(time, var, lat,
+               state); 48 DRB launches per generator forward;
+12. stream  -- the same 1,440 samples as int16 CF-packed ``(time, var, lat,
                lon)`` files on disk (``np.memmap``s, so no h5py is needed;
                the CPU tests hold NetCDF staging to the JAX package),
                trained two epochs through ``LazyField``/``StreamDataset``
                and the feed, held bit for bit against a host-fed run on the
-               same decoded arrays; read-and-decode ms per batch, whether
-               the native host library built;
-16. stochastic -- ``cli train --config examples/florida.json --synthetic
+               same decoded arrays; whether the native host library built;
+13. stochastic -- ``cli train --config examples/florida.json --synthetic
                --samples 1440 --epochs 1 --noise-channels 4`` in-process (the
                stochastic RRDB, 1,697,090 params): 48 DRB launches in every
-               generator forward, finite means, a timed round and peak
-               memory beside the ``training`` phase's, the card's forward
-               against the CPU's with the same weights and latent at B=2, and
-               the fp32 and bf16 forwards with the latent at B=150 (48 fp32 or
-               bf16 launches) timed in turns with the deterministic ones;
-17. ensemble -- ``ensemble_metrics`` with 8 members over that run's
+               generator forward, finite means, the card's forward against
+               the CPU's with the same weights and latent at B=2, and the
+               fp32 and bf16 forwards with the latent at B=150 (48 fp32 or
+               bf16 launches);
+14. ensemble -- ``ensemble_metrics`` with 8 members over that run's
                144-sample test split (CRPS, spread, MAEs) against a float64
                numpy computation of the same members, each member drawn twice
                bit for bit;
-18. serving_stochastic -- that generator served over HTTP: coalesced
+15. serving_stochastic -- that generator served over HTTP: coalesced
                requests equal to direct calls bit for bit (the fixed latent
                in each request's own block layout) and a domain request (the
                whole-domain latent) equal to the direct tiler's;
-    generate -- batch generation (``cli generate``'s loop): the training
+16. generate -- batch generation (``cli generate``'s loop): the training
                phase's checkpoint restored through ``generate``'s source
                resolution, 1,440 synthetic samples through
                ``generate_fields_iter`` (10 chunks of 150, a 90-row tail, 480
@@ -136,60 +114,48 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                streamed writer's block source (``generated_blocks``) equal to
                the in-memory result bit for bit, plain, tiled with
                ``--tile-rows 16`` and a 4-member ensemble of the stochastic
-               generator (the block source needs no h5py: no file is written); 4
-               samples against the CPU; ms per chunk and patches/s, and the
-               parts of a chunk (copy in, forward, copy out) by CUDA events;
-               the same in bf16 from the training_tuned run;
-    evaluate -- ``cli evaluate`` in-process: the training phase's
+               generator (the block source needs no h5py: no file is
+               written); 4 samples against the CPU; the same in bf16 from the
+               training_tuned run;
+17. evaluate -- ``cli evaluate`` in-process: the training phase's
                checkpoint over 1,440 synthetic samples (12 batches, 48 DRB
                launches each); at 144 samples the same against the command on
                the CPU, the resume phase's EMA run with ``--ema``, the
                exported bundle (``--weights-only``: no Wass, the warning on
-               stderr) and ``--ensemble 4`` on the stochastic run; the
-               seconds of each command's synthetic set, state and pass;
-    tiles_split -- ``tiled_sr_inference(devices=["cuda:0", "cuda:0"])``
+               stderr) and ``--ensemble 4`` on the stochastic run;
+18. tiles_split -- ``tiled_sr_inference(devices=["cuda:0", "cuda:0"])``
                against one device on 8 samples of 32x112, deterministic and
                stochastic, bit for bit, and a ``BatchingSRModel`` over two
                replicas against one;
 19. srresnet -- ``cli train ... --epochs 1 --generator-arch srresnet`` (the
                SRResNet family, 115,414 params, no DRB and so no
-               hand-written kernel), a timed round, its forward against the
-               CPU's at B=2 and timed at B=150, and the trained model served
-               over HTTP;
-20. variants_parity -- (after fused_parity) three florida steps at batch
-               4 with every training variant on (frequency separation, the
-               conditional critic, flips, the divergence, vorticity and EOF
-               terms, grad_accum 2, a cosine schedule with warmup) and
-               critic_iterations 2, so that the generator's second update
-               runs at the full rate, card against CPU from the same
-               weights, EOF basis, alphas and flip masks, 48 DRB launches
-               in every generator forward;
-21. variants -- ``cli train --config examples/florida.json --synthetic
+               hand-written kernel), its forward against the CPU's at B=2,
+               and the trained model served over HTTP;
+20. variants -- ``cli train --config examples/florida.json --synthetic
                --samples 1440 --epochs 1`` with every variant's flag (the
                EOF basis fit at staging), and again from a config file with
                the physics terms and metrics: epoch means, launches by
-               kind, timed rounds, peak memory, and a lone critic update's
-               peak memory with grad_accum 1 and 2;
-22. variants_tuned -- ``cli train --config examples/production_tuned.json
+               kind, and a lone critic update's peak memory lower with
+               grad_accum 2 than with 1;
+21. variants_tuned -- ``cli train --config examples/production_tuned.json
                ... --epochs 1 --augment-flips --critic-conditional
                --grad-accum 2``: bf16 fused rounds, 768 bf16 DRB launches.
-23. dp      -- data-parallel training at florida width: (a) ``python -m
+22. dp      -- data-parallel training at florida width: (a) ``python -m
                torch.distributed.run --nproc-per-node 1 -m
                downgan_tpu_torch.cli train --synthetic --samples 1440
                --epochs 1 --multihost`` (NCCL, world size 1; run as
                ``chip_smoke.py --train-cli OUT train ...``, which holds cuDNN
                deterministic and counts launches) against the plain command,
-               epoch means and checkpoint bit for bit; (b) two gloo ranks
-               sharing the card (``Trainer(multihost=True)``, 64 rows each of
-               a global batch of 128), six fp32 reference steps, the ranks bit
-               for bit and each within the Adam tolerances of one rank on the
-               global batch; (c) the same for two bf16 fused rounds of
+               epoch means and checkpoint bit for bit; two ranks building
+               ``drb.cu`` at once; (b) two gloo ranks sharing the card
+               (``Trainer(multihost=True)``, 64 rows each of a global batch
+               of 128), six fp32 reference steps, the ranks bit for bit and
+               each within the Adam tolerances of one rank on the global
+               batch; (c) the same for two bf16 fused rounds of
                examples/production_tuned.json. 48 DRB launches in every
                forward of every rank; the epoch's means of 2 ranks within
-               the card step tolerances of one rank's; steps, rounds,
-               gradient all-reduces and the metric pass's gathers timed by
-               CUDA events; peak memory per rank.
-24. spatial -- halo-exchange spatial sharding at florida width and depth:
+               the card step tolerances of one rank's.
+23. spatial -- halo-exchange spatial sharding at florida width and depth:
                four gloo ranks sharing the card as a 2 x 2 (data, spatial)
                grid. (a) ``sharded_generator_apply`` at B=150 over 2 shards
                (8 coarse rows a rank, DRB bands of 13 rows) and 4 (4 rows,
@@ -201,35 +167,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                gradients of a scalar of its output (the DRB backward over
                the bands, the halos' adjoints), and ``sharded_critic_apply``,
                the GP and its parameter gradients (the double backward
-               through the collectives); (c) six steps of ``build_spatial_train_step`` at
-               B=32 over 2 ranks, bit for bit across the ranks, each within
-               the Adam tolerances of one process's ``build_train_step``:
-               ms per step and per update step, ms and count of halo
-               exchanges, gathers, row sums and gradient sums, peak memory
-               per rank beside one process's; (d) two steps of
+               through the collectives); (c) six steps of
+               ``build_spatial_train_step`` at B=32 over 2 ranks, bit for
+               bit across the ranks, each within the Adam tolerances of one
+               process's ``build_train_step``; (d) two steps of
                ``build_dp_spatial_train_step`` on the grid against 2-rank
                data parallelism on the same global batch of 32.
-25. tooling -- the rest of the CLI, in-process: ``profile`` (the generator
+24. tooling -- the rest of the CLI, in-process: ``profile`` (the generator
                forward at B=150, 3 fp32 reference steps at B=128, 2 bf16
                fused rounds; a Chrome trace naming the DRB kernel, 48
                launches a generator forward), the FLOP census of florida
                (``meta`` equal to the CPU's, beside the JAX package's
-               figures and the profiled share of peak), ``tune`` over two
-               candidates in their own processes and ``show-config`` of its
-               recommendation, ``import-torch`` of a seeded florida
-               generator and critic (the bundle bit for bit the direct load)
-               and ``export-torch`` of the training run's checkpoint
-               imported again, grid rows on the card against the CPU, the
-               figures' note without matplotlib, ``export-mlflow`` of the
-               training run and ``serve-tracking`` over its root.
+               figures), ``tune`` over two candidates in their own processes
+               and ``show-config`` of its recommendation, ``import-torch`` of
+               a seeded florida generator and critic (the bundle bit for bit
+               the direct load) and ``export-torch`` of the training run's
+               checkpoint imported again, grid rows on the card against the
+               CPU, the figures' note without matplotlib, ``export-mlflow``
+               of the training run and ``serve-tracking`` over its root.
 
-The kernel phases also hold the kernels at B=64 (a microbatch under
-grad_accum 2), and the generator phase holds a generator built inside
-``torch.inference_mode()`` to the normal build, bit for bit.
-
-Then it prints ``{"kernels": [...]}`` and, last,
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-It imports nothing of JAX or of the JAX package ``downgan_tpu``.
+Then it prints ``{"kernels": [...]}``: each hand-written kernel's
+launches on the main paths above, by path, and its bound at the main
+paths' shapes from the benchmark's own functions. Last it prints ``{"ok":
+true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``. It imports nothing of JAX or of the JAX package
+``downgan_tpu``.
 """
 from __future__ import annotations
 
@@ -239,7 +200,6 @@ import dataclasses
 import datetime
 import functools
 import json
-import math
 import os
 import re
 import signal
@@ -249,6 +209,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import numpy as np
@@ -258,23 +219,6 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_ATOL = KERNEL_RTOL = 1e-5  # 3xTF32 tensor-core products vs fp32, sums of <= 720 terms
 GEN_ATOL = GEN_RTOL = 1e-4  # the same difference carried through 48 DRBs
 SERVE_ATOL = 1e-6  # same program and batch shape on both sides
-# DRB gradients, DRBFunction vs autograd through the twin: the backward never
-# reads the kernel's output, so both sides are fp32 sums of the same products
-# in another order. A weight gradient sums 32,768 pixel terms at B=128, about
-# sqrt(32768 / 720) ~ 7x the forward's longest sum, so ten times the
-# kernel's 1e-5, relative to each gradient's largest entry.
-DRB_GRAD_TOL = 1e-4
-# The wide (ESRGAN) block's gradients at B=128, as tests/test_torch_esrgan.py
-# holds them. Against autograd through cudnn_chain, the function its
-# backward differentiates (a plumbing check: cuDNN's backward sums in
-# another order from call to call), within 1e-5 of each gradient's norm.
-# Against the float64 block with each LeakyReLU on the side of zero that
-# cudnn_chain's fp32 pre-activation takes (block_on_sides), within 1e-4:
-# over 33 cases on the H100 such readings are at most 9.1e-6 (the last
-# stage's fp32 wgrad). On the float64 block's own sides, 14 of the 33 cases
-# had one or two pre-activations within rounding of zero on the other side,
-# whose gradient then moves by 0.8 of itself, and read up to 1.8e-3.
-WIDE_GRAD_CHAIN_TOL, WIDE_GRAD_FLOAT64_TOL = 1e-5, 1e-4
 # Step-0 gradient of the generator loss with respect to the fake, card vs
 # CPU, outside the elements where the L1 term's sign flips, relative to its
 # largest entry: the fake differs by up to GEN_ATOL (1e-4); ten times that.
@@ -303,16 +247,7 @@ ADAM_ATOL_PER_UPDATE, ADAM_MEDIAN_ATOL = 2 * 2.5e-4, 1e-5
 B_MAIN = 150  # Config.chunk_size and the serving batch
 B_TRAIN = 128  # hp.batch_size of examples/florida.json and production_tuned.json
 B_PARITY = 4  # the train_parity and fused_parity phases' batch (the CPU side's cost)
-B_ONE_PER_SM = 132  # an H100 SXM's SMs: whole-sample units with no second wave
-B_MICRO = B_TRAIN // 2  # a generator update's microbatch under grad_accum = 2
 BF16 = torch.bfloat16
-# The bf16 kernel against the bf16 twin (tests/test_torch_drb.py): both are
-# held to a float64 evaluation of the same function (same bf16 inputs, same
-# three rounding points); the kernel's largest error may be at most 1.25x
-# the twin's, or one bf16 ulp of the output's largest magnitude if that is
-# larger (an element whose fp32 sum lands next to a rounding boundary flips
-# by its own ulp); kernel and twin at most 2 such ulps apart.
-BF16_VS_FP64_TWIN_FACTOR, BF16_KERNEL_VS_TWIN_ULPS = 1.25, 2
 # The bf16 florida generator, kernel path against every DRB on the bf16
 # twin, relative to the output's largest magnitude: the two paths' DRBs
 # are each one rounding flip apart in a few elements (one bf16 ulp is 2**-8
@@ -327,29 +262,40 @@ GEN_BF16_REL = 2e-2
 # element of the generator measured 2 * lr apart on the H100), the median
 # element within 1e-4 (measured: 1.4e-5).
 BF16_STEP_RTOL, BF16_STEP_ATOL, BF16_MEDIAN_ATOL = 2e-2, 1e-3, 1e-4
-# DRBFunction in bf16 at B=128 against the float64 gradient of the same
-# block, relative to each gradient's largest entry: a bf16 backward rounds
-# every conv's output gradient (tests/test_torch_drb.py; measured on the
-# H100: 3.9e-2 at worst, a bias gradient).
-BF16_GRAD_TOL = 6e-2
 # Ensemble scores on the card (fp32 sums over 4.7 M points a member)
 # against a float64 numpy computation of the same members.
 ENSEMBLE_RTOL = 1e-5
-# Dense peaks (NVIDIA data sheets, no sparsity), at the card's full power
-# limit, in TFLOP/s: fp32 outside the tensor cores, TF32 and bf16 on them;
-# HBM in TB/s.
-PEAKS = (("H100 PCIe", dict(fp32=51.2, tf32=378.0, bf16=756.0, hbm=2.0)),
-         ("H100 NVL", dict(fp32=60.0, tf32=417.5, bf16=835.5, hbm=3.9)),
-         ("H100", dict(fp32=67.0, tf32=495.0, bf16=989.0, hbm=3.35)),
-         ("H200", dict(fp32=67.0, tf32=495.0, bf16=989.0, hbm=4.8)))
-
-
-T0 = time.perf_counter()
+# Each hand-written kernel's wrapper against its plain twin at the shapes
+# the main paths give it, as cases of the cuda tests: the fp32 forward at
+# the serving and training batches and on the spatial path's halo bands
+# (13 rows over 2 shards, 9 and 13 over 4); the backward kernel and its
+# reduction at the training batch, against the float64 twin on the kernel's
+# own sides and bit for bit over calls, and ``DRBFunction`` on that route;
+# the bf16 forward at the serving and tuned training batches and bf16
+# ``DRBFunction``; the wide forward and wide ``DRBFunction`` at ESRGAN's
+# training batch.
+KERNEL_TESTS = [
+    "tests/test_torch_drb.py::test_cuda_kernel_matches_twin[B150-F16-16x16]",
+    "tests/test_torch_drb.py::test_cuda_kernel_matches_twin[B128-F16-16x16]",
+    "tests/test_torch_drb.py::test_cuda_kernel_matches_twin[B150-F16-13x16]",
+    "tests/test_torch_drb.py::test_cuda_kernel_matches_twin[B150-F16-9x16]",
+    "tests/test_torch_drb.py::test_cuda_kernel_matches_twin[B32-F16-13x16]",
+    "tests/test_torch_drb.py::test_cuda_kernel_matches_twin[B16-F16-13x16]",
+    "tests/test_torch_drb.py::test_cuda_backward_kernel_matches_float64[128-16]",
+    "tests/test_torch_drb.py::test_cuda_backward_kernel_is_bit_for_bit_and_computes_only_what_is_needed",
+    "tests/test_torch_drb.py::test_cuda_drb_function_gradients_match_the_twin_at_b128",
+    "tests/test_torch_drb.py::test_cuda_bf16_kernel_matches_twin[B150-F16-16x16]",
+    "tests/test_torch_drb.py::test_cuda_bf16_kernel_matches_twin[B128-F16-16x16]",
+    "tests/test_torch_drb.py::test_cuda_bf16_drb_function_gradients_match_float64[reference-inputs]",
+    "tests/test_torch_drb.py::test_cuda_bf16_drb_function_gradients_match_float64[init-scale]",
+    "tests/test_torch_esrgan.py::test_cuda_wide_kernel_matches_twin_at_b128[B128]",
+    "tests/test_torch_esrgan.py::test_cuda_wide_drb_function_backward_matches_autograd_through_the_twin",
+]
 
 
 def emit(phase: str, **fields) -> None:
-    """One JSON line; ``t_s`` is the script's time so far."""
-    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **fields}), flush=True)
+    """One JSON line."""
+    print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
 def check(ok: bool, message: str) -> None:
@@ -357,91 +303,11 @@ def check(ok: bool, message: str) -> None:
         raise RuntimeError(message)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls. The
-    card first spins (``torch.cuda._sleep``) so that the host queues all the
-    calls ahead of it, and a kernel shorter than its launch's host work (the
-    bf16 DRB kernel: ~0.016 ms against ~0.025 ms of Python per call) is timed
-    on the device, not at the host's launch rate. If the card had already
-    finished spinning when the last call was queued, the spin is made four
-    times longer and the calls timed again."""
-    for _ in range(warmup):
-        fn()
-    spin = 2_000_000  # clock cycles, ~1 ms
-    while True:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(iters):
-            fn()
-        queued_ahead = not start.query()  # still spinning: every call waits in the queue
-        end.record()
-        torch.cuda.synchronize()
-        if queued_ahead or spin >= 2_000_000_000:
-            return start.elapsed_time(end) / iters
-        spin *= 4
-
-
-def card_peaks(name: str) -> dict:
-    for key, rates in PEAKS:
-        if key in name:
-            return rates
-    raise RuntimeError(f"no peak rates known for {name!r}")
-
-
-def bf16_ulp(magnitude: float) -> float:
-    """The spacing of bf16 values at ``magnitude`` (8 significant bits)."""
-    return 2.0 ** (math.floor(math.log2(magnitude)) - 7)
-
-
 def reset_launch_counts() -> None:
     from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
 
     drb_forward.launches = drb_forward.launches_bf16 = drb_forward.launches_wide = 0
     drb_backward.launches = drb_backward.recomputes = 0
-
-
-def drb_params(f: int, rng: torch.Generator, device):
-    """Random DRB weights with the generator's init bound, U(+-1/sqrt(fan_in))."""
-    ws, bs = [], []
-    for s in range(1, 6):
-        bound = 1.0 / (9 * s * f) ** 0.5
-        ws.append(((torch.rand(f, s * f, 3, 3, generator=rng) * 2 - 1) * bound).to(device))
-        bs.append(((torch.rand(f, generator=rng) * 2 - 1) * bound).to(device))
-    return ws, bs
-
-
-def drb_flops(b: int, f: int, h: int, w: int) -> int:
-    return sum(2 * 9 * (s * f) * f * h * w for s in range(1, 6)) * b
-
-
-def chain_sides(x, ws, bs, slope):
-    """For stages 1-4 of a DRB, whether each pre-activation is above zero,
-    by the calls of ``cudnn_chain`` in x's dtype: in fp32 the LeakyReLU
-    sides that ``DRBFunction``'s recompute differentiates."""
-    import torch.nn.functional as F
-
-    sides, acts = [], x
-    with torch.no_grad():
-        for s in range(4):
-            y = F.conv2d(acts, ws[s], bs[s], padding=1)
-            sides.append(y > 0)
-            acts = torch.cat([acts, F.leaky_relu(y, slope)], 1)
-    return sides
-
-
-def block_on_sides(x, ws, bs, slope, sides):
-    """The DRB in x's dtype with stage s's LeakyReLU passing its input
-    where ``sides[s]`` and scaling it by ``slope`` elsewhere."""
-    import torch.nn.functional as F
-
-    acts = x
-    for s in range(5):
-        y = F.conv2d(acts, ws[s], bs[s], padding=1)
-        if s < 4:
-            acts = torch.cat([acts, torch.where(sides[s], y, slope * y)], 1)
-    return y * 0.2 + x
 
 
 @contextlib.contextmanager
@@ -509,9 +375,7 @@ def package_versions(names) -> dict:
 def phase_build():
     from downgan_tpu_torch.ops.cuda import drb
 
-    t0 = time.perf_counter()
     drb.load_library()
-    seconds = time.perf_counter() - t0
     lines = drb.library_path().with_suffix(".log").read_text().splitlines()
     usage, instance = {}, "?"
     for ln in lines:  # "Compiling entry function '..drb_kernel_bf16ILi16ELi18EE..'", then "Used"
@@ -533,7 +397,7 @@ def phase_build():
               if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     # ptxas says so where it has to serialize the bf16 kernel's wgmma chains.
     wgmma_notes = sorted({ln.strip() for ln in lines if "Potential Performance Loss" in ln})
-    emit("build", seconds=seconds, library=str(drb.library_path().relative_to(ROOT)),
+    emit("build", library=str(drb.library_path().relative_to(ROOT)),
          ptxas=usage, spills=spills, wgmma_notes=wgmma_notes)
     check(not spills, f"the DRB kernel spills registers: {spills}")
     check(len(usage) == 12, f"expected 12 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
@@ -541,87 +405,25 @@ def phase_build():
           f"reduction), the compiler reports {sorted(usage)}")
 
 
-def time_drb(x, ws, bs, want, peaks):
-    """Kernel, plain twin and cuDNN-chain times for one DRB input, beside
-    the kernel's bound for the same work: the larger of its 3xTF32
-    tensor-core floor (three TF32 products per fp32 product) and its bytes
-    at the memory rate. The fp32 CUDA-core time of the same FLOP is printed
-    for information."""
-    from downgan_tpu_torch.ops.cuda.drb import (cudnn_chain, drb_forward, drb_forward_reference,
-                                                pack_drb_weights)
-
-    check(torch.allclose(cudnn_chain(x, ws, bs), want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-          "the cuDNN five-conv chain disagrees with the plain twin")
-    packed = pack_drb_weights(ws, bs)
-    kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed), iters=50)
-    plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs), iters=20)
-    library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
-    torch.backends.cudnn.allow_tf32 = True  # for information: not the same precision
-    try:
-        tf32_err = (cudnn_chain(x, ws, bs) - want).abs().max().item()
-        tf32_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-    b, f, h, w = x.shape
-    fp32_tflops, tf32_tflops, tbps = peaks["fp32"], peaks["tf32"], peaks["hbm"]
-    flops = drb_flops(b, f, h, w)
-    nbytes = 2 * x.numel() * 4 + packed.numel() * 4
-    floor_ms = 3 * flops / (tf32_tflops * 1e12) * 1e3
-    bytes_ms = nbytes / (tbps * 1e12) * 1e3
-    bound_ms = max(floor_ms, bytes_ms)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    timing = dict(shape=[b, f, h, w], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=bound_ms, bound_by="operations" if floor_ms >= bytes_ms else "bytes",
-                  tf32_floor_ms=floor_ms, share_of_bound=bound_ms / kernel_ms,
-                  fp32_cuda_core_ms_information=flops / (fp32_tflops * 1e12) * 1e3,
-                  vs_library=library_ms / kernel_ms, flops=flops, bytes=nbytes,
-                  fp32_tflops_peak=fp32_tflops, tf32_tflops_peak=tf32_tflops, hbm_tbps_peak=tbps,
-                  achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12,
-                  ctas=b * -(-h // 16) * -(-w // 16), sms=sms,
-                  cudnn_tf32_on_ms_not_same_precision=tf32_ms,
-                  cudnn_tf32_on_max_abs_err_vs_twin=tf32_err)
-    if (b, h, w) == (B_MAIN, 16, 16):  # the tail of whole-sample units: one and two per SM
-        for n in (sms, 2 * sms):
-            xn = torch.randn(n, f, h, w, device=x.device)
-            timing[f"ms_at_b{n}"] = cuda_ms(lambda: drb_forward(xn, ws, bs, packed), iters=50)
-    emit("kernel_timing", **timing)
-    return timing
-
-
-def phase_kernel(rng, peaks):
-    """The kernel against its twin at every shape (B=64 is a microbatch
-    under grad_accum = 2); times at the generator's shape (B=150, the main
-    path's), B=128 and the domain band."""
-    from downgan_tpu_torch.ops.cuda.drb import drb_forward, drb_forward_reference
-
-    shapes = [(1, 16, 16, 16), (3, 16, 16, 16), (B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16),
-              (B_MICRO, 16, 16, 16), (8, 16, 32, 56),
-              (8, 16, 32, 112), (3, 8, 16, 16), (2, 8, 12, 20), (2, 16, 56, 112),
-              (1, 16, 37, 53), (1, 8, 40, 24),
-              # phase spatial's halo-extended DRB bands of florida's 16 coarse
-              # rows: 13 rows over 2 shards, 9 and 13 over 4 (leg a, B=150),
-              # 13 in legs b and c (B=32) and d (16 samples a data replica)
-              (SP_B_FORWARD, 16, 13, 16), (SP_B_FORWARD, 16, 9, 16), (SP_B_STEP, 16, 13, 16),
-              (SP_B_STEP // SP_GRID[0], 16, 13, 16)]
-    timed = {(B_MAIN, 16, 16, 16): None, (B_TRAIN, 16, 16, 16): None, (8, 16, 32, 112): None}
-    errors = {}
-    with torch.inference_mode():
-        for shape in shapes:
-            ws, bs = drb_params(shape[1], rng, "cuda")
-            x = torch.randn(*shape, generator=rng).cuda()
-            got = drb_forward(x, ws, bs)
-            want = drb_forward_reference(x, ws, bs)
-            torch.cuda.synchronize()
-            errors[shape] = abs_err = (got - want).abs().max().item()
-            rel_err = ((got - want).abs() / want.abs().clamp_min(1e-3)).max().item()
-            ok = torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            emit("kernel", shape=list(shape), max_abs_err=abs_err, max_rel_err=rel_err,
-                 atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ok=ok)
-            check(ok, f"DRB kernel disagrees with its plain twin at {shape}: {abs_err}")
-            if shape in timed:
-                timed[shape] = time_drb(x, ws, bs, want, peaks)
-    return (max(errors.values()), timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)],
-            timed[(B_TRAIN, 16, 16, 16)])
+def phase_kernels():
+    """``KERNEL_TESTS`` run by pytest in a child process on the card: each
+    must pass, none may skip."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kernels_") as tmp:
+        report = Path(tmp) / "report.xml"
+        proc = subprocess.run([sys.executable, "-m", "pytest", "-q", "--noconftest",
+                               "-p", "no:cacheprovider", f"--junitxml={report}", *KERNEL_TESTS],
+                              cwd=ROOT, capture_output=True, text=True, timeout=900)
+        outcomes = {}
+        if report.exists():
+            for case in ET.parse(report).getroot().iter("testcase"):
+                kinds = [c.tag for c in case if c.tag in ("failure", "error", "skipped")]
+                outcomes[case.get("name")] = kinds[0] if kinds else "passed"
+    passed = sorted(n for n, o in outcomes.items() if o == "passed")
+    emit("kernels", tests=len(KERNEL_TESTS), passed=len(passed),
+         not_passed={n: o for n, o in outcomes.items() if o != "passed"}, pytest_rc=proc.returncode)
+    check(proc.returncode == 0 and len(passed) == len(KERNEL_TESTS),
+          f"the kernels' main-path cases: {len(passed)} of {len(KERNEL_TESTS)} passed "
+          f"(rc {proc.returncode}):\n{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
 
 
 def phase_generator(config, rng):
@@ -651,7 +453,6 @@ def phase_generator(config, rng):
         cpu_err = (gen(x[:2]).cpu() - cpu_gen(x[:2].cpu())).abs().max().item()
         check(cpu_err <= GEN_ATOL * max(1.0, ref.abs().max().item()),
               f"generator: card vs CPU max abs err {cpu_err}")
-        fwd_ms = cuda_ms(lambda: gen(x), iters=10)
         # A generator built inside inference mode (inference-tensor
         # parameters, no version counters): its DRBs repack at every
         # forward and give the normal build's output bit for bit.
@@ -669,73 +470,8 @@ def phase_generator(config, rng):
     emit("generator", params=n_params, batch=B_MAIN, out_shape=list(shape),
          drb_launches_per_forward=per_forward, max_abs_err_vs_plain_twin=err,
          max_abs_err_vs_cpu_b2=cpu_err, atol=GEN_ATOL, rtol=GEN_RTOL,
-         forward_ms=fwd_ms, patches_per_s=B_MAIN / (fwd_ms * 1e-3),
          inference_mode_build_bit_for_bit=True, inference_mode_build_launches=inference_launches)
     return gen
-
-
-def kernel_class(name: str) -> str:
-    low = name.lower()
-    if "drb_kernel" in low:
-        return "drb_kernel"
-    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit")):
-        return "cudnn_conv"
-    if "pixel" in low or "copy" in low or "permute" in low:
-        return "copy_or_pixel_shuffle"
-    return "elementwise_and_other"
-
-
-def profile_forwards(gen, x, n_fwd: int = 3):
-    """Device time by kernel over ``n_fwd`` forwards of ``gen`` on ``x``,
-    from ``torch.profiler``; None where it records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.inference_mode():
-        gen(x)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(n_fwd):
-                gen(x)
-            end.record()
-            torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
-    kernels, classes = [], {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us <= 0:
-            continue
-        cls = kernel_class(evt.key)
-        kernels.append({"kernel": evt.key[:110], "class": cls, "ms_per_forward": us / 1e3 / n_fwd,
-                        "calls_per_forward": evt.count / n_fwd})
-        entry = classes.setdefault(cls, {"ms_per_forward": 0.0, "calls_per_forward": 0.0})
-        entry["ms_per_forward"] += us / 1e3 / n_fwd
-        entry["calls_per_forward"] += evt.count / n_fwd
-    if not kernels:
-        return None
-    kernels.sort(key=lambda k: -k["ms_per_forward"])
-    busy = sum(k["ms_per_forward"] for k in kernels)
-    return {"forwards": n_fwd, "batch": x.shape[0], "forward_ms_events": window_ms / n_fwd,
-            "device_busy_ms_per_forward": busy, "device_busy_share": busy * n_fwd / window_ms,
-            "by_class": classes, "kernels": kernels[:15]}
-
-
-def phase_profile(config, gen, rng):
-    """Device time by kernel over 3 generator forwards at B=150, from
-    ``torch.profiler``. A report: if the profiler records no device time,
-    it says so and the run goes on."""
-    x = torch.randn(B_MAIN, config.n_covariates, config.coarse_size, config.coarse_size,
-                    generator=rng).cuda()
-    report = profile_forwards(gen, x)
-    if report is None:
-        emit("profile", note="device time not measured: the profiler recorded no device events")
-        return
-    emit("profile", **report)
 
 
 def phase_serving(config, gen, rng):
@@ -769,16 +505,12 @@ def phase_serving(config, gen, rng):
                 errors.append((i, repr(exc)))
 
         drb_forward.launches = 0  # the main path's run starts here
-        t0 = time.perf_counter()
         clients = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
         for t in clients:
             t.start()
         for t in clients:
             t.join(timeout=300)
-        patch_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         fields = generate_domain_remote(url, domain, tile_rows=16, overlap=8)
-        domain_s = time.perf_counter() - t0
         launches = drb_forward.launches  # the main path's run ends here
         metrics = json.loads(urllib.request.urlopen(f"{url}/metrics").read())
         check(not errors and not any(t.is_alive() for t in clients), f"client errors {errors}")
@@ -807,209 +539,25 @@ def phase_serving(config, gen, rng):
         server.shutdown()
         server.server_close()
         model.close()
-    emit("serving", requests=n_req, patches=n_req * n_patches, patch_phase_s=patch_s,
-         patches_per_s=n_req * n_patches / patch_s, domain_request_s=domain_s,
-         domain_shape=list(domain.shape), metrics=metrics, drb_launches=launches,
-         max_abs_err_patches=patch_err, max_abs_err_domain=domain_err, atol=SERVE_ATOL)
+    emit("serving", requests=n_req, patches=n_req * n_patches, domain_shape=list(domain.shape),
+         metrics=metrics, drb_launches=launches, max_abs_err_patches=patch_err,
+         max_abs_err_domain=domain_err, atol=SERVE_ATOL)
     return launches
 
 
-def drb_backward_flops(b: int, f: int, h: int, w: int) -> int:
-    """The backward kernel's work: the recompute of stages 1-4, then each
-    stage's input gradient and weight gradient (each a forward's FLOPs)."""
-    recompute = sum(2 * 9 * (s * f) * f * h * w for s in range(1, 5)) * b
-    return recompute + 2 * drb_flops(b, f, h, w)
-
-
-def phase_drb_grad(rng, peaks, timing_b128):
-    """DRBFunction at the training batch: its backward kernel against the
-    float64 twin of the backward on the kernel's own LeakyReLU sides and
-    against autograd through the fp32 twin, bit for bit across two calls;
-    then the backward kernel's time beside its bound and the cuDNN
-    recompute's."""
-    import torch.nn.functional as F
-
-    from downgan_tpu_torch.ops.cuda.drb import (SLOPE, DRBFunction, cudnn_chain, drb_backward,
-                                                drb_backward_kernel, drb_backward_reference,
-                                                drb_forward_reference, pack_drb_weights)
-
-    f = 16
-    ws, bs = drb_params(f, rng, "cuda")
-    x = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()
-    weight = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()  # a random-weighted sum
-
-    def grads(fn):
-        leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
-        return torch.autograd.grad((fn(leaves) * weight).sum(), leaves)
-
-    reset_launch_counts()
-    got = grads(lambda v: DRBFunction.apply(v[0], pack_drb_weights(ws, bs), *v[1:]))
-    torch.cuda.synchronize()
-    routed = (drb_backward.launches, drb_backward.recomputes)
-    check(routed == (1, 0), f"DRBFunction's backward: {routed} (kernel, recompute) calls, not (1, 0)")
-    acts = torch.empty(B_TRAIN, 4 * f, 16, 16, device="cuda")
-    direct = drb_backward_kernel(x, ws, bs, weight, acts=acts)
-    again = drb_backward_kernel(x, ws, bs, weight)
-    twin = grads(lambda v: drb_forward_reference(v[0], v[1:6], v[6:]))
-    torch.cuda.synchronize()
-    bit_for_bit = all(torch.equal(p, q) for p, q in zip(got, direct)) and all(
-        torch.equal(p, q) for p, q in zip(direct, again))
-    x64, ws64, bs64 = x.double(), [t.double() for t in ws], [t.double() for t in bs]
-    sides, flips, a64 = [], 0, x64
-    for s in range(4):
-        y = F.conv2d(a64, ws64[s], bs64[s], padding=1)
-        side = acts[:, s * f:(s + 1) * f] > 0
-        flips += int((side != (y > 0)).sum())
-        sides.append(side)
-        a64 = torch.cat([a64, F.leaky_relu(y, SLOPE)], 1)
-    recompute_err = (acts.double() - a64[:, f:]).abs().max().item()
-    recompute_ok = torch.allclose(acts.double(), a64[:, f:], atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-    want = drb_backward_reference(x64, ws64, bs64, weight.double(), sides=sides)
-    names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
-    errors = {n: ((g.double() - w).abs().max() / w.abs().max()).item()
-              for n, g, w in zip(names, got, want)}
-    vs_twin = {n: ((g - w).abs().max() / w.abs().max()).item() for n, g, w in zip(names, got, twin)}
-    worst = max(errors.values())
-    ok = worst <= DRB_GRAD_TOL and bit_for_bit and recompute_ok
-    emit("drb_grad", shape=[B_TRAIN, f, 16, 16], max_err_relative_to_largest_vs_fp64=errors,
-         max_err_relative_to_largest_vs_fp32_twin_autograd=vs_twin,
-         sides_unlike_float64=flips, recompute_max_abs_err_vs_fp64=recompute_err,
-         bit_for_bit_over_calls=bit_for_bit, tolerance=DRB_GRAD_TOL, ok=ok)
-    check(ok, f"the DRB backward kernel: {errors} vs float64, bit for bit {bit_for_bit}, "
-          f"recompute {recompute_err}")
-
-    backward_ms = cuda_ms(lambda: drb_backward_kernel(x, ws, bs, weight), iters=50)
-    recompute_ms = cuda_ms(lambda: drb_backward(x, ws, bs, weight), iters=20)
-    leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
-    chain_ms = cuda_ms(lambda: torch.autograd.grad(
-        cudnn_chain(leaves[0], leaves[1:6], leaves[6:]), leaves, weight), iters=20)
-    flops = drb_backward_flops(B_TRAIN, f, 16, 16)
-    partial_bytes = B_TRAIN * (135 * f * f + 5 * f) * 4
-    nbytes = 3 * x.numel() * 4 + 2 * partial_bytes  # x, grad_out, dx; the partials out and in
-    floor_ms = 3 * flops / (peaks["tf32"] * 1e12) * 1e3
-    bytes_ms = nbytes / (peaks["hbm"] * 1e12) * 1e3
-    bound_ms = max(floor_ms, bytes_ms)
-    emit("drb_grad_timing", shape=[B_TRAIN, f, 16, 16], backward_kernel_ms=backward_ms,
-         backward_bound_ms=bound_ms, backward_share_of_bound=bound_ms / backward_ms,
-         backward_bound_by="operations" if floor_ms >= bytes_ms else "bytes",
-         backward_flops=flops, backward_bytes=nbytes, backward_target_ms=0.25,
-         backward_ms_cudnn_recompute=recompute_ms, vs_recompute=recompute_ms / backward_ms,
-         kernel_forward_ms=timing_b128["ms"], cudnn_chain_forward_ms=timing_b128["library_ms"],
-         cudnn_chain_forward_plus_backward_ms=chain_ms, kernel_bound_ms=timing_b128["bound_ms"])
-    check(backward_ms <= 0.25, f"the DRB backward kernel takes {backward_ms} ms a block at B=128")
-    return backward_ms
-
-
-def esrgan_block(rng, device):
-    """Random weights of ESRGAN's dense block (nf 64, gc 32) with the
-    generator's init bound, U(+-1/sqrt(fan_in))."""
-    from downgan_tpu_torch.ops.cuda.drb import WIDE_BLOCK, stage_widths
-
-    f, growth, _ = WIDE_BLOCK
-    ws, bs = [], []
-    for cin, cout in stage_widths(f, growth):
-        bound = 1.0 / (9 * cin) ** 0.5
-        ws.append(((torch.rand(cout, cin, 3, 3, generator=rng) * 2 - 1) * bound).to(device))
-        bs.append(((torch.rand(cout, generator=rng) * 2 - 1) * bound).to(device))
-    return ws, bs
-
-
-def phase_esrgan(rng, peaks):
-    """ESRGAN at its published widths. The wide DRB kernel against its twin
-    (B = 1, 3, 128, and x at a 4-byte offset), timed at B = 128 beside the
-    fp32 cuDNN five-conv chain (TF32 off), the twin and its bound; the
-    generator (filters 64, 23 RRDBs) through ``make_generator`` against its
-    DRBs on the twin, 69 wide launches a forward; ``DRBFunction`` against
-    float64 autograd on ``cudnn_chain``'s LeakyReLU sides at B = 128; then a
-    5-step round of ``Trainer.step_fn`` at B = 32 on 160 synthetic samples,
-    its launches counted from zero."""
+def phase_esrgan(rng):
+    """ESRGAN at its published widths (the wide DRB kernel alone is held to
+    its twin by tests/test_torch_esrgan.py): the generator (filters 64, 23
+    RRDBs) through ``make_generator`` at B = 128 against its DRBs on the
+    twin, 69 wide launches a forward; then a 5-step round of
+    ``Trainer.step_fn`` at B = 32 on 160 synthetic samples, its launches
+    counted from zero."""
     from downgan_tpu_torch.config.config import Config
     from downgan_tpu_torch.data.dataset import DeviceDataset
-    from downgan_tpu_torch.ops.cuda.drb import (WIDE_BLOCK, DRBFunction, cudnn_chain,
-                                                drb_backward, drb_forward,
-                                                drb_forward_reference, pack_drb_weights)
+    from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
     from downgan_tpu_torch.training.state import make_generator
     from downgan_tpu_torch.training.trainer import Trainer
 
-    f, _, slope = WIDE_BLOCK
-    ws, bs = esrgan_block(rng, "cuda")
-    packed = pack_drb_weights(ws, bs)
-    errors = {}
-    with torch.inference_mode():
-        for b in (1, 3, B_TRAIN):
-            x = torch.randn(b, f, 16, 16, generator=rng).cuda()
-            before = drb_forward.launches_wide
-            got = drb_forward(x, ws, bs, packed, slope)
-            want = drb_forward_reference(x, ws, bs, slope=slope)
-            torch.cuda.synchronize()
-            check(drb_forward.launches_wide == before + 1, "the wide kernel did not launch")
-            errors[b] = (got - want).abs().max().item()
-            check(torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-                  f"wide DRB kernel vs twin at B={b}: max abs err {errors[b]}")
-        buf = torch.empty(x.numel() + 1, device="cuda")
-        shifted = buf[1:].view_as(x)  # 4 bytes past a 16-byte boundary: the 4-byte copies
-        shifted.copy_(x)
-        check(torch.equal(drb_forward(shifted, ws, bs, packed, slope), got),
-              "the wide kernel's 4-byte input path differs from its 16-byte one")
-        chain_err = (cudnn_chain(x, ws, bs, slope) - want).abs().max().item()
-        kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed, slope), iters=50)
-        plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs, slope=slope), iters=10)
-        library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs, slope), iters=50)
-        torch.backends.cudnn.allow_tf32 = True  # for information: not the same precision
-        try:
-            tf32_err = (cudnn_chain(x, ws, bs, slope) - want).abs().max().item()
-            tf32_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs, slope), iters=50)
-        finally:
-            torch.backends.cudnn.allow_tf32 = False
-    flops = B_TRAIN * sum(2 * 9 * w.shape[1] * w.shape[0] * 256 for w in ws)
-    nbytes = 2 * x.numel() * 4 + packed.numel() * 4
-    floor_ms = 3 * flops / (peaks["tf32"] * 1e12) * 1e3
-    bound_ms = max(floor_ms, nbytes / (peaks["hbm"] * 1e12) * 1e3)
-    emit("esrgan_kernel", shape=[B_TRAIN, f, 16, 16], max_abs_err_vs_twin=errors,
-         atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=kernel_ms, plain_ms=plain_ms,
-         library_ms=library_ms, library="cuDNN five-conv chain, fp32, TF32 off",
-         library_max_abs_err=chain_err, library_tf32_ms_information=tf32_ms,
-         library_tf32_max_abs_err=tf32_err, bound_ms=bound_ms, tf32_floor_ms=floor_ms,
-         share_of_bound=bound_ms / kernel_ms, vs_library=library_ms / kernel_ms,
-         flops=flops, bytes=nbytes)
-    check(kernel_ms < library_ms, f"the wide kernel ({kernel_ms} ms) is slower than the cuDNN "
-          f"chain ({library_ms} ms)")
-
-    # ---- DRBFunction at B=128 against float64 autograd on the chain's sides
-    x = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()
-    weight = torch.randn(B_TRAIN, f, 16, 16, generator=rng).cuda()
-
-    def grads(fn, dtype=torch.float32):
-        leaves = [t.detach().to(dtype).requires_grad_() for t in (x, *ws, *bs)]
-        return torch.autograd.grad((fn(leaves) * weight.to(dtype)).sum(), leaves)
-
-    sides = chain_sides(x, ws, bs, slope)
-    x64, ws64, bs64 = x.double(), [w.double() for w in ws], [b.double() for b in bs]
-    flips = sum(int((a != b).sum()) for a, b in zip(sides, chain_sides(x64, ws64, bs64, slope)))
-    with torch.no_grad():  # the float64 block is the twin's function
-        twin64 = drb_forward_reference(x64, ws64, bs64, slope=slope)
-        check(torch.allclose(block_on_sides(x64, ws64, bs64, slope, sides), twin64,
-                             atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-              "the float64 block on the chain's sides is not the twin's function")
-    got = grads(lambda v: DRBFunction.apply(v[0], packed, *v[1:], slope))
-    chain = grads(lambda v: cudnn_chain(v[0], v[1:6], v[6:], slope))
-    exact = grads(lambda v: block_on_sides(v[0], v[1:6], v[6:], slope, sides), torch.float64)
-    names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
-
-    def norm_errors(want):
-        return {n: ((g.double() - w.double()).norm() / w.double().norm()).item()
-                for n, g, w in zip(names, got, want)}
-
-    vs_chain, vs_float64 = norm_errors(chain), norm_errors(exact)
-    emit("esrgan_drb_grad", shape=[B_TRAIN, f, 16, 16], err_relative_to_norm_vs_chain=vs_chain,
-         err_relative_to_norm_vs_float64_on_chain_sides=vs_float64,
-         sides_flipped_vs_float64_information=flips, tolerance_chain=WIDE_GRAD_CHAIN_TOL,
-         tolerance_float64=WIDE_GRAD_FLOAT64_TOL)
-    check(max(vs_chain.values()) <= WIDE_GRAD_CHAIN_TOL
-          and max(vs_float64.values()) <= WIDE_GRAD_FLOAT64_TOL,
-          f"wide DRBFunction gradients disagree: {vs_chain}, {vs_float64}")
-
-    # ---- the generator at published widths on the main path
     florida = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     config = florida.replace(generator_arch="esrgan", filters=64, num_res_blocks=23)
     gen = make_generator(config, "cuda", rng=torch.Generator().manual_seed(0))
@@ -1024,12 +572,11 @@ def phase_esrgan(rng, peaks):
         with drbs_on_plain_twin(gen) as n_drb:
             ref = gen(xg)
         gen_err = ((out - ref).abs().max() / ref.abs().max()).item()
-        fwd_ms = cuda_ms(lambda: gen(xg), iters=5)
     check(per_forward == (69, 69) and n_drb == 69,
           f"{per_forward} (all, wide) launches a forward for {n_drb} DRBs")
     check(gen_err <= GEN_RTOL, f"ESRGAN generator, kernel path vs twin: {gen_err} of the largest")
     emit("esrgan_generator", params=n_params, batch=B_TRAIN, drb_launches_per_forward=per_forward,
-         max_err_vs_twin_relative_to_largest=gen_err, tolerance=GEN_RTOL, forward_ms=fwd_ms)
+         max_err_vs_twin_relative_to_largest=gen_err, tolerance=GEN_RTOL)
     del gen, out, ref
 
     # ---- Trainer.step_fn, one 5-step round at B=32
@@ -1039,11 +586,9 @@ def phase_esrgan(rng, peaks):
                        torch.randn(160, 2, 128, 128, generator=g).cuda())
     tr = Trainer(cfg, ds, device="cuda")
     reset_launch_counts()  # the ESRGAN training path's run starts here
-    t0 = time.perf_counter()
     metrics = [tr.step_fn(tr.state, ds.coarse[i * 32:(i + 1) * 32], ds.fine[i * 32:(i + 1) * 32])
                for i in range(5)]
     torch.cuda.synchronize()
-    round_s = time.perf_counter() - t0
     launched = (drb_forward.launches, drb_forward.launches_wide)
     backward_routes = (drb_backward.launches, drb_backward.recomputes)
     finite = all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
@@ -1053,129 +598,15 @@ def phase_esrgan(rng, peaks):
     check(backward_routes == (0, 69), f"ESRGAN round: {backward_routes} (kernel, recompute) "
           f"DRB backwards; the wide block keeps the recompute")
     emit("esrgan_training", batch=32, steps=5, launches=launched[0], wide_launches=launched[1],
-         round_s=round_s, critic_loss=[float(m["critic_loss"]) for m in metrics],
-         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+         critic_loss=[float(m["critic_loss"]) for m in metrics])
     del tr, ds
-    return {"ms_b128": kernel_ms, "library_ms_b128": library_ms, "bound_ms_b128": bound_ms,
-            "launches": launched[1]}
-
-
-def phase_drb_grad_bf16(rng, timing_b128):
-    """DRBFunction in bf16 (the bf16 kernel's forward, the bf16 cuDNN
-    recompute as its backward) at B=128 against the float64 gradient of
-    the same block (tests/test_torch_drb.py's criterion), and the bf16
-    backward's time."""
-    from downgan_tpu_torch.ops.cuda.drb import (DRBFunction, cudnn_chain, drb_backward,
-                                                drb_forward, pack_drb_weights)
-
-    ws, bs = drb_params(16, rng, "cuda")
-    x = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda().to(BF16)
-    weight = torch.randn(B_TRAIN, 16, 16, 16, generator=rng).cuda().to(BF16)
-    leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, *bs)]
-    before = drb_forward.launches_bf16
-    out = DRBFunction.apply(leaves[0], pack_drb_weights(ws, bs, BF16), *leaves[1:])
-    got = torch.autograd.grad((out.float() * weight.float()).sum(), leaves)
-    launched = drb_forward.launches_bf16 - before
-    exact = [t.detach().to(BF16).double().requires_grad_() for t in (x, *ws, *bs)]
-    want = torch.autograd.grad((cudnn_chain(exact[0], exact[1:6], exact[6:])
-                                * weight.double()).sum(), exact)
-    torch.cuda.synchronize()
-    names = ["x"] + [f"w{s}" for s in range(1, 6)] + [f"b{s}" for s in range(1, 6)]
-    errors = {n: ((g.double() - w).abs().max() / w.abs().max()).item()
-              for n, g, w in zip(names, got, want)}
-    worst = max(errors.values())
-    check(launched == 1 and worst <= BF16_GRAD_TOL,
-          f"bf16 DRBFunction gradients vs float64: {errors} ({launched} bf16 launches)")
-    backward_ms = cuda_ms(lambda: drb_backward(x, ws, bs, weight), iters=20)
-    emit("drb_grad_bf16", shape=[B_TRAIN, 16, 16, 16], max_err_relative_to_largest_vs_fp64=errors,
-         tolerance=BF16_GRAD_TOL, kernel_forward_ms=timing_b128["ms"],
-         backward_ms_cudnn_recompute=backward_ms, cudnn_chain_forward_ms=timing_b128["library_ms"])
-    return backward_ms
-
-
-def time_drb_bf16(x, ws, bs, peaks):
-    """The bf16 kernel's, its twin's and the bf16 cuDNN chain's times for
-    one DRB input, beside the kernel's bound: the larger of its FLOP at the
-    bf16 tensor-core rate and its bytes (x and out in bf16, the packed
-    weights) at the memory rate."""
-    from downgan_tpu_torch.ops.cuda.drb import (bf16_occupancy, cudnn_chain, drb_forward,
-                                                drb_forward_reference, pack_drb_weights)
-
-    packed = pack_drb_weights(ws, bs, BF16)
-    kernel_ms = cuda_ms(lambda: drb_forward(x, ws, bs, packed), iters=50)
-    plain_ms = cuda_ms(lambda: drb_forward_reference(x, ws, bs), iters=20)
-    library_ms = cuda_ms(lambda: cudnn_chain(x, ws, bs), iters=50)
-    b, f, h, w = x.shape
-    smem_bytes, ctas_per_sm = bf16_occupancy(f, h, w)
-    flops = drb_flops(b, f, h, w)
-    nbytes = 2 * x.numel() * 2 + packed.numel() * 4
-    flop_ms = flops / (peaks["bf16"] * 1e12) * 1e3
-    bytes_ms = nbytes / (peaks["hbm"] * 1e12) * 1e3
-    bound_ms = max(flop_ms, bytes_ms)
-    timing = dict(shape=[b, f, h, w], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=bound_ms, bound_by="operations" if flop_ms >= bytes_ms else "bytes",
-                  bf16_floor_ms=flop_ms, bytes_ms=bytes_ms, share_of_bound=bound_ms / kernel_ms,
-                  vs_library=library_ms / kernel_ms, flops=flops, bytes=nbytes,
-                  bf16_tflops_peak=peaks["bf16"], hbm_tbps_peak=peaks["hbm"],
-                  achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12,
-                  ctas=b * -(-h // 16) * -(-w // 16), smem_bytes_per_cta=smem_bytes,
-                  ctas_per_sm=ctas_per_sm,
-                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
-    emit("kernel_bf16_timing", **timing)
-    return timing
-
-
-def phase_kernel_bf16(rng, peaks):
-    """The bf16 kernel against its bf16 twin, both held to a float64
-    evaluation of the same function, at the generator's shapes (B=150, the
-    serving batch; B=128, the tuned training batch; B=132, one sample per
-    SM of an H100, beside B=150 to show its tail; B=64, a microbatch under
-    grad_accum = 2), the domain band, a ragged image and F=8; times at
-    B=150, 128, 132 and the band."""
-    from downgan_tpu_torch.ops.cuda.drb import cudnn_chain, drb_forward, drb_forward_reference
-
-    shapes = [(B_MAIN, 16, 16, 16), (B_TRAIN, 16, 16, 16), (B_ONE_PER_SM, 16, 16, 16),
-              (B_MICRO, 16, 16, 16), (8, 16, 32, 112), (1, 16, 37, 53), (3, 8, 16, 16),
-              (2, 8, 12, 20), (2, 16, 56, 112)]
-    timed = {}
-    worst = 0.0
-    with torch.inference_mode():
-        for shape in shapes:
-            ws, bs = drb_params(shape[1], rng, "cuda")
-            x = torch.randn(*shape, generator=rng).cuda().to(BF16)
-            before = drb_forward.launches_bf16
-            got = drb_forward(x, ws, bs).double()
-            launched = drb_forward.launches_bf16 - before
-            twin = drb_forward_reference(x, ws, bs).double()
-            want = drb_forward_reference(x, ws, bs, sum_dtype=torch.float64).double()
-            chain = cudnn_chain(x, ws, bs).double()
-            torch.cuda.synchronize()
-            kernel_err = (got - want).abs().max().item()
-            twin_err = (twin - want).abs().max().item()
-            vs_twin = (got - twin).abs().max().item()
-            ulp = bf16_ulp(want.abs().max().item())
-            ok = (launched == 1 and kernel_err <= max(BF16_VS_FP64_TWIN_FACTOR * twin_err, ulp)
-                  and vs_twin <= BF16_KERNEL_VS_TWIN_ULPS * ulp)
-            emit("kernel_bf16", shape=list(shape), kernel_max_abs_err_vs_fp64=kernel_err,
-                 twin_max_abs_err_vs_fp64=twin_err, kernel_vs_twin_max_abs=vs_twin,
-                 kernel_vs_twin_ulps=vs_twin / ulp, bf16_ulp_of_largest_output=ulp,
-                 elements_differing_from_twin=int((got != twin).sum()),
-                 cudnn_chain_max_abs_err_vs_fp64=(chain - want).abs().max().item(),
-                 criterion=f"kernel vs fp64 <= max({BF16_VS_FP64_TWIN_FACTOR} x twin's, 1 ulp); "
-                 f"kernel vs twin <= {BF16_KERNEL_VS_TWIN_ULPS} ulps", ok=ok)
-            check(ok, f"bf16 DRB kernel fails its criterion at {shape}: kernel {kernel_err}, "
-                  f"twin {twin_err}, apart {vs_twin}, ulp {ulp}, launches {launched}")
-            worst = max(worst, vs_twin)
-            if shape[0] in (B_MAIN, B_TRAIN, B_ONE_PER_SM) or shape == (8, 16, 32, 112):
-                timed[shape] = time_drb_bf16(x, ws, bs, peaks)
-    return (worst, timed[(B_MAIN, 16, 16, 16)], timed[(8, 16, 32, 112)],
-            timed[(B_TRAIN, 16, 16, 16)], timed[(B_ONE_PER_SM, 16, 16, 16)])
+    return launched[1]
 
 
 def phase_generator_bf16(config, rng):
     """The florida generator computing in bf16 at B=150: every DRB through
-    the bf16 kernel (48 launches), against every DRB on the bf16 twin, and
-    its forward throughput beside the fp32 one's."""
+    the bf16 kernel (48 launches), against every DRB on the bf16 twin; its
+    distance from the fp32 generator with the same weights is reported."""
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.training.state import make_generator
 
@@ -1200,13 +631,9 @@ def phase_generator_bf16(config, rng):
         check(per_forward == (48, 48) and n_drb == 48,
               f"{per_forward} (all, bf16) kernel launches for {n_drb} DRBs")
         check(err <= GEN_BF16_REL * scale, f"bf16 generator: kernel path vs plain twin {err}")
-        fwd_ms = cuda_ms(lambda: gen(x), iters=10)
-        fp32_ms = cuda_ms(lambda: fp32(x), iters=10)
     emit("generator_bf16", batch=B_MAIN, drb_launches_per_forward=per_forward[1],
          max_abs_err_vs_plain_twin=err, relative_to_largest=err / scale, tolerance=GEN_BF16_REL,
-         max_abs_diff_vs_fp32_generator=vs_fp32, fp32_relative=vs_fp32 / scale,
-         forward_ms=fwd_ms, patches_per_s=B_MAIN / (fwd_ms * 1e-3),
-         fp32_forward_ms_same_call=fp32_ms, fp32_patches_per_s=B_MAIN / (fp32_ms * 1e-3))
+         max_abs_diff_vs_fp32_generator=vs_fp32, fp32_relative=vs_fp32 / scale)
 
 
 def float64_copy(module):
@@ -1432,61 +859,21 @@ def after_each_train_step(hook, before=None):
             setattr(trainer_module, name, real_build)
 
 
-def train_kernel_class(name: str) -> str:
-    low = name.lower()
-    if "drb_kernel" in low:
-        return "drb_kernel"
-    if "multi_tensor_apply" in low:  # the foreach Adam updates
-        return "optimizer"
-    if any(k in low for k in ("dgrad", "wgrad", "bprop", "bwd", "backward")):
-        return "conv_backward"
-    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit", "fprop")):
-        return "conv_forward_or_gemm"
-    return "elementwise_and_other"
-
-
-def time_round(trainer):
-    """One 5-step round of ``trainer``'s step (a generator update and four
-    critic-only steps when it starts at a multiple of 5), CUDA events around
-    each step: (update-step ms, critic-only-step ms)."""
-    step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
-    rows = torch.arange(len(ds) // B_TRAIN * B_TRAIN, device="cuda").reshape(-1, B_TRAIN)
-    update_ms, critic_ms = [], []
-    for s in range(5):
-        coarse, fine = ds.gather(rows[s])
-        is_update = state.step % 5 == 0
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step_fn(state, coarse, fine)
-        end.record()
-        torch.cuda.synchronize()
-        (update_ms if is_update else critic_ms).append(start.elapsed_time(end))
-    return update_ms, critic_ms
-
-
 def phase_training(tracking_root: Path):
-    """The training path through its CLI, in-process, then timed and
-    profiled rounds of the same trainer."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The training path through its CLI, in-process."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
 
     step_metrics = []  # every step's metrics
-    torch.cuda.reset_peak_memory_stats()
-    start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold
     with launches_per_generator_forward() as per_forward, \
             after_each_train_step(lambda state, metrics: step_metrics.append(metrics)):
         reset_launch_counts()  # the training path's run starts here
-        t0 = time.perf_counter()
         trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
                             "--synthetic", "--samples", "1440", "--epochs", "2",
                             "--tracking-root", str(tracking_root)])
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
         launches = drb_forward.launches  # the training path's run ends here
         backward_routes = (drb_backward.launches, drb_backward.recomputes)
-    peak_bytes = torch.cuda.max_memory_allocated()
 
     history, forwards = trainer.history, dict(trainer.forwards)
     check(trainer.config.hp.batch_size == B_TRAIN and trainer.config.filters == 16
@@ -1514,96 +901,11 @@ def phase_training(tracking_root: Path):
         check(abs(r["train"]["gen_loss"] - sum(window) / sum(v != 0.0 for v in window))
               <= 1e-5 * abs(r["train"]["gen_loss"]), "gen_loss rescale")
 
-    # A timed round: steps 20-24, a generator update (20) and four
-    # critic-only steps. The parts below move the state on by critic and
-    # generator updates, not by a step.
-    update_ms, critic_ms = time_round(trainer)
-    step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
-    rows = torch.arange(len(ds) // B_TRAIN * B_TRAIN, device="cuda").reshape(-1, B_TRAIN)
-    round_ms = sum(update_ms + critic_ms)
-
-    # The step's parts, each timed alone on the same modules and batch.
-    from downgan_tpu_torch.ops.msssim import msssim_metric
-    from downgan_tpu_torch.training.wgan import build_eval_metrics, critic_loss, generator_loss
-
-    cfg, gen, critic = trainer.config, state.generator, state.critic
-    coarse, fine = ds.gather(rows[0])
-    alpha = torch.rand(B_TRAIN, 1, 1, 1, device="cuda")
-    with torch.no_grad():
-        fake = gen(coarse)
-
-    def critic_update():
-        state.c_opt.zero_grad(set_to_none=True)
-        critic_loss(cfg, critic, fake, fine, alpha)[0].backward(inputs=list(critic.parameters()))
-        state.c_opt.step()
-
-    def generator_update():
-        state.g_opt.zero_grad(set_to_none=True)
-        generator_loss(cfg, gen, critic, coarse, fine).backward(inputs=list(gen.parameters()))
-        state.g_opt.step()
-
-    eval_metrics = build_eval_metrics(cfg)
-    with torch.no_grad():
-        parts = {"generator_forward": cuda_ms(lambda: gen(coarse), iters=10, warmup=1),
-                 "metric_pass": cuda_ms(lambda: eval_metrics(gen, critic, coarse, fine),
-                                        iters=5, warmup=1),
-                 "msssim_alone": cuda_ms(lambda: msssim_metric(fine, fake), iters=5, warmup=1),
-                 "critic_forward": cuda_ms(lambda: critic(fine), iters=10, warmup=1)}
-    parts["critic_update_with_gp"] = cuda_ms(critic_update, iters=5, warmup=1)
-    parts["generator_update"] = cuda_ms(generator_update, iters=3, warmup=1)
-
-    # One 5-step round (steps 25-29) under the profiler.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for s in range(5):
-            step_fn(state, *ds.gather(rows[s]))
-        torch.cuda.synchronize()
-    # The convolution calls by input shapes (input, weight, ...), with the
-    # device time of the kernels each launched.
-    convs = [{"op": evt.key, "input_shapes": str(evt.input_shapes)[:160],
-              "device_ms_per_round": evt.device_time_total / 1e3, "calls_per_round": evt.count}
-             for evt in prof.key_averages(group_by_input_shape=True)
-             if evt.key in ("aten::cudnn_convolution", "aten::convolution_backward")
-             and evt.device_time_total > 0]
-    convs.sort(key=lambda c: -c["device_ms_per_round"])
-    classes, kernels = {}, []
-    for evt in prof.key_averages():
-        # Kernels only: a span on the card's timeline that torch annotates
-        # (``Optimizer.step#Adam.step``) would count its kernels twice.
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
-        if us > 0:
-            cls = train_kernel_class(evt.key)
-            entry = classes.setdefault(cls, {"device_ms_per_round": 0.0, "launches_per_round": 0})
-            entry["device_ms_per_round"] += us / 1e3
-            entry["launches_per_round"] += evt.count
-            kernels.append({"kernel": evt.key[:120], "class": cls, "device_ms_per_round": us / 1e3,
-                            "launches_per_round": evt.count})
-    kernels.sort(key=lambda k: -k["device_ms_per_round"])
     emit("training", command="cli train --config examples/florida.json --synthetic --samples 1440 "
-         "--epochs 2", batch=B_TRAIN, epochs=history, wall_s_including_data=wall_s,
-         step0_critic_loss=c0, generator_forwards=forwards, drb_launches=launches,
-         drb_launches_per_forward=48, drb_backward_launches=backward_routes[0],
-         drb_backward_recomputes=backward_routes[1], peak_memory_bytes=peak_bytes,
-         peak_memory_above_start_bytes=peak_bytes - start_bytes,
-         ms_per_update_step=float(np.mean(update_ms)), ms_per_critic_only_step=float(np.mean(critic_ms)),
-         update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
-         steps_per_s_events=5e3 / round_ms, patches_per_s_events=B_TRAIN * 5e3 / round_ms,
-         steps_per_s_epoch1=10 / history[1]["seconds"],
-         patches_per_s_epoch1=B_TRAIN * 10 / history[1]["seconds"],
-         parts_ms=parts, profile_round={
-             "steps": 5, "by_kernel_class": classes or "device time not measured: the profiler "
-             "recorded no device events", "kernels": kernels[:15], "convolutions": convs[:8]})
-    return launches, {"patches_per_s_events": B_TRAIN * 5e3 / round_ms,
-                      "patches_per_s_epoch0": B_TRAIN * 10 / history[0]["seconds"],
-                      "ms_per_update_step": float(np.mean(update_ms)),
-                      "ms_per_critic_only_step": float(np.mean(critic_ms)),
-                      "peak_memory_bytes": peak_bytes,
-                      "peak_memory_above_start_bytes": peak_bytes - start_bytes}, \
-        trainer.ckpt.directory
+         "--epochs 2", batch=B_TRAIN, epochs=history, step0_critic_loss=c0,
+         generator_forwards=forwards, drb_launches=launches, drb_launches_per_forward=48,
+         drb_backward_launches=backward_routes[0], drb_backward_recomputes=backward_routes[1])
+    return launches, backward_routes[0], trainer.ckpt.directory
 
 
 def tuned_config(batch: int, compute_dtype: str):
@@ -1676,79 +978,25 @@ def phase_fused_parity():
     emit("fused_parity", batch=B_PARITY, rounds=1, critic_updates=n, report=report)
 
 
-def time_fused_rounds(trainer, n_rounds: int):
-    """``n_rounds`` fused rounds of ``trainer``'s step on its training set,
-    CUDA events around each: their ms."""
-    step_fn, state, ds = trainer.step_fn, trainer.state, trainer.train_ds
-    n = trainer.config.hp.critic_iterations
-    rows = torch.arange(len(ds) // (n * B_TRAIN) * n * B_TRAIN, device="cuda")
-    rows = rows.reshape(-1, n * B_TRAIN)
-    times = []
-    for r in range(n_rounds):
-        coarse, fine = ds.gather(rows[r % len(rows)])
-        coarse, fine = (t.reshape(n, B_TRAIN, *t.shape[1:]) for t in (coarse, fine))
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step_fn(state, coarse, fine)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
-def profile_by_class(fn):
-    """Device time of ``fn()`` by kernel class (``train_kernel_class``) from
-    ``torch.profiler``, and the largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    classes, kernels = {}, []
-    for evt in prof.key_averages():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
-        if us > 0:
-            cls = train_kernel_class(evt.key)
-            entry = classes.setdefault(cls, {"device_ms": 0.0, "launches": 0})
-            entry["device_ms"] += us / 1e3
-            entry["launches"] += evt.count
-            kernels.append({"kernel": evt.key[:120], "class": cls, "device_ms": us / 1e3,
-                            "launches": evt.count})
-    kernels.sort(key=lambda k: -k["device_ms"])
-    return (classes or "device time not measured: the profiler recorded no device events",
-            kernels[:15])
-
-
 def phase_training_tuned(tracking_root: Path):
     """The tuned training path through its CLI, in-process: ``cli train
     --config examples/production_tuned.json --synthetic --samples 1440
     --epochs 2`` (bf16 compute, fused 5-critic rounds, the metric pass on
-    the reused fake) at batch 128, then timed and profiled rounds and the
-    round's parts of the same trainer."""
+    the reused fake) at batch 128."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
-    from downgan_tpu_torch.ops.msssim import msssim_metric
-    from downgan_tpu_torch.training.wgan import critic_loss, generator_loss
 
     round_metrics = []
-    torch.cuda.reset_peak_memory_stats()
     with launches_per_generator_forward() as per_forward, \
             after_each_train_step(lambda state, metrics: round_metrics.append(metrics)):
         reset_launch_counts()  # the tuned training path's run starts here
-        t0 = time.perf_counter()
         trainer = cli_main(["train", "--config", str(ROOT / "examples" / "production_tuned.json"),
                             "--synthetic", "--samples", "1440", "--epochs", "2",
                             "--tracking-root", str(tracking_root)])
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
         launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
         backward_routes = (drb_backward.launches, drb_backward.recomputes)
-    peak_bytes = torch.cuda.max_memory_allocated()
-    # What the run ended with, for serving_bf16 (the timed rounds below move it on).
+    # What the run ended with, for serving_bf16.
     trained = {k: v.detach().cpu().clone() for k, v in trainer.state.generator.state_dict().items()}
 
     cfg, history, forwards = trainer.config, trainer.history, dict(trainer.forwards)
@@ -1778,45 +1026,10 @@ def phase_training_tuned(tracking_root: Path):
         check(abs(r["train"]["gen_loss"] - sum(gen_losses[2 * e:2 * e + 2]) / 2)
               <= 1e-5 * abs(r["train"]["gen_loss"]), "gen_loss of the fused schedule")
 
-    # Timed rounds (CUDA events), then the round's parts alone on the same
-    # modules and batch (the parts move the state on by updates, not steps).
-    round_ms = time_fused_rounds(trainer, 4)
-    state, ds = trainer.state, trainer.train_ds
-    gen, critic = state.generator, state.critic
-    coarse, fine = ds.gather(torch.arange(B_TRAIN, device="cuda"))
-    alpha = torch.rand(B_TRAIN, 1, 1, 1, device="cuda")
-    with torch.no_grad():
-        fake = gen(coarse)
-
-    def critic_update():
-        state.c_opt.zero_grad(set_to_none=True)
-        critic_loss(cfg, critic, fake, fine, alpha)[0].backward(inputs=list(critic.parameters()))
-        state.c_opt.step()
-
-    def generator_update():
-        state.g_opt.zero_grad(set_to_none=True)
-        generator_loss(cfg, gen, critic, coarse, fine).backward(inputs=list(gen.parameters()))
-        state.g_opt.step()
-
-    with torch.no_grad():
-        parts = {"generator_forward": cuda_ms(lambda: gen(coarse), iters=10, warmup=1),
-                 "critic_forward": cuda_ms(lambda: critic(fine), iters=10, warmup=1),
-                 "msssim_alone": cuda_ms(lambda: msssim_metric(fine, fake), iters=5, warmup=1)}
-    parts["critic_update_with_gp"] = cuda_ms(critic_update, iters=5, warmup=1)
-    parts["generator_update"] = cuda_ms(generator_update, iters=3, warmup=1)
-    gp_classes, gp_kernels = profile_by_class(critic_update)
-    round_classes, round_kernels = profile_by_class(lambda: time_fused_rounds(trainer, 1))
     emit("training_tuned", command="cli train --config examples/production_tuned.json "
          "--synthetic --samples 1440 --epochs 2", batch=B_TRAIN, epochs=history,
-         wall_s_including_data=wall_s, round0_critic_loss=c0, generator_forwards=forwards,
-         drb_launches=launches[0], drb_launches_bf16=launches[1], drb_launches_per_forward=48,
-         peak_memory_bytes=peak_bytes, round_ms_samples=round_ms,
-         ms_per_round=float(np.median(round_ms)),
-         patches_per_s_events=5 * B_TRAIN * 1e3 / float(np.median(round_ms)),
-         patches_per_s_epoch1=5 * B_TRAIN * 2 / history[1]["seconds"], parts_ms=parts,
-         profile_critic_update_with_gp={"by_kernel_class": gp_classes, "kernels": gp_kernels},
-         profile_round={"rounds": 1, "by_kernel_class": round_classes,
-                        "kernels": round_kernels})
+         round0_critic_loss=c0, generator_forwards=forwards, drb_launches=launches[0],
+         drb_launches_bf16=launches[1], drb_launches_per_forward=48)
     return launches[1], trainer, trained
 
 
@@ -1825,8 +1038,8 @@ def serve_and_compare(config, weights, rng, n_clients, n_requests, sizes, domain
     clients (request ``r`` of each client ``sizes[r]`` patches) and, given
     ``domain_shape``, one domain request, against a direct ``SRModel``;
     returns /healthz, /metrics, the DRB launches (all and bf16) of the
-    served traffic, the largest differences, the times and both models'
-    compute dtypes."""
+    served traffic, the largest differences and both models' compute
+    dtypes."""
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.serving import (BatchingSRModel, SRModel, generate_domain_remote,
                                            generate_remote, serve_model)
@@ -1854,17 +1067,13 @@ def serve_and_compare(config, weights, rng, n_clients, n_requests, sizes, domain
     try:
         health = json.loads(urllib.request.urlopen(f"{url}/healthz").read())
         reset_launch_counts()  # the served traffic starts here
-        t0 = time.perf_counter()
         clients = [threading.Thread(target=client, args=(i,)) for i in range(n_clients)]
         for t in clients:
             t.start()
         for t in clients:
             t.join(timeout=300)
-        patch_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         fields = generate_domain_remote(url, domain, tile_rows=16, overlap=8) \
             if domain_shape else None
-        domain_s = time.perf_counter() - t0 if domain_shape else None
         launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
         metrics = json.loads(urllib.request.urlopen(f"{url}/metrics").read())
     finally:
@@ -1888,8 +1097,7 @@ def serve_and_compare(config, weights, rng, n_clients, n_requests, sizes, domain
               f"domain response {fields.shape}")
         domain_err = float(np.abs(fields - want).max())
     return {"health": health, "metrics": metrics, "drb_launches": launches[0],
-            "drb_launches_bf16": launches[1], "patch_phase_s": patch_s,
-            "domain_request_s": domain_s,
+            "drb_launches_bf16": launches[1],
             "domain_shape": list(domain_shape) if domain_shape else None,
             "max_abs_err_patches": patch_err, "max_abs_err_domain": domain_err,
             "compute_dtypes": [str(m._gen.compute_dtype) for m in (model, direct)]}
@@ -1995,25 +1203,11 @@ def compare_trajectories(reference, other, what: str) -> dict:
     return report
 
 
-def feed_report(trainer) -> list:
-    """Each train epoch of a host-fed trainer: its seconds and ms per step,
-    the device ms the step's stream waited on the feed's copies, and the
-    reader thread's ms per batch (gathering or reading and decoding rows;
-    waiting for a pinned buffer to come free)."""
-    out = []
-    for record, stats in zip(trainer.history, trainer.feed_stats):
-        out.append({"epoch": record["epoch"], "seconds": record["seconds"],
-                    "ms_per_step": 1e3 * record["seconds"] / record["steps"],
-                    "consumer_wait_ms": stats.consumer_wait_ms(),
-                    "read_ms_per_batch": 1e3 * stats.read_s / stats.batches,
-                    "ring_wait_ms_per_batch": 1e3 * stats.ring_wait_s / stats.batches,
-                    "batches": stats.batches, "pinned_bytes": stats.pinned_bytes})
-    return out
-
-
-def epoch_times(trainer) -> list:
-    return [{"epoch": r["epoch"], "seconds": r["seconds"],
-             "ms_per_step": 1e3 * r["seconds"] / r["steps"]} for r in trainer.history]
+def feed_counts(trainer) -> list:
+    """Each train epoch of a host-fed trainer: the batches its feed read and
+    the pinned bytes of its ring."""
+    return [{"epoch": r["epoch"], "batches": stats.batches, "pinned_bytes": stats.pinned_bytes}
+            for r, stats in zip(trainer.history, trainer.feed_stats)]
 
 
 @contextlib.contextmanager
@@ -2030,13 +1224,12 @@ def phase_resume(config, rng, smi: str):
     """The resume path: ``cli train`` (florida, batch 128, 2 epochs) run
     uninterrupted, then sent SIGTERM after its step 3 and run again with
     ``--resume``; plain, and with the EMA and best-epoch tracking; the best
-    bundle served over HTTP; checkpoint bytes and times."""
+    bundle served over HTTP; checkpoint bytes."""
     from downgan_tpu_torch.cli.__main__ import _resolve_source, build_parser
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.serving import BatchingSRModel, generate_remote, serve_model
     from downgan_tpu_torch.training.wgan import ema_update
-    from downgan_tpu_torch.utils.checkpoint import CheckpointManager
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_resume_")
     root = Path(tmp.name)
@@ -2092,10 +1285,6 @@ def phase_resume(config, rng, smi: str):
                   f"{name}: generator forwards {trainer.forwards}, not {fw}")
         report[name] = {
             "vs_uninterrupted": compare_resumed(straight, resumed),
-            "epoch_s": {"straight": [r["seconds"] for r in straight.history],
-                        "stopped": [r["seconds"] for r in stopped.history],
-                        "resumed": [r["seconds"] for r in resumed.history]},
-            "steps_per_s_resumed_epoch1": 10 / resumed.history[0]["seconds"],
             "epoch1_means_resumed": {k: resumed.history[0][k] for k in ("train", "test", "test_ema")
                                      if k in resumed.history[0]}}
     n_forwards = sum(sum(t.forwards.values()) for r in runs.values() for t in r)
@@ -2145,11 +1334,6 @@ def phase_resume(config, rng, smi: str):
     check(bundle_launches == 48 * dispatches, f"{bundle_launches} DRB launches for "
           f"{dispatches} dispatches")
 
-    # Rounds of the resumed trainers (steps 20-24, cuDNN back to its
-    # default), each starting as the runs left them: packed weights current.
-    rounds = {name: dict(zip(("update", "critic_only"), time_round(runs[name][2])))
-              for name in ("plain", "ema")}
-
     # The kernel path against the twin: the uninterrupted run's EMA generator
     # (packed at epoch 0's test pass, updated at steps 10 and 15, scored
     # again), once more after an explicit EMA update, and the resumed plain
@@ -2166,33 +1350,16 @@ def phase_resume(config, rng, smi: str):
         return (fast - slow).abs().max().item()
 
     twin = {"ema_after_training": twin_err(ema_straight.state.g_ema)}
-    ema_params = list(ema_straight.state.generator.parameters())
-    ema_update_ms = cuda_ms(lambda: ema_update(0.999, ema_straight.state.g_ema, ema_params),
-                            iters=20)
-    ema_update(0.5, ema_straight.state.g_ema, ema_params)
+    ema_update(0.5, ema_straight.state.g_ema, list(ema_straight.state.generator.parameters()))
     twin["ema_after_update"] = twin_err(ema_straight.state.g_ema)
     plain_resumed = runs["plain"][2]
     plain_resumed.state.load_state_dict(plain_resumed.ckpt.restore(0))
     twin["after_checkpoint_load"] = twin_err(plain_resumed.state.generator)
 
-    # Checkpoint bytes and host-clock save and load times of the EMA state.
-    state = ema_resumed.state
-    mngr = CheckpointManager(str(root / "timing"))
-    save_s, read_s, load_s = [], [], []
-    for step in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mngr.save(step, state)
-        save_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        restored = mngr.restore(step)
-        read_s.append(time.perf_counter() - t0)
-        state.load_state_dict(restored)
-        torch.cuda.synchronize()
-        load_s.append(time.perf_counter() - t0)
+    # Checkpoint bytes of the uninterrupted runs' last epoch, with and without the EMA.
     values = sum(t.numel() for k, t in flat_state(ema_resumed).items()
                  if t.is_floating_point() and not k.endswith(".step"))
-    ckpt_bytes = os.path.getsize(os.path.join(mngr.directory, "0.pt"))
+    ckpt_bytes = os.path.getsize(ema_straight.ckpt.directory + "/1.pt")
     plain_bytes = os.path.getsize(runs["plain"][0].ckpt.directory + "/1.pt")
     emit("resume", card=smi,
          command="cli train --config examples/florida.json --synthetic --samples 1440 "
@@ -2204,10 +1371,7 @@ def phase_resume(config, rng, smi: str):
                                     "atol": SERVE_ATOL},
          kernel_vs_twin_max_abs_err=twin, twin_atol=GEN_ATOL, twin_rtol=GEN_RTOL,
          checkpoint={"bytes_with_ema": ckpt_bytes, "bytes_without_ema": plain_bytes,
-                     "fp32_values_with_ema": values, "save_s": save_s,
-                     "load_s": load_s, "of_which_file_read_s": read_s,
-                     "clock": "host, after torch.cuda.synchronize()"},
-         resumed_round_ms=rounds, ema_update_ms=ema_update_ms)
+                     "fp32_values_with_ema": values})
     # The EMA run stays on disk for the evaluate phase (main removes it).
     return launches, bundle_launches, runs["plain"][0], (tmp, runs["ema"][0].ckpt.directory,
                                                          root / "florida_ema.json")
@@ -2240,8 +1404,8 @@ def phase_host_feed(device_run, smi: str):
           f"{launches} DRB launches over {len(per_forward)} generator forwards")
     emit("host_feed", card=smi, command="cli train --config examples/florida.json --synthetic "
          "--samples 1440 --epochs 2 --host-feed", batch=B_TRAIN, vs_device_resident=report,
-         host_fed=feed_report(host), device_resident=epoch_times(device_run),
-         generator_forwards=host.forwards, drb_launches=launches, drb_launches_per_forward=48,
+         host_fed=feed_counts(host), generator_forwards=host.forwards, drb_launches=launches,
+         drb_launches_per_forward=48,
          h2d_bytes_per_batch=B_TRAIN * 4 * (2 * 128 * 128 + 7 * 16 * 16))
     return launches
 
@@ -2308,7 +1472,7 @@ def phase_stream(config, smi: str):
                          "held_by": "tests/test_torch_data.py, on the CPU, against the JAX "
                          "package"},
          native_library=native.available(), vs_host_fed_decoded=report,
-         streamed=feed_report(stream), host_fed_decoded=feed_report(host),
+         streamed=feed_counts(stream), host_fed_decoded=feed_counts(host),
          generator_forwards=stream.forwards, drb_launches=launches, drb_launches_per_forward=48)
     return launches
 
@@ -2336,21 +1500,18 @@ def florida_coarse(config, batch: int, rng, noise_channels: int = 0) -> torch.Te
     return x.cuda()
 
 
-def phase_stochastic(config, rng, tracking_root: Path, deterministic: dict, smi: str):
+def phase_stochastic(config, rng, tracking_root: Path, smi: str):
     """The stochastic generator's training path: ``cli train --config
     examples/florida.json --synthetic --samples 1440 --epochs 1
     --noise-channels 4`` in-process (48 DRB launches in every generator
-    forward, finite means), a timed round beside the deterministic
-    ``training`` phase's, the card's forward against the CPU's with the
-    same weights and latent at B=2, and the fp32 and bf16 forwards at B=150
-    beside the deterministic ones in the same call."""
+    forward, finite means), the card's forward against the CPU's with the
+    same weights and latent at B=2, and the fp32 and bf16 forwards with the
+    latent at B=150."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.training.state import make_generator
 
     k = 4
-    torch.cuda.reset_peak_memory_stats()
-    start_bytes = torch.cuda.memory_allocated()
     with launches_per_generator_forward() as per_forward:
         reset_launch_counts()  # the stochastic training path's run starts here
         trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
@@ -2358,7 +1519,6 @@ def phase_stochastic(config, rng, tracking_root: Path, deterministic: dict, smi:
                             "--noise-channels", str(k), "--tracking-root", str(tracking_root)])
         torch.cuda.synchronize()
         launches = drb_forward.launches  # the stochastic training path's run ends here
-    peak_bytes = torch.cuda.max_memory_allocated()
     cfg, history, forwards = trainer.config, trainer.history, dict(trainer.forwards)
     n_params = sum(p.numel() for p in trainer.state.generator.parameters())
     check(cfg.noise_channels == k and n_params == 1_697_090,
@@ -2372,8 +1532,6 @@ def phase_stochastic(config, rng, tracking_root: Path, deterministic: dict, smi:
     check(len(per_forward) == sum(forwards.values()) and set(per_forward) == {48}
           and launches == 48 * sum(forwards.values()),
           f"{launches} DRB launches over {len(per_forward)} generator forwards")
-    update_ms, critic_ms = time_round(trainer)  # steps 10-14
-    round_ms = sum(update_ms + critic_ms)
 
     gen = trainer.state.generator
     cpu_err = cpu_vs_card(gen, florida_coarse(cfg, 2, rng, k))
@@ -2381,34 +1539,22 @@ def phase_stochastic(config, rng, tracking_root: Path, deterministic: dict, smi:
     forward = {}
     for dtype in ("float32", "bfloat16"):
         hp = dataclasses.replace(config.hp, compute_dtype=dtype)
-        models = {noise: make_generator(config.replace(hp=hp, noise_channels=noise), "cuda",
-                                        rng=torch.Generator().manual_seed(0)) for noise in (k, 0)}
-        xs = {noise: florida_coarse(config, B_MAIN, rng, noise) for noise in (k, 0)}
+        model = make_generator(config.replace(hp=hp, noise_channels=k), "cuda",
+                               rng=torch.Generator().manual_seed(0))
         with torch.inference_mode():
             reset_launch_counts()
-            out = models[k](xs[k])
+            out = model(florida_coarse(config, B_MAIN, rng, k))
             torch.cuda.synchronize()
             per = (drb_forward.launches, drb_forward.launches_bf16)
             check(per == ((48, 48) if dtype == "bfloat16" else (48, 0))
                   and bool(torch.isfinite(out).all()),
                   f"{dtype} stochastic forward: {per} (all, bf16) DRB launches")
-            ms = {noise: [] for noise in (k, 0)}
-            for noise in (k, 0, 0, k):  # in turns
-                ms[noise].append(cuda_ms(lambda: models[noise](xs[noise]), iters=10))
-        forward[dtype] = {"noise_channels_4_ms": ms[k], "deterministic_ms": ms[0],
-                          "drb_launches_per_forward": per[1] if dtype == "bfloat16" else per[0]}
+        forward[dtype] = {"drb_launches_per_forward": per[1] if dtype == "bfloat16" else per[0]}
     emit("stochastic", card=smi, command="cli train --config examples/florida.json --synthetic "
          "--samples 1440 --epochs 1 --noise-channels 4", batch=B_TRAIN, params=n_params,
          epochs=history, generator_forwards=forwards, drb_launches=launches,
-         drb_launches_per_forward=48, peak_memory_bytes=peak_bytes,
-         peak_memory_above_start_bytes=peak_bytes - start_bytes,
-         ms_per_update_step=float(np.mean(update_ms)),
-         ms_per_critic_only_step=float(np.mean(critic_ms)),
-         update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
-         patches_per_s_events=B_TRAIN * 5e3 / round_ms,
-         patches_per_s_epoch0=B_TRAIN * 10 / history[0]["seconds"],
-         deterministic_training_phase=deterministic,
-         max_err_vs_cpu_b2=cpu_err, tolerance=GEN_ATOL, forward_b150=forward)
+         drb_launches_per_forward=48, max_err_vs_cpu_b2=cpu_err, tolerance=GEN_ATOL,
+         forward_b150=forward)
     return launches, trainer
 
 
@@ -2426,9 +1572,7 @@ def phase_ensemble(trainer, smi: str):
     nhwc = lambda t: t.permute(0, 2, 3, 1).cpu().numpy()  # noqa: E731
     coarse, fine = nhwc(trainer.test_ds.coarse), nhwc(trainer.test_ds.fine)
     reset_launch_counts()  # the ensemble path's run starts here
-    t0 = time.perf_counter()
     scores = ensemble_metrics(cfg, weights, coarse, fine, n_members=m)
-    seconds = time.perf_counter() - t0
     launches = drb_forward.launches  # the ensemble path's run ends here
     chunks = -(-len(coarse) // cfg.chunk_size)
     check(launches == 48 * m * chunks, f"{launches} DRB launches for {m * chunks} forwards")
@@ -2449,8 +1593,7 @@ def phase_ensemble(trainer, smi: str):
           f"ensemble scores {scores} against float64 {want}")
     emit("ensemble", card=smi, members=m, samples=len(coarse), chunks_per_member=chunks,
          scores=scores, float64=want, rel_err=rel, rtol=ENSEMBLE_RTOL,
-         members_bit_identical_when_drawn_twice=identical, ensemble_metrics_s=seconds,
-         drb_launches=launches)
+         members_bit_identical_when_drawn_twice=identical, drb_launches=launches)
     return launches
 
 
@@ -2476,22 +1619,19 @@ def phase_serving_stochastic(trainer, rng, smi: str):
 def phase_srresnet(config, rng, tracking_root: Path, smi: str):
     """The SRResNet family at florida width (115,414 params): ``cli train
     --generator-arch srresnet`` for one epoch (no DRB, so no hand-written
-    kernel: the JAX package left it to XLA and the port to cuDNN), a timed
-    round, its forward against the CPU's at B=2 and timed at B=150, and
-    the trained model served over HTTP."""
+    kernel: the JAX package left it to XLA and the port to cuDNN), its
+    forward against the CPU's at B=2, and the trained model served over
+    HTTP."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.models.generator import SRResNetGenerator
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
 
-    torch.cuda.reset_peak_memory_stats()
-    start_bytes = torch.cuda.memory_allocated()
     reset_launch_counts()  # the SRResNet training path's run starts here
     trainer = cli_main(["train", "--config", str(ROOT / "examples" / "florida.json"),
                         "--synthetic", "--samples", "1440", "--epochs", "1",
                         "--generator-arch", "srresnet", "--tracking-root", str(tracking_root)])
     torch.cuda.synchronize()
     launches = drb_forward.launches  # ... and ends here
-    peak_bytes = torch.cuda.max_memory_allocated()
     gen, history = trainer.state.generator, trainer.history
     n_params = sum(p.numel() for p in gen.parameters())
     check(isinstance(gen, SRResNetGenerator) and n_params == 115_414,
@@ -2501,15 +1641,8 @@ def phase_srresnet(config, rng, tracking_root: Path, smi: str):
                                                             *r["test"].values())),
           f"SRResNet epoch {history}")
     check(launches == 0, f"the SRResNet launched {launches} DRB kernels")
-    update_ms, critic_ms = time_round(trainer)
-    round_ms = sum(update_ms + critic_ms)
     cpu_err = cpu_vs_card(gen, florida_coarse(config, 2, rng))
     check(cpu_err <= GEN_ATOL, f"SRResNet: card vs CPU {cpu_err}")
-    x = florida_coarse(config, B_MAIN, rng)
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: gen(x), iters=10)
-    profile_b150 = profile_forwards(gen, x) or "device time not measured: the profiler " \
-        "recorded no device events"
     weights = {k: v.detach().cpu() for k, v in gen.state_dict().items()}
     served = serve_and_compare(trainer.config, weights, rng, n_clients=1, n_requests=1,
                                sizes=(8,), domain_shape=None)
@@ -2518,15 +1651,7 @@ def phase_srresnet(config, rng, tracking_root: Path, smi: str):
           f"SRResNet served: {served}")
     emit("srresnet", card=smi, command="cli train --config examples/florida.json --synthetic "
          "--samples 1440 --epochs 1 --generator-arch srresnet", params=n_params, epochs=history,
-         drb_launches=launches, peak_memory_bytes=peak_bytes,
-         peak_memory_above_start_bytes=peak_bytes - start_bytes,
-         ms_per_update_step=float(np.mean(update_ms)),
-         ms_per_critic_only_step=float(np.mean(critic_ms)),
-         update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms,
-         patches_per_s_events=B_TRAIN * 5e3 / round_ms, max_err_vs_cpu_b2=cpu_err,
-         tolerance=GEN_ATOL, forward_ms_b150=fwd_ms,
-         patches_per_s_b150=B_MAIN / (fwd_ms * 1e-3), profile_b150=profile_b150,
-         served=served)
+         drb_launches=launches, max_err_vs_cpu_b2=cpu_err, tolerance=GEN_ATOL, served=served)
 
 
 # Every training variant at once: all of them in variants_parity, the
@@ -2562,10 +1687,8 @@ def phase_variants_parity(config):
         critic_iterations=critic_iterations, **VARIANT_HP))
     cpu_ds = DeviceDataset.from_numpy(*synthetic_dataset(n_samples=B_PARITY * n_steps, seed=16),
                                       "cpu")
-    t0 = time.perf_counter()
     comps = training_eof_components(
         DeviceDataset.from_numpy(*synthetic_dataset(n_samples=96, seed=17), "cpu"), cfg.hp.ncomp)
-    eof_fit_s = time.perf_counter() - t0
     host = torch.Generator().manual_seed(18)
     alphas = torch.rand(n_steps, B_PARITY, 1, 1, 1, generator=host)
     flips = torch.rand(n_steps, 2, B_PARITY, generator=host) < 0.5
@@ -2620,7 +1743,7 @@ def phase_variants_parity(config):
     check(lrs[0] == lrs[1] and lrs[0] < cfg.hp.lr, f"critic learning rates {lrs}")
     emit("variants_parity", batch=B_PARITY, steps=n_steps, variants=VARIANT_HP,
          critic_conditional=True, critic_params=n_critic, eof_components=list(comps.shape),
-         eof_fit_s_96_fields=eof_fit_s, drb_launches_per_forward_by_step=per_step,
+         drb_launches_per_forward_by_step=per_step,
          metrics_card=metrics["cuda"], worst_metric_err_over_tolerance=metric_err,
          metric_rtol=STEP_RTOL, metric_atol=STEP_ATOL,
          generator_grad_rel_l2_from_adam_moment=g_grad_l2, param_err=param_err,
@@ -2632,21 +1755,15 @@ def run_train_cli(argv, want_forwards):
     """``cli train argv`` in-process, with the DRB launches of each generator
     forward counted (every count set to 0 just before): finite epoch means,
     the generator forwards by kind, 48 launches in each; returns the trainer
-    and what the run measured."""
+    and what the run counted."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start_bytes = torch.cuda.memory_allocated()
     with launches_per_generator_forward() as per_forward:
         reset_launch_counts()  # the path's run starts here
-        t0 = time.perf_counter()
         trainer = cli_main(argv)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
         launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
-    peak_bytes = torch.cuda.max_memory_allocated()
     forwards = dict(trainer.forwards)
     for r in trainer.history:
         values = [*r["train"].values(), *r["test"].values()]
@@ -2657,15 +1774,12 @@ def run_train_cli(argv, want_forwards):
           f"{len(per_forward)} forwards")
     return trainer, {"epochs": trainer.history, "generator_forwards": forwards,
                      "drb_launches": launches[0], "drb_launches_bf16": launches[1],
-                     "drb_launches_per_forward": 48, "wall_s_including_data": wall_s,
-                     "peak_memory_bytes": peak_bytes,
-                     "peak_memory_above_start_bytes": peak_bytes - start_bytes}
+                     "drb_launches_per_forward": 48}
 
 
 def critic_update_peaks(trainer):
     """Peak memory above the starting allocation of a lone critic update at
-    B=128 (the GP's double backward) with grad_accum 1 and 2, in turns,
-    with CUDA-event times."""
+    B=128 (the GP's double backward) with grad_accum 1 and 2, in turns."""
     from downgan_tpu_torch.training.wgan import critic_inputs, critic_update, make_condition
 
     state, ds = trainer.state, trainer.train_ds
@@ -2676,32 +1790,27 @@ def critic_update_peaks(trainer):
     fake_c, real_c = critic_inputs(trainer.config, make_condition(trainer.config), fake, fine,
                                    coarse)
     c_params = list(state.critic.parameters())
-    peaks, ms = {1: [], 2: []}, {1: [], 2: []}
+    peaks = {1: [], 2: []}
     for k in (1, 2, 2, 1):
         cfg = trainer.config.replace(hp=dataclasses.replace(trainer.config.hp, grad_accum=k))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         critic_update(cfg, state, state.critic, c_params, fake_c, real_c, alpha)
-        end.record()
         torch.cuda.synchronize()
         peaks[k].append(torch.cuda.max_memory_allocated() - base)
-        ms[k].append(start.elapsed_time(end))
     return {"peak_above_start_bytes": {f"grad_accum_{k}": v for k, v in peaks.items()},
-            "ms": {f"grad_accum_{k}": v for k, v in ms.items()},
             "ratio_2_over_1": max(peaks[2]) / min(peaks[1])}
 
 
-def phase_variants(tracking_root: Path, training_summary: dict):
+def phase_variants(tracking_root: Path):
     """The training variants through ``cli train`` on florida (fp32, the
     reference schedule, batch 128, 1,440 synthetic samples, one epoch):
     run A with every variant's flag (the EOF basis fit at staging), run B
     from a config file with the divergence and vorticity terms at weight 1
     and the RALSD, Divergence and Vorticity metrics; each with its epoch
-    means, launches by kind, a timed 5-step round and peak memory; then a
-    lone critic update's peak memory with grad_accum 1 and 2."""
+    means and launches by kind; then a lone critic update's peak memory
+    with grad_accum 1 and 2."""
     florida = ROOT / "examples" / "florida.json"
     common = ["--synthetic", "--samples", "1440", "--epochs", "1",
               "--tracking-root", str(tracking_root)]
@@ -2716,9 +1825,7 @@ def phase_variants(tracking_root: Path, training_summary: dict):
           "run A is not the variants' configuration")
     check(trainer.eof_components.shape == (hp.ncomp, 2, 128 * 128),
           f"EOF basis {trainer.eof_components.shape}")
-    update_ms, critic_ms = time_round(trainer)
-    run.update(eof_fit_s=trainer.eof_fit_seconds, update_step_ms_samples=update_ms,
-               critic_only_step_ms_samples=critic_ms, critic_update_alone=critic_update_peaks(trainer))
+    run["critic_update_alone"] = critic_update_peaks(trainer)
     check(run["critic_update_alone"]["ratio_2_over_1"] < 1.0,
           f"grad_accum 2 does not lower a critic update's peak: {run['critic_update_alone']}")
     report["flags"], launches = run, launches + run["drb_launches"]
@@ -2736,11 +1843,8 @@ def phase_variants(tracking_root: Path, training_summary: dict):
     for r in trainer.history:
         check({"Divergence", "Vorticity", "RALSD"} <= set(r["train"]) & set(r["test"]),
               f"physics metrics missing from {r}")
-    update_ms, critic_ms = time_round(trainer)
-    run.update(update_step_ms_samples=update_ms, critic_only_step_ms_samples=critic_ms)
     report["physics_config"], launches = run, launches + run["drb_launches"]
-    emit("variants", batch=B_TRAIN, runs=report, drb_launches=launches,
-         training_phase_for_comparison=training_summary)
+    emit("variants", batch=B_TRAIN, runs=report, drb_launches=launches)
     return launches
 
 
@@ -2748,7 +1852,7 @@ def phase_variants_tuned(tracking_root: Path):
     """``cli train --config examples/production_tuned.json --synthetic
     --samples 1440 --epochs 1 --augment-flips --critic-conditional
     --grad-accum 2``: bf16, fused rounds, every generator forward on the
-    bf16 kernel; finite means, launches by kind, timed rounds, peak memory."""
+    bf16 kernel; finite means and launches by kind."""
     trainer, run = run_train_cli(
         ["train", "--config", str(ROOT / "examples" / "production_tuned.json"), "--synthetic",
          "--samples", "1440", "--epochs", "1", "--augment-flips", "--critic-conditional",
@@ -2762,7 +1866,6 @@ def phase_variants_tuned(tracking_root: Path):
           "not the tuned configuration with the variants")
     check(run["drb_launches"] == run["drb_launches_bf16"] == 768,
           f"{run['drb_launches']} (all), {run['drb_launches_bf16']} (bf16) DRB launches, not 768")
-    run["round_ms_samples"] = time_fused_rounds(trainer, 3)
     emit("variants_tuned", batch=B_TRAIN, **run)
     return run["drb_launches_bf16"]
 
@@ -2773,84 +1876,19 @@ DP_ROUNDS = 2  # leg (c): the first round of a process warms cuDNN's bf16 algori
 DP_TIMEOUT_S = 120  # a collective that waits longer raises; so does a child that runs longer
 
 
-def recorded_event() -> torch.cuda.Event:
-    event = torch.cuda.Event(enable_timing=True)
-    event.record()
-    return event
-
-
-@contextlib.contextmanager
-def timed_steps():
-    """CUDA events before and after every step (or fused round) of the
-    train steps the trainer builds while the block runs; yields the list of
-    [start, end] pairs."""
-    pairs = []
-    with after_each_train_step(lambda state, metrics: pairs[-1].append(recorded_event()),
-                               before=lambda state: pairs.append([recorded_event()])):
-        yield pairs
-
-
-@contextlib.contextmanager
-def timed_collectives(steps):
-    """CUDA events around every call of ``parallel.dp.all_reduce_gradients``
-    (an update's gradients) and ``parallel.dp.gather_rows`` (the metric
-    pass's global batch) while the block runs; yields a dict of two lists
-    of (start, end, elements, the step it ran in, counted from 1 in
-    :func:`timed_steps`' ``steps``)."""
-    import downgan_tpu_torch.parallel.dp as dp
-
-    calls = {"all_reduce_gradients": [], "gather_rows": []}
-    real = {name: getattr(dp, name) for name in calls}
-
-    def timed(name, numel):
-        def call(arg, group=None):
-            start = recorded_event()
-            out = real[name](arg, group)
-            calls[name].append((start, recorded_event(), numel(arg), len(steps)))
-            return out
-        return call
-
-    dp.all_reduce_gradients = timed("all_reduce_gradients",
-                                    lambda params: sum(p.numel() for p in params))
-    dp.gather_rows = timed("gather_rows", lambda rows: rows.numel())
-    try:
-        yield calls
-    finally:
-        for name, fn in real.items():
-            setattr(dp, name, fn)
-
-
-def dp_timings(steps, collectives) -> dict:
-    """What :func:`timed_steps` and :func:`timed_collectives` recorded, in ms
-    (read after a synchronize), and the means past the first step (the
-    process's first step picks cuDNN's algorithms) and its collectives."""
-    step_ms = [a.elapsed_time(b) for a, b in steps]
-    out = {"step_ms": step_ms, "ms_per_step_warm": float(np.mean(step_ms[1:]))}
-    for name, key in (("all_reduce_gradients", "all_reduce"), ("gather_rows", "gather")):
-        calls = collectives[name]
-        ms = [a.elapsed_time(b) for a, b, _, _ in calls]
-        warm = [t for t, (_, _, _, at) in zip(ms, calls) if at > 1]
-        out.update({f"{key}_ms": ms,
-                    f"{key}_ms_per_call_warm": float(np.mean(warm)) if warm else None,
-                    f"{key}_ms_per_step_warm": sum(warm) / (len(step_ms) - 1) if warm else None,
-                    f"{key}_elements": sorted({n for _, _, n, _ in calls})})
-    return out
-
-
 def train_cli_child(out_path: str, argv) -> int:
     """``chip_smoke.py --train-cli OUT train ...``, run alone or under
     torchrun by :func:`phase_dp`: ``cli train`` with ``argv`` in this
     process, cuDNN deterministic (so two runs are comparable bit for bit),
     the DRB launches of every generator forward counted from 0 just before
-    and read just after, steps and gradient all-reduces timed by CUDA
-    events; rank 0 writes what it measured to ``OUT`` as JSON."""
+    and read just after; rank 0 writes what it counted to ``OUT`` as
+    JSON."""
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.parallel.mesh import in_group, rank, world_size
 
     torch.backends.cudnn.deterministic = True
-    with launches_per_generator_forward() as per_forward, timed_steps() as steps, \
-            timed_collectives(steps) as collectives:
+    with launches_per_generator_forward() as per_forward:
         reset_launch_counts()  # the path's run starts here
         trainer = cli_main(argv)
         torch.cuda.synchronize()
@@ -2860,18 +1898,16 @@ def train_cli_child(out_path: str, argv) -> int:
             "history": trainer.history, "forwards": dict(trainer.forwards),
             "drb_launches": launches, "launches_per_forward": sorted(set(per_forward)),
             "n_forwards": len(per_forward), "world": world_size(), "multihost": trainer.multihost,
-            "device": str(trainer.device), "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            **dp_timings(steps, collectives)}))
+            "device": str(trainer.device)}))
     if in_group():
         torch.distributed.destroy_process_group()
     return 0
 
 
-def run_child(cmd, timeout_s: int) -> float:
+def run_child(cmd, timeout_s: int) -> None:
     """Run ``cmd`` from the checkout's root in a session of its own; a child
     that fails or outlives ``timeout_s`` fails the phase (its whole process
-    group is killed). Returns its wall seconds."""
-    t0 = time.perf_counter()
+    group is killed)."""
     proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     try:
@@ -2881,7 +1917,6 @@ def run_child(cmd, timeout_s: int) -> float:
         proc.communicate()
         raise RuntimeError(f"{cmd[:6]}... outlived {timeout_s} s")
     check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{out[-4000:]}")
-    return time.perf_counter() - t0
 
 
 def checkpoint_tensors(path: Path) -> dict:
@@ -2920,8 +1955,8 @@ def dp_cli_leg(workdir: Path, smi: str) -> int:
         out = workdir / f"{name}.json"
         cmd = [*launcher, str(ROOT / "chip_smoke.py"), "--train-cli", str(out), *base,
                "--checkpoint-dir", str(workdir / f"ckpt_{name}"), *extra]
-        wall_s = run_child(cmd, 3 * DP_TIMEOUT_S)
-        runs[name] = {**json.loads(out.read_text()), "wall_s": wall_s}
+        run_child(cmd, 3 * DP_TIMEOUT_S)
+        runs[name] = json.loads(out.read_text())
     dp, plain = runs["torchrun"], runs["plain"]
     check(dp["multihost"] and dp["world"] == 1 and not plain["multihost"],
           f"leg (a) ran multihost={dp['multihost']} world={dp['world']}")
@@ -2944,12 +1979,7 @@ def dp_cli_leg(workdir: Path, smi: str) -> int:
          "(through chip_smoke.py --train-cli, which holds cuDNN deterministic and counts)",
          held="bit_identical", checkpoint_tensors=len(want), epoch=dp["history"],
          generator_forwards=dp["forwards"], drb_launches=dp["drb_launches"],
-         drb_launches_per_forward=48,
-         ms_per_step_warm_nccl=dp["ms_per_step_warm"], step_ms_nccl=dp["step_ms"],
-         ms_per_step_warm_plain=plain["ms_per_step_warm"], step_ms_plain=plain["step_ms"],
-         **{k: v for k, v in dp.items() if k.startswith(("all_reduce_", "gather_"))},
-         peak_memory_bytes={"torchrun": dp["peak_memory_bytes"], "plain": plain["peak_memory_bytes"]},
-         wall_s={"torchrun": dp["wall_s"], "plain": plain["wall_s"]})
+         drb_launches_per_forward=48)
     return dp["drb_launches"]
 
 
@@ -2969,8 +1999,7 @@ def dp_train(config, n_samples: int, multihost: bool) -> dict:
     """One epoch of ``Trainer(config, multihost=multihost)`` on cuda:0 over
     ``n_samples`` synthetic florida samples (no test set), the DRB launches of
     every generator forward counted from 0 just before the epoch and read
-    just after, steps and all-reduces timed; returns what it measured and
-    the final state on the CPU."""
+    just after; returns what it counted and the final state on the CPU."""
     from downgan_tpu_torch.data.dataset import DeviceDataset, synthetic_dataset
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.training.trainer import Trainer
@@ -2979,10 +2008,7 @@ def dp_train(config, n_samples: int, multihost: bool) -> dict:
         n_samples=n_samples, coarse_size=config.coarse_size, fine_size=config.fine_size,
         n_covariates=config.n_covariates, n_predictands=config.n_predictands, seed=config.seed)
     ds = DeviceDataset.from_numpy(coarse, fine, "cuda:0")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with launches_per_generator_forward() as per_forward, timed_steps() as steps, \
-            timed_collectives(steps) as collectives:
+    with launches_per_generator_forward() as per_forward:
         trainer = Trainer(config, ds, None, device="cuda:0", multihost=multihost)
         reset_launch_counts()  # the path's run starts here
         trainer.train(1)
@@ -2991,9 +2017,7 @@ def dp_train(config, n_samples: int, multihost: bool) -> dict:
     return {"state": {k: v.cpu() for k, v in flat_state(trainer).items()},
             "history": trainer.history, "forwards": dict(trainer.forwards),
             "launches": launches, "launches_per_forward": sorted(set(per_forward)),
-            "n_forwards": len(per_forward), "rows": B_TRAIN // trainer.world,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            **dp_timings(steps, collectives)}
+            "n_forwards": len(per_forward), "rows": B_TRAIN // trainer.world}
 
 
 def dp_rank(rank: int, world: int, store: str, workdir: str) -> None:
@@ -3009,10 +2033,9 @@ def dp_rank(rank: int, world: int, store: str, workdir: str) -> None:
     initialize(f"file://{store}", world, rank, backend="gloo",
                timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
     torch.distributed.barrier()  # both ranks reach the build together
-    t0 = time.perf_counter()
     found = library_path().exists()
     load_library()
-    out = {"build": {"found_on_disk": found, "seconds": time.perf_counter() - t0}}
+    out = {"build": {"found_on_disk": found}}
     out.update({leg: dp_train(config, n, multihost=True)
                 for leg, (config, n) in dp_gloo_configs().items()})
     torch.save(out, Path(workdir) / f"rank{rank}.pt")
@@ -3056,10 +2079,8 @@ def phase_dp(smi: str):
         # into a temporary file of its own renamed into place; this process
         # keeps the library it has loaded.
         library_path().unlink()
-        t0 = time.perf_counter()
         mp.spawn(dp_rank, args=(DP_WORLD, str(workdir / "store"), str(workdir)), nprocs=DP_WORLD,
                  join=True)
-        spawn_s = time.perf_counter() - t0
         ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=True) for r in range(DP_WORLD)]
     check(library_path().exists(), "no build of drb.cu after the ranks built it")
     emit("dp", leg="concurrent_build", card=smi, ranks=[r["build"] for r in ranks],
@@ -3112,16 +2133,7 @@ def phase_dp(smi: str):
              drb_launches_per_rank=[r["launches"][1 if bf16 else 0] for r in (r0, r1)],
              drb_launches_per_forward=48, train_means=means,
              train_means_tolerance={"rtol": rtol, "atol": atol},
-             step="round" if hp.schedule == "fused" else "step",
-             ms_per_step_warm_per_rank=[r["ms_per_step_warm"] for r in (r0, r1)],
-             ms_per_step_warm_one_rank=one["ms_per_step_warm"],
-             step_ms_per_rank=[r["step_ms"] for r in (r0, r1)], step_ms_one_rank=one["step_ms"],
-             **{f"{k}_per_rank": [r[k] for r in (r0, r1)] for k in r0
-                if k.startswith(("all_reduce_", "gather_")) and not k.endswith("_elements")},
-             all_reduce_elements=r0["all_reduce_elements"], gather_elements=r0["gather_elements"],
-             peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in (r0, r1)],
-             peak_memory_bytes_one_rank=one["peak_memory_bytes"],
-             spawn_and_both_legs_s=spawn_s)
+             step="round" if hp.schedule == "fused" else "step")
     return fp32_launches, bf16_launches
 
 
@@ -3141,15 +2153,14 @@ SP_DEADLINE_S = 600  # the whole spawned job; a collective that waits DP_TIMEOUT
 SP_GRAD_REL = 1e-3
 
 
-def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> float:
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> None:
     """``torch.multiprocessing.spawn(fn, args, nprocs)`` with a deadline: a
     rank's exception is raised here; ranks still running after
-    ``timeout_s`` are terminated and the phase fails. Returns the wall s."""
+    ``timeout_s`` are terminated and the phase fails."""
     import torch.multiprocessing as mp
 
-    t0 = time.perf_counter()
     context = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
-    deadline = t0 + timeout_s
+    deadline = time.perf_counter() + timeout_s
     while not context.join(timeout=max(0.0, deadline - time.perf_counter())):
         if time.perf_counter() < deadline:
             continue
@@ -3159,7 +2170,6 @@ def spawn_ranks(fn, args: tuple, nprocs: int, timeout_s: float) -> float:
         for proc in context.processes:
             proc.join(10)
         raise RuntimeError(f"spawned ranks still running after {timeout_s} s")
-    return time.perf_counter() - t0
 
 
 def spatial_inputs(config, seed: int, *lead) -> tuple:
@@ -3205,48 +2215,6 @@ def gradient_gaps(got: dict, want: dict) -> dict:
     reference (1 where that is all zeros)."""
     return {k: float((got[k] - g).abs().max() / (g.abs().max() if g.any() else 1.0))
             for k, g in want.items()}
-
-
-# The callers of torch.distributed.all_reduce in a spatial step, by kind.
-SP_COLLECTIVE_KINDS = {"_GatherRows.forward": "gather", "_HaloExchange.forward": "halo",
-                       "_HaloAdjoint.forward": "halo_adjoint", "_RowSum.forward": "row_sum",
-                       "all_reduce_gradients": "gradients"}
-
-
-@contextlib.contextmanager
-def timed_spatial_collectives():
-    """CUDA events around every ``torch.distributed.all_reduce``, each
-    tagged by its caller (SP_COLLECTIVE_KINDS: the sharded networks'
-    gathers, halos, halo adjoints and row sums, and the gradient sum
-    ``SpatialSync`` makes; any other caller by its own name); yields the
-    list of (kind, start, end, elements)."""
-    dist = torch.distributed
-    calls = []
-    real = dist.all_reduce
-
-    def timed(tensor, *args, **kwargs):
-        caller = sys._getframe(1).f_code.co_qualname
-        start = recorded_event()
-        out = real(tensor, *args, **kwargs)
-        calls.append((SP_COLLECTIVE_KINDS.get(caller, caller), start, recorded_event(),
-                      tensor.numel()))
-        return out
-
-    dist.all_reduce = timed
-    try:
-        yield calls
-    finally:
-        dist.all_reduce = real
-
-
-def collective_ms(calls) -> dict:
-    """{kind: [count, ms]} of the recorded calls (read after a synchronize)."""
-    out = {}
-    for kind, start, end, _ in calls:
-        entry = out.setdefault(kind, [0, 0.0])
-        entry[0] += 1
-        entry[1] += start.elapsed_time(end)
-    return out
 
 
 def generator_stages(gen, x, conv, drb):
@@ -3301,34 +2269,17 @@ def spatial_state(config):
     return make_train_state(config, "cuda:0")
 
 
-def spatial_steps(step, state, coarse, fine, calls=None) -> dict:
-    """Run ``step`` over the (steps, B, ...) batches, CUDA events around
-    each step; the metrics, the step ms, per step the ms and count of each
-    collective kind, the final weights on the CPU and the peak memory."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    baseline = torch.cuda.memory_allocated()
-    metrics, events, marks = [], [], []
-    for c, f in zip(coarse, fine):
-        marks.append(len(calls) if calls is not None else 0)
-        start = recorded_event()
-        metrics.append({k: v.detach() for k, v in step(state, c.cuda(), f.cuda()).items()})
-        events.append((start, recorded_event()))
-    torch.cuda.synchronize()
-    out = {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
-           "step_ms": [a.elapsed_time(b) for a, b in events],
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "peak_above_start_bytes": torch.cuda.max_memory_allocated() - baseline,
-           "weights": {f"{part}.{k}": v.detach().cpu()
-                       for part, module in (("generator", state.generator),
-                                            ("critic", state.critic))
-                       for k, v in module.state_dict().items()},
-           "forwards": dict(step.forwards)}
-    if calls is not None:
-        marks.append(len(calls))
-        out["collectives_per_step"] = [collective_ms(calls[a:b]) for a, b in
-                                       zip(marks, marks[1:])]
-    return out
+def spatial_steps(step, state, coarse, fine) -> dict:
+    """Run ``step`` over the (steps, B, ...) batches; the metrics, the final
+    weights on the CPU and the generator forwards by kind."""
+    metrics = [{k: float(v) for k, v in step(state, c.cuda(), f.cuda()).items()}
+               for c, f in zip(coarse, fine)]
+    return {"metrics": metrics,
+            "weights": {f"{part}.{k}": v.detach().cpu()
+                        for part, module in (("generator", state.generator),
+                                             ("critic", state.critic))
+                        for k, v in module.state_dict().items()},
+            "forwards": dict(step.forwards)}
 
 
 def spatial_rank(rank: int, world: int, store: str, workdir: str) -> None:
@@ -3364,14 +2315,10 @@ def spatial_rank(rank: int, world: int, store: str, workdir: str) -> None:
         for shards, group in ((2, spatial_group), (4, None)):
             apply = spatial.sharded_generator_apply(config, group)
             with torch.no_grad():
-                apply(state.generator, coarse)  # warm: cuDNN's algorithms, the pack cache
                 before = drb_forward.launches
-                start = recorded_event()
                 fine = apply(state.generator, coarse)
-                end = recorded_event()
                 torch.cuda.synchronize()
-            out["forward"][shards] = {"launches": drb_forward.launches - before,
-                                      "ms": start.elapsed_time(end)}
+            out["forward"][shards] = {"launches": drb_forward.launches - before}
             if rank == 0:
                 out["forward"][shards]["fine"] = fine.cpu()
             del fine
@@ -3401,8 +2348,7 @@ def spatial_rank(rank: int, world: int, store: str, workdir: str) -> None:
             step_state = spatial_state(config)
             step = spatial.build_spatial_train_step(config, step_state.generator,
                                                     step_state.critic, spatial_group)
-            with timed_spatial_collectives() as calls:
-                out["step"] = spatial_steps(step, step_state, coarse, fine, calls)
+            out["step"] = spatial_steps(step, step_state, coarse, fine)
             del step_state, step
         dist.barrier()
         # (d) DP x spatial on the 2 x 2 grid against 2-rank DP on the data groups
@@ -3452,32 +2398,6 @@ def close_metrics(got: list, want: list, what: str) -> float:
     return worst
 
 
-def step_timing(run: dict, n_critic: int) -> dict:
-    """A run's step ms: every step, the warm critic-only steps' mean and the
-    warm update step (the last step whose index is a multiple of
-    ``n_critic``, past step 0), and per warm step the ms and count of each
-    collective kind."""
-    ms = run["step_ms"]
-    updates = [i for i in range(len(ms)) if i % n_critic == 0]
-    critic_only = [ms[i] for i in range(1, len(ms)) if i % n_critic]
-    out = {"step_ms": ms, "critic_only_step_ms_warm": float(np.mean(critic_only)),
-           "update_step_ms_warm": ms[updates[-1]] if updates[-1] > 0 else None,
-           "peak_memory_bytes": run["peak_memory_bytes"],
-           "peak_above_start_bytes": run["peak_above_start_bytes"]}
-    if "collectives_per_step" in run:
-        per_kind = {}
-        for i, step in enumerate(run["collectives_per_step"]):
-            for kind, (n, t) in step.items():
-                per_kind.setdefault(kind, {"calls_by_step": [], "ms_by_step": []})
-                entry = per_kind[kind]
-                entry["calls_by_step"].append(n)
-                entry["ms_by_step"].append(t)
-        out["collectives"] = per_kind
-        out["collective_ms_by_step"] = [sum(t for _, t in step.values())
-                                        for step in run["collectives_per_step"]]
-    return out
-
-
 def phase_spatial(smi: str) -> int:
     """Halo-exchange spatial sharding at florida width and depth, four gloo
     ranks sharing the card as a 2 x 2 (data, spatial) grid
@@ -3490,10 +2410,9 @@ def phase_spatial(smi: str) -> int:
     parameter gradients at B=32 over 2 shards; (c) six steps of
     ``build_spatial_train_step`` at B=32 over 2 ranks, the ranks bit for
     bit and each within the Adam tolerances of one process's
-    ``build_train_step``, with step, collective and peak-memory figures per
-    rank; (d) two steps of ``build_dp_spatial_train_step`` on the grid
-    against 2-rank data parallelism. Returns the DRB launches of the ranks'
-    runs."""
+    ``build_train_step``; (d) two steps of ``build_dp_spatial_train_step``
+    on the grid against 2-rank data parallelism. Returns the DRB launches of
+    the ranks' runs."""
     from downgan_tpu_torch.config.config import Config
     from downgan_tpu_torch.parallel.spatial import DRB_HALO, band_rows
     from downgan_tpu_torch.training.wgan import (build_train_step, g_updates_in_window,
@@ -3502,8 +2421,7 @@ def phase_spatial(smi: str) -> int:
     config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     world = SP_GRID[0] * SP_GRID[1]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
-        wall_s = spawn_ranks(spatial_rank, (world, str(Path(tmp) / "store"), tmp), world,
-                             SP_DEADLINE_S)
+        spawn_ranks(spatial_rank, (world, str(Path(tmp) / "store"), tmp), world, SP_DEADLINE_S)
         ranks = [torch.load(Path(tmp) / f"spatial_rank{r}.pt", weights_only=True)
                  for r in range(world)]
     for r, run in enumerate(ranks):
@@ -3516,12 +2434,7 @@ def phase_spatial(smi: str) -> int:
     # (a) the generator forward
     coarse, _ = spatial_inputs(config, 20, SP_B_FORWARD)
     with torch.no_grad():
-        want = state.generator(coarse.cuda())
-        start = recorded_event()
-        want = state.generator(coarse.cuda())
-        end = recorded_event()
-        torch.cuda.synchronize()
-    want = want.cpu()
+        want = state.generator(coarse.cuda()).cpu()
     forward = {}
     for shards in (2, 4):
         got = ranks[0]["forward"][shards]["fine"]
@@ -3541,11 +2454,10 @@ def phase_spatial(smi: str) -> int:
             "coarse_rows_per_rank": config.coarse_size // shards,
             "drb_band_rows": [hi - lo for lo, hi in (
                 band_rows(shards, i, config.coarse_size // shards, DRB_HALO)
-                for i in range(shards))],
-            "forward_ms_per_rank": [run["forward"][shards]["ms"] for run in ranks]}
+                for i in range(shards))]}
     emit("spatial", leg="a_generator_forward", card=smi, batch=SP_B_FORWARD,
          backend="gloo, 4 ranks sharing the card (CUDA tensors through host memory)",
-         by_shards=forward, unsharded_forward_ms=start.elapsed_time(end), spawn_and_legs_s=wall_s)
+         by_shards=forward)
 
     # (b) the generator's parameter gradients, the critic and the GP over 2 shards
     coarse, cotangent = (t.cuda() for t in spatial_generator_inputs(config))
@@ -3585,7 +2497,8 @@ def phase_spatial(smi: str) -> int:
     emit("spatial", leg="b_gradients_critic_gp", card=smi, batch=SP_B_STEP, shards=2,
          generator_param_grad_rel_diff_by_rank=gen_grad_gaps,
          generator_param_grad_tolerance_rel=SP_GRAD_REL,
-         generator_param_grad_rel_diff_by_rank_vs_backward_kernel_information=kernel_route_gaps, score_max_abs_diff_by_rank=score_gaps, score_tolerance={"atol": 3e-4, "rtol": 1e-4},
+         generator_param_grad_rel_diff_by_rank_vs_backward_kernel_information=kernel_route_gaps,
+         score_max_abs_diff_by_rank=score_gaps, score_tolerance={"atol": 3e-4, "rtol": 1e-4},
          gp=gp, gp_rel_diff_by_rank=gp_gaps, gp_tolerance_rel=1e-3,
          gp_param_grad_rel_diff_by_rank=grad_gaps, gp_param_grad_tolerance_rel=SP_GRAD_REL)
     del state
@@ -3609,9 +2522,7 @@ def phase_spatial(smi: str) -> int:
     emit("spatial", leg="c_spatial_train_step", card=smi, batch=SP_B_STEP, shards=2,
          steps=SP_STEPS, held={"ranks": "bit_identical", "vs_one_process": report,
                                "metrics_max_rel_diff": metric_gap},
-         generator_forwards=r0["forwards"],
-         per_rank=[step_timing(run["step"], n_critic) for run in ranks[:2]],
-         one_process=step_timing(one, n_critic))
+         generator_forwards=r0["forwards"])
 
     # (d) DP x spatial on the 2 x 2 grid against DP alone. The grid's four
     # ranks share every update; the DP baseline is two jobs of two ranks
@@ -3630,11 +2541,6 @@ def phase_spatial(smi: str) -> int:
          steps=SP_DP_STEPS, held={"ranks": "bit_identical (the grid's four; each DP job's two)",
                                   "vs_dp_2_ranks": report,
                                   "metrics_max_rel_diff": metric_gap},
-         step_ms_dp_spatial_by_rank=[run["dp_spatial"]["step_ms"] for run in ranks],
-         step_ms_dp_by_rank=[run["dp"]["step_ms"] for run in ranks],
-         peak_memory_bytes_dp_spatial_by_rank=[run["dp_spatial"]["peak_memory_bytes"]
-                                                for run in ranks],
-         peak_memory_bytes_dp_by_rank=[run["dp"]["peak_memory_bytes"] for run in ranks],
          drb_launches_by_rank=[run["launches"] for run in ranks])
     return launches
 
@@ -3662,57 +2568,17 @@ def synthetic_coarse(config, n: int) -> np.ndarray:
                              n_predictands=config.n_predictands, seed=config.seed)[0]
 
 
-def chunk_parts_ms(config, weights, coarse, chunk: int, repeats: int = 5) -> dict:
-    """One chunk of the generate loop with CUDA events between its parts:
-    the host block's copy to the card (pageable, as the loop does), the
-    forward and the copy back; the median over ``repeats``."""
-    from downgan_tpu_torch.training.state import load_generator
-
-    gen = load_generator(config, weights, "cuda")
-    block = np.ascontiguousarray(coarse[:chunk], np.float32)
-    parts = {"h2d": [], "forward": [], "d2h": []}
-    with torch.inference_mode():
-        for _ in range(repeats + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            torch.cuda.synchronize()
-            ev[0].record()
-            x = torch.from_numpy(block).to("cuda")
-            ev[1].record()
-            y = gen(x.permute(0, 3, 1, 2).contiguous())
-            ev[2].record()
-            y.permute(0, 2, 3, 1).cpu()
-            ev[3].record()
-            torch.cuda.synchronize()
-            for k, (a, b) in zip(parts, zip(ev, ev[1:])):
-                parts[k].append(a.elapsed_time(b))
-    parts = {k: float(np.median(v[1:])) for k, v in parts.items()}  # the first warms up
-    total = sum(parts.values())
-    return {"ms": parts, "share": {k: v / total for k, v in parts.items()},
-            "bytes_to_card": block.nbytes,
-            "bytes_to_host": chunk * config.n_predictands * config.fine_size ** 2 * 4}
-
-
 def generate_leg(config, weights, coarse, dtype_label: str):
     """The generate loop over ``coarse`` with the DRB launches counted from 0:
-    ``generate_fields_iter`` (timed by the host clock, each chunk ending in
-    its copy back), then held bit for bit to ``generate_fields``."""
+    ``generate_fields_iter``, held bit for bit to ``generate_fields``."""
     from downgan_tpu_torch.inference import generate_fields, generate_fields_iter
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
 
     chunk = config.chunk_size
     n_chunks = -(-len(coarse) // chunk)
-    torch.cuda.synchronize()
     reset_launch_counts()  # the generate path's run starts here
-    blocks, stamps, events = [], [time.perf_counter()], [recorded_event()]
-    for block in generate_fields_iter(config, weights, coarse):  # each ends in its copy back
-        blocks.append(block)
-        stamps.append(time.perf_counter())
-        events.append(recorded_event())
+    blocks = list(generate_fields_iter(config, weights, coarse))  # each ends in its copy back
     launches = (drb_forward.launches, drb_forward.launches_bf16)  # ... and ends here
-    torch.cuda.synchronize()
-    seconds = stamps[-1] - stamps[0]
-    steady_ms = 1e3 * np.diff(stamps[1:-1])  # the full chunks after the first
-    steady_events_ms = [a.elapsed_time(b) for a, b in zip(events[1:-2], events[2:-1])]
     want = (48 * n_chunks, 48 * n_chunks if dtype_label == "bfloat16" else 0)
     check(launches == want, f"generate ({dtype_label}): {launches} (all, bf16) DRB launches, "
           f"not {want} for {n_chunks} chunks")
@@ -3726,13 +2592,6 @@ def generate_leg(config, weights, coarse, dtype_label: str):
           f"generate ({dtype_label}): the iterator's blocks differ from generate_fields")
     return fields, launches[1] if dtype_label == "bfloat16" else launches[0], {
         "chunks": n_chunks, "chunk": chunk, "tail": len(coarse) - chunk * (n_chunks - 1),
-        "seconds": seconds, "patches_per_s": len(coarse) / seconds,
-        "first_chunk_ms_with_model_build": 1e3 * (stamps[1] - stamps[0]),
-        "ms_per_chunk_samples": steady_ms.tolist(), "ms_per_chunk": float(np.median(steady_ms)),
-        "patches_per_s_steady": chunk / float(np.median(steady_ms)) * 1e3,
-        "clock": "host, each chunk ending in its copy to the host",
-        "ms_per_chunk_events_samples": steady_events_ms,
-        "ms_per_chunk_events": float(np.median(steady_events_ms)),
         "fields_bytes_to_host": fields.nbytes}
 
 
@@ -3744,9 +2603,8 @@ def phase_generate(training_ckpt: str, tuned_ckpt: str, stochastic, smi: str):
     the streamed writer's block source (``generated_blocks``) held to the
     in-memory result bit for bit: plain, tiled with ``--tile-rows 16`` and a
     4-member ensemble of the ``stochastic`` phase's generator; 4 samples
-    against the CPU; the same in bf16 from the ``training_tuned`` run. Times
-    by the host clock (chunks end in their copy back) and CUDA events (the
-    parts of one chunk). Returns the fp32 and the bf16 DRB launches."""
+    against the CPU; the same in bf16 from the ``training_tuned`` run.
+    Returns the fp32 and the bf16 DRB launches."""
     from downgan_tpu_torch.inference import generate_ensemble, generate_fields, generated_blocks
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
     from downgan_tpu_torch.parallel.spatial import tiled_sr_inference
@@ -3756,8 +2614,7 @@ def phase_generate(training_ckpt: str, tuned_ckpt: str, stochastic, smi: str):
           and sum(v.numel() for v in weights.values()) == 1_696_514,
           "the training phase's checkpoint is not the florida generator")
     coarse = synthetic_coarse(config, GEN_SAMPLES)
-    fields, fp32_launches, timing = generate_leg(config, weights, coarse, "float32")
-    parts = chunk_parts_ms(config, weights, coarse, config.chunk_size)
+    fields, fp32_launches, loop = generate_leg(config, weights, coarse, "float32")
     cpu = generate_fields(config, weights, coarse[:4], device="cpu")
     cpu_err = float(np.abs(fields[:4] - cpu).max())
     check(np.allclose(fields[:4], cpu, atol=GEN_ATOL, rtol=GEN_RTOL),
@@ -3789,15 +2646,14 @@ def phase_generate(training_ckpt: str, tuned_ckpt: str, stochastic, smi: str):
 
     bf16_config, bf16_weights = restore_like_generate(tuned_ckpt)
     check(bf16_config.hp.compute_dtype == "bfloat16", "the tuned run's logged config is not bf16")
-    bf16_fields, bf16_launches, bf16_timing = generate_leg(bf16_config, bf16_weights, coarse,
-                                                           "bfloat16")
-    bf16_parts = chunk_parts_ms(bf16_config, bf16_weights, coarse, bf16_config.chunk_size)
+    bf16_fields, bf16_launches, bf16_loop = generate_leg(bf16_config, bf16_weights, coarse,
+                                                         "bfloat16")
     bf16_cpu = generate_fields(bf16_config, bf16_weights, coarse[:4], device="cpu")
     bf16_err = float(np.abs(bf16_fields[:4] - bf16_cpu).max() / np.abs(bf16_cpu).max())
     check(bf16_err <= GEN_BF16_REL, f"generate bf16: card vs CPU on 4 samples {bf16_err} of "
           "the largest magnitude")
     emit("generate", card=smi, source="generate --checkpoint <the training phase's checkpoints>",
-         samples=GEN_SAMPLES, fp32=timing, fp32_chunk_parts=parts,
+         samples=GEN_SAMPLES, fp32=loop,
          drb_launches=fp32_launches, drb_launches_per_forward=48,
          max_abs_err_vs_cpu_4=cpu_err, atol=GEN_ATOL, rtol=GEN_RTOL,
          streamed_bit_for_bit=modes, streamed_modes={
@@ -3807,62 +2663,25 @@ def phase_generate(training_ckpt: str, tuned_ckpt: str, stochastic, smi: str):
              f"{len(members_in)} samples"},
          streamed_and_reference_drb_launches=stream_launches,
          bf16={"source": "generate --checkpoint <the training_tuned run's checkpoints>",
-               **bf16_timing, "chunk_parts": bf16_parts, "drb_launches_bf16": bf16_launches,
+               **bf16_loop, "drb_launches_bf16": bf16_launches,
                "max_err_vs_cpu_4_of_largest": bf16_err, "tolerance": GEN_BF16_REL})
     return fp32_launches + stream_launches, bf16_launches
-
-
-@contextlib.contextmanager
-def timed_calls(targets):
-    """Host seconds of every call, while the block runs, of each
-    ``(module, name)`` in ``targets`` (the card synchronized after each
-    call), summed by name."""
-    seconds = {name: 0.0 for _, name in targets}
-    saved = [(module, name, getattr(module, name)) for module, name in targets]
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                torch.cuda.synchronize()
-                seconds[name] += time.perf_counter() - t0
-        return wrapper
-
-    for module, name, fn in saved:
-        setattr(module, name, timed(name, fn))
-    try:
-        yield seconds
-    finally:
-        for module, name, fn in saved:
-            setattr(module, name, fn)
 
 
 def run_evaluate(argv, want_forwards: int):
     """``cli evaluate argv`` in-process with the DRB launches counted from 0
     (48 in each of ``want_forwards`` generator forwards); returns its JSON
-    line's dict, what it printed on stderr, the launches and the seconds
-    (the whole command, and its synthetic set, state and metric pass)."""
+    line's dict, what it printed on stderr and the launches."""
     import io
 
-    import downgan_tpu_torch.data.dataset as dataset
-    import downgan_tpu_torch.training.state as state
-    import downgan_tpu_torch.training.trainer as trainer
     from downgan_tpu_torch.cli.__main__ import main as cli_main
     from downgan_tpu_torch.ops.cuda.drb import drb_forward
 
     err = io.StringIO()
-    torch.cuda.synchronize()
-    parts = [(dataset, "synthetic_dataset"), (state, "make_train_state"),
-             (state, "load_generator"), (trainer, "full_split_metric_pass")]
-    with launches_per_generator_forward() as per_forward, contextlib.redirect_stderr(err), \
-            timed_calls(parts) as part_s:
+    with launches_per_generator_forward() as per_forward, contextlib.redirect_stderr(err):
         reset_launch_counts()  # the evaluate path's run starts here
-        t0 = time.perf_counter()
         result = cli_main(["evaluate", *argv])
         torch.cuda.synchronize()
-        seconds = {"command": time.perf_counter() - t0, **part_s}
         launches = drb_forward.launches  # ... and ends here
     check(len(per_forward) == want_forwards and set(per_forward) == {48}
           and launches == 48 * want_forwards,
@@ -3870,7 +2689,7 @@ def run_evaluate(argv, want_forwards: int):
           f"not 48 in each of {want_forwards}")
     check(all(np.isfinite(v) for v in result.values() if isinstance(v, float)),
           f"evaluate {argv}: {result}")
-    return result, err.getvalue(), launches, seconds
+    return result, err.getvalue(), launches
 
 
 def phase_evaluate(training_ckpt: str, ema_run, stochastic_ckpt: str, workdir: Path, smi: str):
@@ -3886,44 +2705,40 @@ def phase_evaluate(training_ckpt: str, ema_run, stochastic_ckpt: str, workdir: P
     batches = -(-GEN_SAMPLES // B_TRAIN)
     runs, launches = {}, 0
     out = workdir / "evaluate.json"
-    result, _, n, seconds = run_evaluate(["--checkpoint", training_ckpt, "--out", str(out),
-                                          "--synthetic", "--samples", str(GEN_SAMPLES)], batches)
+    result, _, n = run_evaluate(["--checkpoint", training_ckpt, "--out", str(out),
+                                 "--synthetic", "--samples", str(GEN_SAMPLES)], batches)
     check(json.loads(out.read_text()) == result and result["n_samples"] == GEN_SAMPLES
           and {"MAE", "MSE", "MSSSIM", "Wass"} <= result.keys(), f"evaluate: {result}")
-    runs["checkpoint"], launches = {"result": result, "seconds": seconds}, launches + n
+    runs["checkpoint"], launches = result, launches + n
     # The other runs at 144 samples (2 batches, a 16-row tail): each command
     # makes its synthetic set anew on the host.
     small = ["--synthetic", "--samples", "144"]
     small_batches = -(-144 // B_TRAIN)
-    card, _, n, seconds = run_evaluate(["--checkpoint", training_ckpt, *small], small_batches)
-    runs["checkpoint_144"], launches = {"result": card, "seconds": seconds}, launches + n
+    card, _, n = run_evaluate(["--checkpoint", training_ckpt, *small], small_batches)
+    runs["checkpoint_144"], launches = card, launches + n
     ema_ckpt, ema_config = ema_run
-    result, _, n, seconds = run_evaluate(["--checkpoint", ema_ckpt, "--config", str(ema_config),
-                                          "--ema", *small], small_batches)
-    runs["ema"], launches = {"result": result, "seconds": seconds}, launches + n
+    result, _, n = run_evaluate(["--checkpoint", ema_ckpt, "--config", str(ema_config),
+                                 "--ema", *small], small_batches)
+    runs["ema"], launches = result, launches + n
     bundle = cli_main(["export", "--checkpoint", training_ckpt, "--out", str(workdir / "bundle")])
-    result, stderr, n, seconds = run_evaluate(["--checkpoint", bundle, "--weights-only", *small],
-                                              small_batches)
+    result, stderr, n = run_evaluate(["--checkpoint", bundle, "--weights-only", *small],
+                                     small_batches)
     check("Wass" not in result and "dropping the Wass metric" in stderr
           and result["MAE"] == card["MAE"],
           f"evaluate --weights-only: {result}, stderr {stderr!r}")
-    runs["weights_only"], launches = {"result": result, "seconds": seconds,
-                                      "stderr": stderr.strip()}, launches + n
+    runs["weights_only"], launches = {**result, "stderr": stderr.strip()}, launches + n
     ens_forwards = small_batches + GEN_MEMBERS * -(-144 // B_MAIN)
-    result, _, n, seconds = run_evaluate(["--checkpoint", stochastic_ckpt, "--ensemble",
-                                          str(GEN_MEMBERS), *small], ens_forwards)
+    result, _, n = run_evaluate(["--checkpoint", stochastic_ckpt, "--ensemble",
+                                 str(GEN_MEMBERS), *small], ens_forwards)
     check(result["n_members"] == GEN_MEMBERS and result["spread"] > 0, f"ensemble: {result}")
-    runs["ensemble"], launches = {"result": result, "seconds": seconds}, launches + n
-    t0 = time.perf_counter()
+    runs["ensemble"], launches = result, launches + n
     cpu = cli_main(["evaluate", "--checkpoint", training_ckpt, *small, "--device", "cpu"])
-    cpu_s = time.perf_counter() - t0
     far = {k: (card[k], v) for k, v in cpu.items() if isinstance(v, float)
            and not abs(card[k] - v) <= STEP_ATOL + STEP_RTOL * abs(v)}
     check(not far, f"evaluate at 144 samples, card vs CPU beyond rtol {STEP_RTOL} atol "
           f"{STEP_ATOL}: {far}")
     emit("evaluate", card=smi, samples=GEN_SAMPLES, batch=B_TRAIN, batches=batches, runs=runs,
-         vs_cpu_144={"card": card, "cpu": cpu, "rtol": STEP_RTOL, "atol": STEP_ATOL,
-                     "cpu_seconds": cpu_s},
+         vs_cpu_144={"card": card, "cpu": cpu, "rtol": STEP_RTOL, "atol": STEP_ATOL},
          drb_launches=launches, drb_launches_per_forward=48)
     return launches
 
@@ -3995,8 +2810,8 @@ GRID_SAMPLES = 144  # the grid's pool: the synthetic set's test split at 1,440
 def profile_leg(argv, out: Path, kernel: str, bf16: bool) -> dict:
     """``cli profile argv --out out`` in-process with the DRB launches counted
     from 0: 48 in each generator forward it reports, the trace naming
-    ``kernel``; returns its JSON line's dict with the trace's size (the trace
-    is deleted after the check)."""
+    ``kernel``; returns what its JSON line and the trace count (the trace is
+    deleted after the check)."""
     import shutil
 
     from downgan_tpu_torch.cli.__main__ import main as cli_main
@@ -4019,8 +2834,9 @@ def profile_leg(argv, out: Path, kernel: str, bf16: bool) -> dict:
     check(kernel in names, f"profile {argv}: the trace names {names}, not {kernel}")
     check(result["steps_per_s"] > 0 and result["hbm"].get("peak_bytes_in_use", 0) > 0,
           f"profile {argv}: {result}")
-    return {**result, "trace_bytes": trace_bytes, "trace_kernel_names": names,
-            "launches": launches}
+    return {**{k: result[k] for k in ("mode", "steps", "batch", "schedule", "patches_per_step",
+                                      "generator_forwards", "drb_launches", "device")},
+            "trace_bytes": trace_bytes, "trace_kernel_names": names, "launches": launches}
 
 
 def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
@@ -4030,10 +2846,9 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
     examples/production_tuned.json): its JSON line, a Chrome trace naming the
     DRB kernel, 48 launches a generator forward; (b) the FLOP census of
     florida at B=128, reference and tuned, on ``meta`` equal to the CPU's at
-    batch 1 scaled, beside the JAX package's figures and the share of peak
-    the profiled steps reached; (c) ``tune`` over 2 fp32 reference
-    candidates (B=64 and 128) in their own processes, the recommended config
-    through ``show-config``; (d) ``import-torch`` of a seeded florida
+    batch 1 scaled, beside the JAX package's figures; (c) ``tune`` over 2
+    fp32 reference candidates (B=64 and 128) in their own processes, the
+    recommended config through ``show-config``; (d) ``import-torch`` of a seeded florida
     generator and critic in the reference layout: the bundle's tensors and
     its forward at B=150 bit for bit the weights loaded straight; the
     ``training`` phase's checkpoint through ``export-torch`` and
@@ -4050,7 +2865,7 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
     from downgan_tpu_torch.tracking import TrackingStore
     from downgan_tpu_torch.training.state import load_generator, make_critic, make_generator
     from downgan_tpu_torch.training.trainer import Trainer, grid_rows
-    from downgan_tpu_torch.utils.flops import H100_PEAK_TFLOPS, train_flop_census
+    from downgan_tpu_torch.utils.flops import train_flop_census
     from downgan_tpu_torch.utils.plots import have_matplotlib
 
     florida = ROOT / "examples" / "florida.json"
@@ -4059,7 +2874,6 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
     tuned = Config.from_json(tuned_json.read_text())
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_tooling_"))
     launches = launches_bf16 = 0
-    seconds, t_part = {}, time.perf_counter()  # each leg's seconds
 
     # (a) profile
     profiles = {
@@ -4077,33 +2891,17 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
           "profile: a fused round is not critic_iterations x B patches")
     launches += sum(p["launches"] for k, p in profiles.items() if "bf16" not in k)
     launches_bf16 += profiles["train_b128_bf16_fused"]["launches"]
-    seconds["profile"], t_part = time.perf_counter() - t_part, time.perf_counter()
 
     # (b) the census: meta here against the CPU at batch 1, scaled
     census = {}
     for name, cfg, steps, start in (("reference", config, 5, 0), ("tuned", tuned, 1, 0)):
-        t0 = time.perf_counter()
         meta = train_flop_census(cfg, steps, start_step=start)
-        meta_s = time.perf_counter() - t0
         cpu = train_flop_census(cfg, steps, start_step=start, device="cpu")
         check(meta == cpu, f"census {name}: meta {meta} != cpu {cpu}")
-        census[name] = {**meta, "seconds_meta": meta_s}
+        census[name] = meta
     ref = census["reference"]
     census["reference"]["vs_jax"] = {k: ref["pieces"].get(k, ref.get(k)) / v
                                      for k, v in JAX_CENSUS_FLORIDA.items()}
-    # The profiled windows' share of the peak: the reference steps 1-3 are
-    # critic-only (the critic update's fake, the critic update, the metric
-    # pass's fake and scores); a tuned round is the tuned census's step.
-    p = ref["pieces"]
-    per_step = {"train_b128_fp32_reference": 2 * p["fake_gen"] + p["critic_vag_microbatch"]
-                + p["metrics"], "train_b128_bf16_fused": census["tuned"]["flops_per_step"]}
-    shares = {}
-    for key, cfg in (("train_b128_fp32_reference", config), ("train_b128_bf16_fused", tuned)):
-        tflops = per_step[key] * profiles[key]["steps_per_s"] / 1e12
-        peak = H100_PEAK_TFLOPS[cfg.hp.compute_dtype]
-        shares[key] = {"flops_per_step": per_step[key], "achieved_tflops": tflops,
-                       "peak_tflops": peak, "share_of_peak": tflops / peak}
-    seconds["census"] = time.perf_counter() - t_part
 
     # (c) tune: two candidates, each in its own process
     tuned_out, sweep_out = work / "tuned.json", work / "sweep.json"
@@ -4121,7 +2919,6 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
           f"tune's config through show-config: {shown.hp}")
     tune_launches = sum(r["drb_launches"] for r in sweep)
     launches += tune_launches
-    seconds["tune"], t_part = time.perf_counter() - t_part, time.perf_counter()
 
     # (d) import-torch and export-torch
     g_sd = make_generator(config, "cpu", rng=torch.Generator().manual_seed(21)).state_dict()
@@ -4161,7 +2958,6 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
           and all(torch.equal(again_g[k], trained[k].cpu()) for k in trained),
           "export-torch then import-torch: not the training checkpoint's tensors")
     launches += import_launches
-    seconds["import_export"], t_part = time.perf_counter() - t_part, time.perf_counter()
 
     # (e) grid rows, the figures' note, export-mlflow, serve-tracking
     coarse, fine = synthetic_dataset(n_samples=GRID_SAMPLES, coarse_size=config.coarse_size,
@@ -4237,11 +3033,11 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
     import shutil
 
     shutil.rmtree(work)
-    seconds["grid_mlflow_tracking"] = time.perf_counter() - t_part
-    emit("tooling", card=smi, seconds=seconds, profiles=profiles, census=census, census_jax=JAX_CENSUS_FLORIDA,
-         profiled_share_of_peak=shares, tune={"report": report, "drb_launches": tune_launches,
-                                              "rep_times_s": {r["metric"]: r["rep_times_s"]
-                                                              for r in sweep}},
+    emit("tooling", card=smi, profiles=profiles, census=census, census_jax=JAX_CENSUS_FLORIDA,
+         tune={"candidates": [r["metric"] for r in report["candidates"]],
+               "best": {k: report["best"][k]
+                        for k in ("batch", "dtype", "schedule", "grad_accum")},
+               "drb_launches": tune_launches},
          import_torch={"bundle_bit_for_bit": True, "roundtrip_bit_for_bit": True,
                        "drb_launches": import_launches},
          grid={"max_abs_err_fake_vs_cpu": grid_err, "atol": GRID_ATOL, "rtol": GRID_RTOL,
@@ -4252,6 +3048,42 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
          packages=package_versions(("matplotlib", "tensorboardX", "mlflow", "yaml")),
          drb_launches=launches, drb_launches_bf16=launches_bf16)
     return launches, launches_bf16
+
+
+def emit_kernels(smi: str, fp32_paths: dict, bf16_paths: dict, wide_launches: int,
+                 backward_launches: int) -> None:
+    """The ``{"kernels": [...]}`` line: each hand-written kernel's launches
+    on the main paths (each path's counters zeroed just before its run and
+    read at its end) and, where the benchmark has one, its bound at the
+    main path's shapes from the benchmark's own function. The kernels'
+    times are ``tools/time_kernels.py``'s."""
+    from portbench import flops
+    from portbench.reference import esrgan
+
+    common = {"source": "downgan_tpu_torch/ops/cuda/drb.cu", "times": "tools/time_kernels.py",
+              "card": smi}
+    florida = "downgan_tpu/ops/pallas/drb.py:120"
+    print(json.dumps({"kernels": [{
+        "name": "drb_kernel", "dtype": "float32", "replaces": florida, **common,
+        "launches": sum(fp32_paths.values()), "launches_by_path": fp32_paths,
+        "bound": "portbench.flops.drb_bound_seconds",
+        "bound_ms": {"B150": 1e3 * flops.drb_bound_seconds(B_MAIN, 16, 16, 16, "float32"),
+                     "B128": 1e3 * flops.drb_bound_seconds(B_TRAIN, 16, 16, 16, "float32")}}, {
+        "name": "drb_kernel_bf16", "dtype": "bfloat16", "replaces": florida, **common,
+        "launches": sum(bf16_paths.values()), "launches_by_path": bf16_paths,
+        "bound": "portbench.flops.drb_bound_seconds",
+        "bound_ms": {"B150": 1e3 * flops.drb_bound_seconds(B_MAIN, 16, 16, 16, "bfloat16"),
+                     "B128": 1e3 * flops.drb_bound_seconds(B_TRAIN, 16, 16, 16, "bfloat16")}}, {
+        "name": "drb_kernel_wide", "dtype": "float32",
+        "replaces": "none: ESRGAN's block (nf 64, gc 32) has no TPU kernel", **common,
+        "launches": wide_launches, "launches_by_path": {"esrgan": wide_launches},
+        "bound": "portbench.reference.esrgan.drb_bound_seconds",
+        "bound_ms": {"B128": 1e3 * esrgan.drb_bound_seconds(B_TRAIN, 64, 32, 16, 16)}}, {
+        "name": "drb_backward_kernel+drb_grad_reduce", "dtype": "float32",
+        "replaces": "none: the JAX package differentiates its DRB with XLA convolutions",
+        **common, "launches": backward_launches, "launches_by_path": {"training": backward_launches},
+        "bound": "none in the benchmark (tools/time_kernels.py::backward_bound_seconds)"}]}),
+        flush=True)
 
 
 def main() -> int:
@@ -4265,27 +3097,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi, name = phase_device()
-    peaks = card_peaks(name)
     phase_build()
+    phase_kernels()
     rng = torch.Generator().manual_seed(1234)
-    kernel_err, timing, band, timing_b128 = phase_kernel(rng, peaks)
-    bf16_err, bf16_timing, bf16_band, bf16_b128, bf16_b132 = phase_kernel_bf16(rng, peaks)
     config = Config.from_json((ROOT / "examples" / "florida.json").read_text())
     gen = phase_generator(config, rng)
     phase_generator_bf16(config, rng)
-    phase_profile(config, gen, rng)
     serving_launches = phase_serving(config, gen, rng)
     check(serving_launches > 0, "the serving path launched no DRB kernel")
-    backward_ms = phase_drb_grad(rng, peaks, timing_b128)
-    bf16_backward_ms = phase_drb_grad_bf16(rng, bf16_b128)
-    esrgan = phase_esrgan(rng, peaks)
+    esrgan_launches = phase_esrgan(rng)
     phase_train_parity(config)
     phase_fused_parity()
     phase_variants_parity(config)
     # The training runs stay on disk for the generate and evaluate phases.
     training_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_training_")
     tracking_root = Path(training_dir.name)
-    training_launches, training_summary, training_ckpt = phase_training(tracking_root)
+    training_launches, backward_launches, training_ckpt = phase_training(tracking_root)
     check(training_launches > 0, "the training path launched no DRB kernel")
     tuned_launches, tuned, trained = phase_training_tuned(tracking_root)
     bf16_serving_launches = phase_serving_bf16(tuned, trained, rng)
@@ -4303,8 +3130,7 @@ def main() -> int:
     check(host_feed_launches > 0 and stream_launches > 0,
           "the host-fed or streaming path launched no DRB kernel")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stochastic_") as tracking_root:
-        stochastic_launches, stochastic = phase_stochastic(config, rng, Path(tracking_root),
-                                                           training_summary, smi)
+        stochastic_launches, stochastic = phase_stochastic(config, rng, Path(tracking_root), smi)
         ensemble_launches = phase_ensemble(stochastic, smi)
         serving_stochastic_launches = phase_serving_stochastic(stochastic, rng, smi)
         generate_launches, generate_bf16_launches = phase_generate(training_ckpt, tuned_ckpt,
@@ -4320,7 +3146,7 @@ def main() -> int:
     check(generate_launches > 0 and generate_bf16_launches > 0 and evaluate_launches > 0
           and split_launches > 0, "a batch inference path launched no DRB kernel")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tracking_root:
-        variants_launches = phase_variants(Path(tracking_root), training_summary)
+        variants_launches = phase_variants(Path(tracking_root))
         variants_tuned_launches = phase_variants_tuned(Path(tracking_root))
     check(variants_launches > 0 and variants_tuned_launches > 0,
           "a training-variant path launched no DRB kernel")
@@ -4333,62 +3159,19 @@ def main() -> int:
     training_dir.cleanup()
     check(tooling_launches > 0 and tooling_bf16_launches > 0,
           "the tooling paths launched no DRB kernel")
-    common = {"route": "cuda", "impl": "cuda", "source": "downgan_tpu_torch/ops/cuda/drb.cu",
-              "replaces": "downgan_tpu/ops/pallas/drb.py:120",
-              "backward": "fp32 16x16: drb.cu::drb_backward_kernel and drb_grad_reduce; "
-                          "bf16, wide and banded blocks: the cuDNN recompute "
-                          "(ops/cuda/drb.py::drb_backward)",
-              "card": smi}
-    print(json.dumps({"kernels": [{
-        "name": "drb_forward", "dtype": "float32", **common,
-        "launches": (serving_launches + training_launches + resume_launches + bundle_launches
-                     + host_feed_launches + stream_launches + stochastic_launches
-                     + ensemble_launches + serving_stochastic_launches + generate_launches
-                     + evaluate_launches + split_launches + variants_launches + dp_launches
-                     + spatial_launches + tooling_launches),
-        "launches_by_path": {"serving": serving_launches, "training": training_launches,
-                             "resume": resume_launches, "bundle_serving": bundle_launches,
-                             "host_feed": host_feed_launches, "stream": stream_launches,
-                             "stochastic": stochastic_launches, "ensemble": ensemble_launches,
-                             "serving_stochastic": serving_stochastic_launches,
-                             "generate": generate_launches, "evaluate": evaluate_launches,
-                             "tiles_split": split_launches,
-                             "variants": variants_launches, "dp": dp_launches,
-                             "spatial": spatial_launches, "tooling": tooling_launches},
-        "max_abs_err": kernel_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-        "tf32_floor_ms": timing["tf32_floor_ms"], "shape": timing["shape"],
-        "band": {k: band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "tf32_floor_ms",
-                                      "library_ms")},
-        "ms_b128": timing_b128["ms"], "bound_ms_b128": timing_b128["bound_ms"],
-        "library_ms_b128": timing_b128["library_ms"], "backward_ms_b128": backward_ms}, {
-        "name": "drb_forward_bf16", "dtype": "bfloat16", **common,
-        "launches": (tuned_launches + bf16_serving_launches + generate_bf16_launches
-                     + variants_tuned_launches + dp_bf16_launches + tooling_bf16_launches),
-        "launches_by_path": {"training_tuned": tuned_launches,
-                             "serving_bf16": bf16_serving_launches,
-                             "generate_bf16": generate_bf16_launches,
-                             "variants_tuned": variants_tuned_launches,
-                             "dp_tuned": dp_bf16_launches,
-                             "tooling": tooling_bf16_launches},
-        "max_abs_err": bf16_err,
-        "max_abs_err_is": "kernel vs its bf16 twin, largest over the kernel_bf16 shapes",
-        "ms": bf16_timing["ms"], "plain_ms": bf16_timing["plain_ms"],
-        "bound_ms": bf16_timing["bound_ms"], "bound_by": bf16_timing["bound_by"],
-        "library_ms": bf16_timing["library_ms"], "shape": bf16_timing["shape"],
-        "band": {k: bf16_band[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
-        "ms_b128": bf16_b128["ms"], "bound_ms_b128": bf16_b128["bound_ms"],
-        "library_ms_b128": bf16_b128["library_ms"], "backward_ms_b128": bf16_backward_ms,
-        "ms_b132": bf16_b132["ms"], "bound_ms_b132": bf16_b132["bound_ms"],
-        "smem_bytes_per_cta": bf16_timing["smem_bytes_per_cta"],
-        "ctas_per_sm": bf16_timing["ctas_per_sm"]}, {
-        "name": "drb_forward (wide)", "dtype": "float32", **common,
-        "replaces": "none: ESRGAN's block (nf 64, gc 32) has no TPU kernel",
-        "launches_by_path": {"esrgan": esrgan["launches"]},
-        "ms_b128": esrgan["ms_b128"], "bound_ms_b128": esrgan["bound_ms_b128"],
-        "library_ms_b128": esrgan["library_ms_b128"]}]}),
-        flush=True)
+    fp32_paths = {"serving": serving_launches, "training": training_launches,
+                  "resume": resume_launches, "bundle_serving": bundle_launches,
+                  "host_feed": host_feed_launches, "stream": stream_launches,
+                  "stochastic": stochastic_launches, "ensemble": ensemble_launches,
+                  "serving_stochastic": serving_stochastic_launches,
+                  "generate": generate_launches, "evaluate": evaluate_launches,
+                  "tiles_split": split_launches, "variants": variants_launches,
+                  "dp": dp_launches, "spatial": spatial_launches, "tooling": tooling_launches}
+    bf16_paths = {"training_tuned": tuned_launches, "serving_bf16": bf16_serving_launches,
+                  "generate_bf16": generate_bf16_launches,
+                  "variants_tuned": variants_tuned_launches, "dp_tuned": dp_bf16_launches,
+                  "tooling": tooling_bf16_launches}
+    emit_kernels(smi, fp32_paths, bf16_paths, esrgan_launches, backward_launches)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

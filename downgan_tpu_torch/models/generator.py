@@ -14,8 +14,9 @@ Attribute names reproduce the reference state-dict keys (``conv1``,
 loads with ``strict=True``.
 
 Every DenseResidualBlock runs through ``ops/cuda/drb.py::drb``: on a CUDA
-tensor the CUDA kernel (through ``DRBFunction``, whose backward is a cuDNN
-recompute, when autograd needs a gradient), on a CPU tensor its plain
+tensor the CUDA kernel (through ``DRBFunction`` when autograd needs a
+gradient: its backward is ``drb_backward_kernel`` for DoWnGAN's block in
+fp32 at 16x16, and a cuDNN recompute otherwise), on a CPU tensor its plain
 twin, under autograd or not.
 
 ``compute_dtype`` (``hp.compute_dtype``) is the JAX ``Generator``'s

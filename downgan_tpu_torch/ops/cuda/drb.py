@@ -29,8 +29,8 @@ block at filters 8 and 16 (fp32, bf16) and ESRGAN's at (64, 32) and 16x16
   raises — nothing falls back to the twin on the card;
 * :func:`drb_forward_reference` is the plain twin: the same function as
   the kernel (nine shifted channel products per stage, summed in fp32; in
-  bf16 rounded at the kernel's three points) in PyTorch. Tests, CPU runs
-  and ``chip_smoke.py`` hold the kernel against it;
+  bf16 rounded at the kernel's three points) in PyTorch. CPU runs use it,
+  and the ``cuda``-marked tests hold the kernel against it;
 * :class:`DRBFunction` is the DRB under autograd on the card: its forward
   is the kernel. Its backward is :func:`drb_backward_kernel` (one
   ``drb_backward_kernel`` launch and a fixed-order reduction) for DoWnGAN's
@@ -297,8 +297,8 @@ def cudnn_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """The same DRB as five convolutions and concats in x's dtype
     (``F.conv2d`` with the parameters cast to it: cuDNN on the card; in
     bf16 the residual is taken in fp32 and rounded once, as the kernel's). :func:`drb_backward` differentiates
-    it, and ``chip_smoke.py`` times it as the library yardstick: no single
-    PyTorch call computes a DRB."""
+    it, and ``tools/time_kernels.py`` times it as the library yardstick: no
+    single PyTorch call computes a DRB."""
     dt = x.dtype
     acts = x
     for s in range(5):
@@ -487,11 +487,10 @@ def drb(x: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch
 
 class DRBFunction(torch.autograd.Function):
     """The DRB under autograd on the card: ``apply(x, packed, w1..w5,
-    b1..b5[, slope])``, in x's dtype (``packed`` for it). Ten parameters
-    or ten and the slope: without it the slope is :data:`SLOPE` (the
-    florida block), and any other count raises. The forward launches the
-    kernel (counted in ``drb_forward.launches``) and saves only x and the
-    ten parameters. The backward is :func:`drb_backward_kernel` where
+    b1..b5, slope)``, in x's dtype (``packed`` for it); any other count of
+    arguments raises. The forward launches the kernel (counted in
+    ``drb_forward.launches``) and saves only x and the ten parameters. The
+    backward is :func:`drb_backward_kernel` where
     :func:`backward_on_kernel` says so (fp32, DoWnGAN's block, 16x16), and
     otherwise :func:`drb_backward`, a cuDNN recompute in the same dtype:
     with bf16 x and fp32 parameters it gives a bf16 gradient of x and fp32
@@ -502,12 +501,10 @@ class DRBFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, packed, *params):
-        if len(params) not in (10, 11):
-            raise TypeError(f"DRBFunction takes w1..w5, b1..b5 and an optional slope after x "
-                            f"and packed: got {len(params)} arguments after them")
-        ctx.with_slope = len(params) == 11
-        ctx.slope = params[10] if ctx.with_slope else SLOPE
-        params = params[:10]
+        if len(params) != 11:
+            raise TypeError(f"DRBFunction takes w1..w5, b1..b5 and the slope after x and "
+                            f"packed: got {len(params)} arguments after them")
+        *params, ctx.slope = params
         ctx.save_for_backward(x, *params)
         return drb_forward(x, params[:5], params[5:], packed, ctx.slope)
 
@@ -521,7 +518,7 @@ class DRBFunction(torch.autograd.Function):
                 grads = drb_backward_kernel(x, params[:5], params[5:], grad_out, needs)
             else:
                 grads = drb_backward(x, params[:5], params[5:], grad_out, needs, ctx.slope)
-        return (grads[0], None, *grads[1:], *([None] if ctx.with_slope else []))
+        return (grads[0], None, *grads[1:], None)
 
 
 def _wide_block(x: torch.Tensor, weights: Sequence[torch.Tensor], slope: float) -> bool:

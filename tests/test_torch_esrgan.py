@@ -6,9 +6,9 @@ the generator forward, one reference-schedule train step (critic with GP,
 then generator) by losses, gradients and parameter deltas. Also the
 published-width parameter counts, a checkpoint round trip, the paths that
 refuse it, and the wide kernel's frame arithmetic. On a CUDA card only: the
-wide DRB kernel against its twin at B=128, 69 wide launches a generator
-forward at the published widths, and ``DRBFunction``'s backward against
-autograd through the twin:
+wide DRB kernel against its twin at B=1, 3 and 128 and from an input 4 bytes
+off alignment, 69 wide launches a generator forward at the published widths,
+and ``DRBFunction``'s backward against autograd through the twin:
 
     python -m pytest tests/test_torch_esrgan.py -m cuda --noconftest -q
 """
@@ -371,17 +371,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_wide_kernel_matches_twin_at_b128(cuda_device):
+@pytest.mark.parametrize("b, offset", [(1, False), (3, False), (128, False), (128, True)],
+                         ids=["B1", "B3", "B128", "B128-offset4"])
+def test_cuda_wide_kernel_matches_twin_at_b128(cuda_device, b, offset):
+    """At B=128 (training), and at B=1 and 3, where one CTA a sample leaves
+    most SMs idle. ``offset``: x starts 4 bytes past a 16-byte boundary, so
+    the kernel reads it by 4-byte copies; its output is the 16-byte path's
+    bit for bit."""
     f, _, slope = WIDE_BLOCK
     ws, bs = block_params(f, seed=11, device=cuda_device)
-    x = torch.randn(128, f, 16, 16, generator=torch.Generator().manual_seed(12)).to(cuda_device)
+    x = torch.randn(b, f, 16, 16, generator=torch.Generator().manual_seed(12)).to(cuda_device)
+    packed = pack_drb_weights(ws, bs)
     before = drb_forward.launches_wide
     with torch.inference_mode():
-        got = drb_forward(x, ws, bs, pack_drb_weights(ws, bs), slope)
+        got = drb_forward(x, ws, bs, packed, slope)
         want = drb_forward_reference(x, ws, bs, slope=slope)
     torch.cuda.synchronize()
     assert drb_forward.launches_wide == before + 1
     torch.testing.assert_close(got, want, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
+    if offset:
+        shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)
+        shifted.copy_(x)
+        with torch.inference_mode():
+            assert torch.equal(drb_forward(shifted, ws, bs, packed, slope), got)
     with torch.inference_mode(), pytest.raises(ValueError, match="wide DRB kernel takes"):
         drb_forward(x[:, :, :8].contiguous(), ws, bs, None, slope)
 
@@ -441,10 +453,10 @@ def test_block_on_sides_is_the_twins_function():
                                atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
 
 
-def test_drb_function_takes_ten_parameters_and_an_optional_slope():
-    """``DRBFunction.apply(x, packed, w1..w5, b1..b5[, slope])``: on the CPU
-    its forward is the twin's, with the slope given or the florida one; a
-    wrong count raises instead of reading a tensor as the slope."""
+def test_drb_function_takes_ten_parameters_and_the_slope():
+    """``DRBFunction.apply(x, packed, w1..w5, b1..b5, slope)``: on the CPU
+    its forward is the twin's with that slope; ten parameters without the
+    slope, or anything after it, raise instead of guessing the slope."""
     f, _, slope = WIDE_BLOCK
     ws, bs = block_params(f, seed=19)
     x = torch.randn(1, f, 16, 16, generator=torch.Generator().manual_seed(20))
@@ -452,10 +464,9 @@ def test_drb_function_takes_ten_parameters_and_an_optional_slope():
     with torch.no_grad():
         torch.testing.assert_close(DRBFunction.apply(x, packed, *ws, *bs, slope),
                                    drb_forward_reference(x, ws, bs, slope=slope))
-        torch.testing.assert_close(DRBFunction.apply(x, packed, *ws, *bs),
-                                   drb_forward_reference(x, ws, bs))
-        with pytest.raises(TypeError, match="optional slope"):
-            DRBFunction.apply(x, packed, *ws, *bs[:4])
+        for wrong in ((*ws, *bs), (*ws, *bs, slope, slope)):
+            with pytest.raises(TypeError, match="and the slope after x and packed"):
+                DRBFunction.apply(x, packed, *wrong)
 
 
 @pytest.mark.cuda

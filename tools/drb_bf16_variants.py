@@ -29,13 +29,15 @@ For each it prints one JSON line: the ptxas register line and any note
 that ptxas serialized ``wgmma``; the largest difference from the bf16 twin
 in bf16 ulps of the output's largest value (variants that drop work are
 wrong by construction); and the kernel's mean time from CUDA events
-(``chip_smoke.cuda_ms``) at B=150, 132, 128 and the band (8, 16, 32, 112),
-in turns over two repeats. Also the host's time per ``drb_forward`` call.
+(``tools/time_kernels.py``'s ``cuda_ms``) at B=150, 132, 128 and the band
+(8, 16, 32, 112), in turns over two repeats. Also the host's time per
+``drb_forward`` call.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -163,7 +165,8 @@ def main() -> int:
         print("drb_bf16_variants: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import chip_smoke
+    from time_kernels import cuda_ms, drb_params
+
     from downgan_tpu_torch.ops.cuda import drb
 
     texts = variants(drb.SOURCE.read_text())
@@ -197,7 +200,7 @@ def main() -> int:
     rng = torch.Generator().manual_seed(1234)
     cases = []
     for shape in SHAPES:
-        ws, bs = chip_smoke.drb_params(shape[1], rng, "cuda")
+        ws, bs = drb_params(shape[1], rng, "cuda")
         x = torch.randn(*shape, generator=rng).cuda().to(torch.bfloat16)
         with torch.inference_mode():
             twin = drb.drb_forward_reference(x, ws, bs).double()
@@ -213,9 +216,9 @@ def main() -> int:
                 for shape, x, ws, bs, packed, twin in cases:
                     key = "x".join(map(str, shape))
                     got = drb.drb_forward(x, ws, bs, packed).double()
-                    row["ulps_" + key] = ((got - twin).abs().max().item()
-                                          / chip_smoke.bf16_ulp(twin.abs().max().item()))
-                    row["ms_" + key] = chip_smoke.cuda_ms(
+                    ulp = 2.0 ** (math.floor(math.log2(twin.abs().max().item())) - 7)
+                    row["ulps_" + key] = (got - twin).abs().max().item() / ulp
+                    row["ms_" + key] = cuda_ms(
                         lambda: drb.drb_forward(x, ws, bs, packed), iters=50)
             print(json.dumps(row), flush=True)
     if built.get("timeline"):
