@@ -17,13 +17,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device   -- the card (``nvidia-smi`` name and power limit on a line of
                its own), torch and CUDA versions;
 2. build    -- builds ``downgan_tpu_torch/ops/cuda/drb.cu`` (the fp32, bf16
-               and wide DRB kernels, the backward kernel and its reduction)
+               and wide DRB kernels, the backward kernels and their
+               reductions)
                for sm_90a from the checkout, with the compiler's register
                report (and fails on a spill); kernels -- ``KERNEL_TESTS``
                by pytest in a child process, each kernel's wrapper against
                its plain twin at the main paths' shapes (fp32 at B=150, 128
                and the spatial halo bands, the backward kernel at B=128,
-               bf16 at B=150 and 128, wide at B=128): all pass, none skip;
+               bf16 at B=150 and 128, wide and its backward kernel at
+               B=128): all pass, none skip;
 3. generator-- the florida generator at full width (1,696,514 params,
                seeded weights): the kernel path against every DRB on the
                plain twin at B=150 and against the CPU at B=2, and a
@@ -40,8 +42,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                "esrgan"``): the generator (17,068,994 params) through
                ``make_generator`` at B=128, 69 wide launches a forward,
                against its DRBs on the twin; a 5-step round of
-               ``Trainer.step_fn`` at B=32, 759 wide launches and the
-               recompute backward;
+               ``Trainer.step_fn`` at B=32, 759 wide launches and 69 wide
+               backward kernels, no recompute;
 6. train_parity -- six florida train steps (full width, batch 4) on the card
                and on the CPU from the same weights and alphas: step-0
                gradients, per-step losses and metrics, the final parameters,
@@ -290,6 +292,7 @@ KERNEL_TESTS = [
     "tests/test_torch_drb.py::test_cuda_bf16_drb_function_gradients_match_float64[init-scale]",
     "tests/test_torch_esrgan.py::test_cuda_wide_kernel_matches_twin_at_b128[B128]",
     "tests/test_torch_esrgan.py::test_cuda_wide_drb_function_backward_matches_autograd_through_the_twin",
+    "tests/test_torch_esrgan.py::test_cuda_wide_backward_kernel_matches_float64[128]",
 ]
 
 
@@ -307,7 +310,7 @@ def reset_launch_counts() -> None:
     from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
 
     drb_forward.launches = drb_forward.launches_bf16 = drb_forward.launches_wide = 0
-    drb_backward.launches = drb_backward.recomputes = 0
+    drb_backward.launches = drb_backward.launches_wide = drb_backward.recomputes = 0
 
 
 @contextlib.contextmanager
@@ -320,12 +323,12 @@ def drb_backward_on_recompute():
     fp32 recompute where a pre-activation lies within rounding of zero."""
     from downgan_tpu_torch.ops.cuda import drb
 
-    real = drb.backward_on_kernel
-    drb.backward_on_kernel = lambda *args, **kwargs: False
+    real = drb.backward_on_kernel, drb.backward_on_wide_kernel
+    drb.backward_on_kernel = drb.backward_on_wide_kernel = lambda *args, **kwargs: False
     try:
         yield
     finally:
-        drb.backward_on_kernel = real
+        drb.backward_on_kernel, drb.backward_on_wide_kernel = real
 
 
 @contextlib.contextmanager
@@ -391,6 +394,12 @@ def phase_build():
                 re.search(r"19drb_backward_kernelILi(\d+)E", ln).group(1))
         elif "15drb_grad_reduce" in ln and "Compiling" in ln:
             instance = "fp32 backward reduction"
+        elif "24drb_backward_kernel_wide" in ln and "Compiling" in ln:
+            instance = "fp32 wide backward nf=64 gc=32"
+        elif "20drb_grad_reduce_wide" in ln and "Compiling" in ln:
+            instance = "fp32 wide backward reduction"
+        elif "20drb_dgrad_frags_wide" in ln and "Compiling" in ln:
+            instance = "fp32 wide backward's transposed weights"
         elif "Used" in ln:
             usage[instance] = ln.split(":", 1)[1].strip()
     spills = [ln.strip() for ln in lines
@@ -400,9 +409,10 @@ def phase_build():
     emit("build", library=str(drb.library_path().relative_to(ROOT)),
          ptxas=usage, spills=spills, wgmma_notes=wgmma_notes)
     check(not spills, f"the DRB kernel spills registers: {spills}")
-    check(len(usage) == 12, f"expected 12 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
+    check(len(usage) == 15, f"expected 15 kernel instances (fp32 and bf16 x F in {{8, 16}} x "
           f"2 pitches, the wide fp32 one, the fp32 backward at F in {{8, 16}} and its "
-          f"reduction), the compiler reports {sorted(usage)}")
+          f"reduction, the wide backward, its transposed weights and its reduction), the "
+          f"compiler reports {sorted(usage)}")
 
 
 def phase_kernels():
@@ -551,7 +561,8 @@ def phase_esrgan(rng):
     RRDBs) through ``make_generator`` at B = 128 against its DRBs on the
     twin, 69 wide launches a forward; then a 5-step round of
     ``Trainer.step_fn`` at B = 32 on 160 synthetic samples, its launches
-    counted from zero."""
+    counted from zero: 69 wide backward kernels and no recompute. Returns
+    the round's wide forward and wide backward launches."""
     from downgan_tpu_torch.config.config import Config
     from downgan_tpu_torch.data.dataset import DeviceDataset
     from downgan_tpu_torch.ops.cuda.drb import drb_backward, drb_forward
@@ -595,12 +606,15 @@ def phase_esrgan(rng):
     # a round: 5 critic fakes, 1 generator update, 5 metric-pass fakes
     check(finite and launched == (69 * 11, 69 * 11), f"ESRGAN round: finite={finite}, "
           f"{launched} (all, wide) launches (69 x 11 wide forwards expected)")
-    check(backward_routes == (0, 69), f"ESRGAN round: {backward_routes} (kernel, recompute) "
-          f"DRB backwards; the wide block keeps the recompute")
+    wide_backward = drb_backward.launches_wide
+    check(backward_routes == (69, 0) and wide_backward == 69,
+          f"ESRGAN round: {backward_routes} (kernel, recompute) DRB backwards, {wide_backward} "
+          f"wide backward kernels (69 and no recompute expected)")
     emit("esrgan_training", batch=32, steps=5, launches=launched[0], wide_launches=launched[1],
+         wide_backward_launches=wide_backward,
          critic_loss=[float(m["critic_loss"]) for m in metrics])
     del tr, ds
-    return launched[1]
+    return launched[1], wide_backward
 
 
 def phase_generator_bf16(config, rng):
@@ -3051,7 +3065,7 @@ def phase_tooling(training_ckpt: str, tracking_root: Path, smi: str):
 
 
 def emit_kernels(smi: str, fp32_paths: dict, bf16_paths: dict, wide_launches: int,
-                 backward_launches: int) -> None:
+                 backward_launches: int, wide_backward_launches: int) -> None:
     """The ``{"kernels": [...]}`` line: each hand-written kernel's launches
     on the main paths (each path's counters zeroed just before its run and
     read at its end) and, where the benchmark has one, its bound at the
@@ -3082,6 +3096,11 @@ def emit_kernels(smi: str, fp32_paths: dict, bf16_paths: dict, wide_launches: in
         "name": "drb_backward_kernel+drb_grad_reduce", "dtype": "float32",
         "replaces": "none: the JAX package differentiates its DRB with XLA convolutions",
         **common, "launches": backward_launches, "launches_by_path": {"training": backward_launches},
+        "bound": "none in the benchmark (tools/time_kernels.py::backward_bound_seconds)"}, {
+        "name": "drb_backward_kernel_wide+drb_grad_reduce_wide", "dtype": "float32",
+        "replaces": "none: ESRGAN's block (nf 64, gc 32) has no TPU kernel", **common,
+        "launches": wide_backward_launches,
+        "launches_by_path": {"esrgan": wide_backward_launches},
         "bound": "none in the benchmark (tools/time_kernels.py::backward_bound_seconds)"}]}),
         flush=True)
 
@@ -3105,7 +3124,7 @@ def main() -> int:
     phase_generator_bf16(config, rng)
     serving_launches = phase_serving(config, gen, rng)
     check(serving_launches > 0, "the serving path launched no DRB kernel")
-    esrgan_launches = phase_esrgan(rng)
+    esrgan_launches, esrgan_backward_launches = phase_esrgan(rng)
     phase_train_parity(config)
     phase_fused_parity()
     phase_variants_parity(config)
@@ -3171,7 +3190,8 @@ def main() -> int:
                   "generate_bf16": generate_bf16_launches,
                   "variants_tuned": variants_tuned_launches, "dp_tuned": dp_bf16_launches,
                   "tooling": tooling_bf16_launches}
-    emit_kernels(smi, fp32_paths, bf16_paths, esrgan_launches, backward_launches)
+    emit_kernels(smi, fp32_paths, bf16_paths, esrgan_launches, backward_launches,
+                 esrgan_backward_launches)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -187,6 +187,7 @@
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the caller's stream, never synchronise and allocate nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1635,6 +1636,527 @@ cudaError_t launch_backward(const float* x, const float* gout, const BwdParams& 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 backward, wide: drb_backward_kernel_wide, then drb_grad_reduce_wide
+//
+// The gradients of ESRGAN's block (nf = 64, gc = 32, LeakyReLU 0.2, 16x16,
+// fp32) in one launch a block and a fixed-order reduction: what
+// drb_backward_kernel computes for DoWnGAN's block (same recompute, mask,
+// wgrad and dgrad; see there), at widths where a sample's concat (192
+// planes) and its gradient no longer fit one CTA. drb.py::
+// drb_backward_reference (growth 32, slope 0.2) is its plain twin.
+//
+// What bounds it. A sample is the recompute of stages 1-4 (66.06 MFLOP),
+// the dgrad (122.68) and the wgrad (122.68): 311.4 MFLOP, 39.86 GFLOP at B =
+// 128, as three TF32 products 0.2416 ms at 495 TFLOP/s. The bytes: x, g and
+// dx (25.2 MB) and the per-CTA partials written and read once (2 x 122.8
+// MB), 0.081 ms at 3.35 TB/s.
+//
+// Design.
+//  * A cluster of two CTAs a sample, split by image rows: rank r owns rows
+//    8r .. 8r + 7 (warp w row 8r + w) and holds them with a halo row above
+//    and below, zero outside the image. min(B, 64) clusters of 8-warp CTAs,
+//    one CTA per SM, cluster c taking samples c, c + 64, .. in turn: at B =
+//    128 two samples each, the time of one wave of whole samples.
+//  * Shared memory: 256 planes of 10 frame rows x 18 (the zero columns of
+//    drb_backward_kernel's frame): x, c_1 .. c_4 (channels 0 .. 191, as the
+//    concat), then dy_5 (64). Plane c starts at c * 184 + 4 ((c >> 2) & 1):
+//    the stride is 24 mod 32, so the recompute's and dgrad's pattern
+//    (channel by thread, pixel by lane group) hit 32 banks, and the 4-float
+//    skew does it for the wgrad's (channel by lane group, pixel by thread).
+//    256 x 184 floats = 188,416 B.
+//  * Halo rows cross by distributed shared memory: the warp whose row is
+//    the peer's halo row writes each value it stores there too, and a
+//    cluster barrier follows. x's and dy_5 = 0.2 g's halo rows are read
+//    from global memory.
+//  * The recompute is drb_kernel_wide's arithmetic in its order: the packed
+//    fragments of pack_drb_weights (the forward's own argument), the same
+//    k-steps, the same three products per accumulator, an image row an
+//    m-tile. So c_1 .. c_4 are the forward kernel's bit for bit and the
+//    masks are the forward's sides. A warp takes two rows and two of the
+//    four n-tiles (one row and all four: 5 % slower end to end).
+//  * The walk pulls each group's gradient instead of pushing each stage's:
+//    dc[c_j] = sum over t > j of W_t[:, c_j]^T * dy_t, in registers (a warp
+//    two rows x 16 channels, x: x 32), masked by c_j into dy_j, which takes
+//    c_j's planes (stage j + 1's wgrad, the last reader of c_j, is behind
+//    a cluster barrier). Every dy_t stays for the later groups; x's
+//    gradient is the last pull, and dx = g + dc[x]. Registers hold one
+//    group's gradient, not all 192 channels'.
+//  * dgrad's B fragments are the packed forward fragments transposed, one
+//    float4 a lane as the forward reads its own: drb_dgrad_frags_wide (one
+//    small launch before the kernel) moves W[8k + tq][8n + gq] and W[8k + tq
+//    + 4][8n + gq] to lane (gq, tq) from forward lanes (tq, gq & 3) and (tq +
+//    4, gq & 3). Reading the forward's float4s and picking the components in
+//    the dgrad cost two loads and four selects a fragment.
+//  * wgrad: drb_backward_kernel's (M = output channels, N = (chunk, tap)
+//    units, K = the CTA's 128 pixels, units batched per warp so each dy
+//    fragment serves up to 8; 4 at stage 5, whose 64 outputs are 4 m-tiles).
+//    Each CTA sums its partials over its own rows and its samples, in
+//    sample order, in a slot of its own (its blockIdx, [stage][tap][co][ci],
+//    then the biases; the first sample stores, the next ones add), so the
+//    scratch is 2 min(B, 64) slots: 122.8 MB at B >= 64. drb_grad_reduce_
+//    wide sums the slots in slot order, one thread an entry, into OIHW. No
+//    float atomics: two calls agree bit for bit.
+//  * Every product is 3xTF32 (lo*lo dropped), as in the forward: the
+//    configuration is fp32 with TF32 off.
+//  * ptxas: 254 registers, no spills; one CTA an SM. CTA 0's clock64 split
+//    over its two samples at B = 128 (H100): set-up 36K, recompute 268K,
+//    wgrad and bias sums 723K, the groups' dgrads 293K, x's dgrad 227K,
+//    masks and cluster barriers 31K cycles. The wgrad takes 3.8 cycles an
+//    MMA, the rest about 2.7 (the forward kernel 2.1): holding 6 or 4 units
+//    a warp, one k-step at a time, or each product pass over every
+//    accumulator before the next measured no faster.
+
+namespace cg = cooperative_groups;
+
+constexpr int kWbRows = 8;                       // image rows a CTA owns
+constexpr int kWbPitch = kWideSide + 2;          // a frame row with its two zero columns
+constexpr int kWbFrame = (kWbRows + 2) * kWbPitch;  // 180 floats: own rows and a halo row each side
+constexpr int kWbPlane = 184;                    // 24 mod 32
+static_assert(kWbPlane % 32 == 24 && kWbPlane >= kWbFrame + 4,
+              "a plane's stride is 24 mod 32 and holds the frame behind its 4-float skew");
+constexpr int kWbPlanes = kWideCh + kWideNF;     // the concat, then dy_5
+constexpr int kWbSmem = kWbPlanes * kWbPlane * 4;  // 188,416 B
+constexpr int kWbHalo = kWbRows * kWbPitch;      // an edge row's offset to the peer's halo row
+constexpr int kWbUnits = 8;                      // most wgrad units a warp holds at once
+constexpr int kWbClusters = 64;                  // most clusters a launch (one CTA an SM)
+
+__host__ __device__ constexpr int wb_cin(int s) { return kWideNF + (s - 1) * kWideGC; }
+__host__ __device__ constexpr int wb_cout(int s) { return s < 5 ? kWideGC : kWideNF; }
+// The first concat channel of stage s's output (s < 5) or of dy_5's planes.
+__host__ __device__ constexpr int wb_out_plane(int s) { return s < 5 ? wb_cin(s) : kWideCh; }
+
+// Floats before stage s's weight partials in a slot ([tap][co][ci] a stage).
+__host__ __device__ constexpr int wb_stage_offset(int s) {
+  int off = 0;
+  for (int t = 1; t < s; ++t) off += 9 * wb_cin(t) * wb_cout(t);
+  return off;
+}
+constexpr int kWbWeights = wb_stage_offset(6);               // 239,616
+constexpr int kWbPartial = kWbWeights + 4 * kWideGC + kWideNF;  // and the biases: 239,808
+
+// Float4s of packed fragments before stage s's (pack_drb_weights' layout).
+__host__ __device__ constexpr int wb_frag_offset(int s) {
+  int off = 0;
+  for (int t = 1; t < s; ++t) off += 2 * 9 * wb_cin(t) * wb_cout(t) / 4;
+  return off;
+}
+
+__device__ __forceinline__ int wb_plane(int c) { return c * kWbPlane + 4 * ((c >> 2) & 1); }
+__device__ __forceinline__ int wb_toff(int tap) { return (tap / 3 - 1) * kWbPitch + tap % 3 - 1; }
+
+// Stage S's weight gradient partials over the CTA's rows: units u = (chunk,
+// tap) = (u / 9, u % 9) of 9 cin / 8, u = warp + 8 j, as wgrad_stage.
+// The first sample of a slot stores its partials, the next ones add to them.
+__device__ __forceinline__ void wb_put(float* p, float x, float y, bool first) {
+  float2* q = reinterpret_cast<float2*>(p);
+  if (first) {
+    *q = make_float2(x, y);
+  } else {
+    const float2 o = *q;
+    *q = make_float2(o.x + x, o.y + y);
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void wide_wgrad(const float* sm, float* pw, bool first, int warp, int gq,
+                                           int tq) {
+  constexpr int cin = wb_cin(S), cout = wb_cout(S);
+  constexpr int MT = cout / 16;
+  constexpr int kUnits = 9 * cin / 8;
+  constexpr int kPerWarp = (kUnits + kWarps - 1) / kWarps;
+  constexpr int kMaxUB = kWbUnits * 2 / MT;
+  constexpr int kBatches = (kPerWarp + kMaxUB - 1) / kMaxUB;
+  constexpr int UB = (kPerWarp + kBatches - 1) / kBatches;
+  constexpr int dyp = wb_out_plane(S);
+#pragma unroll 1
+  for (int j0 = 0; j0 < kBatches * UB; j0 += UB) {
+    float wacc[MT][UB][4];
+    int boff[UB];
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int u = min(warp + kWarps * (j0 + i), kUnits - 1);
+      boff[i] = wb_plane(8 * (u / 9) + gq) + wb_toff(u % 9);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) wacc[mt][i][r] = 0.f;
+      }
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < kWbRows * kWideSide / 8; ++kk) {  // 8 pixels of a row a k-step
+      const int base = ((kk >> 1) + 1) * kWbPitch + (kk & 1) * 8 + 1 + tq;
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* d0 = sm + wb_plane(dyp + 16 * mt + gq) + base;
+        const float* d8 = sm + wb_plane(dyp + 16 * mt + gq + 8) + base;
+        split_tf32(d0[0], ah[mt][0], al[mt][0]);
+        split_tf32(d8[0], ah[mt][1], al[mt][1]);
+        split_tf32(d0[4], ah[mt][2], al[mt][2]);
+        split_tf32(d8[4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int i = 0; i < UB; ++i) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(sm[boff[i] + base], bh0, bl0);
+        split_tf32(sm[boff[i] + base + 4], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3(wacc[mt][i], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int u = warp + kWarps * (j0 + i);
+      if (u >= kUnits) continue;
+      const int ci = 8 * (u / 9) + 2 * tq;
+      float* pt = pw + (u % 9) * cout * cin + ci;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int co = 16 * mt + gq;
+        wb_put(pt + co * cin, wacc[mt][i][0], wacc[mt][i][1], first);
+        wb_put(pt + (co + 8) * cin, wacc[mt][i][2], wacc[mt][i][3], first);
+      }
+    }
+  }
+}
+
+// The gradient of concat group j (x for j = 0, c_j otherwise) at the warp's
+// two rows (pix) and NTD n-tiles of its channels from chunk0 on: dy_t for t
+// = 5 down to j + 1, each through W_t's transpose (tfrag, laid out by
+// drb_dgrad_frags_wide), the tap's shift on dy's side.
+template <int NTD>
+__device__ __forceinline__ void wide_dgrad(const float* sm, const float4* __restrict__ tfrag, int j,
+                                           const int (&pix)[2][2], int chunk0, int lane, int gq,
+                                           int tq, float (&dc)[2][NTD][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NTD; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dc[mt][nt][r] = 0.f;
+    }
+  }
+#pragma unroll 1
+  for (int t = 5; t > j; --t) {
+    const int ntf = wb_cout(t) / 8;  // the forward's n-tiles: stage t's 8-output chunks
+    const float4* wt = tfrag + wb_frag_offset(t) + lane;
+#pragma unroll 1
+    for (int k = 0; k < ntf; ++k) {
+      const float* d0 = sm + wb_plane(wb_out_plane(t) + 8 * k + tq);
+      const float* d4 = sm + wb_plane(wb_out_plane(t) + 8 * k + tq + 4);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int toff = wb_toff(tap);
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          split_tf32(d0[pix[mt][0] - toff], ah[mt][0], al[mt][0]);
+          split_tf32(d0[pix[mt][1] - toff], ah[mt][1], al[mt][1]);
+          split_tf32(d4[pix[mt][0] - toff], ah[mt][2], al[mt][2]);
+          split_tf32(d4[pix[mt][1] - toff], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NTD; ++nt) {
+          const float4 v = __ldg(wt + (((chunk0 + nt) * 9 + tap) * ntf + k) * 32);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma3(dc[mt][nt], ah[mt], al[mt], __float_as_uint(v.x), __float_as_uint(v.y),
+                 __float_as_uint(v.z), __float_as_uint(v.w));
+          }
+        }
+      }
+    }
+  }
+}
+
+// Grid 2 min(B, kWbClusters), clusters of 2: CTA 2c + r is rank r of
+// samples c, c + gridDim.x / 2, ..; its partials' slot is its blockIdx.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+drb_backward_kernel_wide(const float* __restrict__ x, const float* __restrict__ gout,
+                         const float4* __restrict__ wfrag, const float* __restrict__ bias,
+                         const float4* __restrict__ tfrag, float* __restrict__ dx,
+                         float* __restrict__ partial, float* __restrict__ acts, int B) {
+  constexpr int HW = kWideSide * kWideSide;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* peer = cluster.map_shared_rank(sm, rank ^ 1);
+  const int row0 = kWbRows * rank;  // frame row f holds image row row0 - 1 + f
+  const int halo = rank == 0 ? -kWbHalo : kWbHalo;  // an edge row to the peer's halo row
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  float* pb = partial ? partial + static_cast<size_t>(blockIdx.x) * kWbPartial : nullptr;
+  // A warp's two rows 2 rp, 2 rp + 1 of the CTA (its m-tiles; rp = warp / 2)
+  // and its half of a stage's or group's channels (warp % 2), in the
+  // recompute and the dgrad.
+  const int rp = warp >> 1;
+  const int chalf = warp & 1;
+  int pix[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pix[mt][h] = (2 * rp + mt + 1) * kWbPitch + 1 + gq + 8 * h;
+  }
+
+  // Every plane zeroed once: the zero columns and the image's border rows
+  // are never written, and every sample writes the rest before reading it.
+  for (int i = tid; i < kWbSmem / 16; i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll 1
+  for (int b = blockIdx.x >> 1; b < B; b += gridDim.x >> 1) {
+    const bool first = b == static_cast<int>(blockIdx.x >> 1);
+    const float* xb = x + static_cast<size_t>(b) * kWideNF * HW;
+    const float* gb = gout + static_cast<size_t>(b) * kWideNF * HW;
+
+    // x and dy_5 = 0.2 g on the 9 frame rows inside the image, once every
+    // warp has left the last sample (or the zeroing). The cluster barrier:
+    // the peer is as far before a halo row lands in its frame (no CTA reads
+    // the other's shared memory).
+    __syncthreads();
+    {
+      const int f0 = rank == 0 ? 1 : 0;
+      constexpr int kRows = kWbRows + 1;
+      for (int i = tid; i < kWideNF * kRows * kWideSide; i += kThreads) {
+        const int c = i / (kRows * kWideSide);
+        const int rem = i - c * kRows * kWideSide;
+        const int f = f0 + rem / kWideSide;
+        const int col = rem % kWideSide;
+        const int src = c * HW + (row0 - 1 + f) * kWideSide + col;
+        const int pos = f * kWbPitch + 1 + col;
+        sm[wb_plane(c) + pos] = __ldg(xb + src);
+        sm[wb_plane(kWideCh + c) + pos] = kResScale * __ldg(gb + src);
+      }
+    }
+    cluster.sync();
+
+    // Recompute c_1 .. c_4: drb_kernel_wide's stages and k-steps, a warp two
+    // rows (its m-tiles) and half the n-tiles, as the dgrad's warps below.
+    {
+      const float4* wp = wfrag + lane + 2 * chalf * 32;
+#pragma unroll 1
+      for (int s = 1; s <= 4; ++s) {
+        float acc[2][2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int n = 2 * chalf + nt;
+          const float b0 = __ldg(bias + (s - 1) * kWideGC + n * 8 + 2 * tq);
+          const float b1 = __ldg(bias + (s - 1) * kWideGC + n * 8 + 2 * tq + 1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            acc[mt][nt][0] = b0;
+            acc[mt][nt][1] = b1;
+            acc[mt][nt][2] = b0;
+            acc[mt][nt][3] = b1;
+          }
+        }
+        const int chunks = wb_cin(s) / 8;
+#pragma unroll 1
+        for (int c = 0; c < chunks; ++c) {
+          const float* ch0 = sm + wb_plane(8 * c + tq);
+          const float* ch4 = sm + wb_plane(8 * c + tq + 4);
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
+            const int toff = wb_toff(tap);
+            float4 wv[2];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) wv[nt] = __ldg(wp + nt * 32);
+            wp += 4 * 32;
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              split_tf32(ch0[pix[mt][0] + toff], ah[mt][0], al[mt][0]);
+              split_tf32(ch0[pix[mt][1] + toff], ah[mt][1], al[mt][1]);
+              split_tf32(ch4[pix[mt][0] + toff], ah[mt][2], al[mt][2]);
+              split_tf32(ch4[pix[mt][1] + toff], ah[mt][3], al[mt][3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma3(acc[mt][nt], ah[mt], al[mt], __float_as_uint(wv[nt].x),
+                     __float_as_uint(wv[nt].y), __float_as_uint(wv[nt].z),
+                     __float_as_uint(wv[nt].w));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const bool edge = rank == 0 ? (rp == kWbRows / 2 - 1 && mt == 1) : (rp == 0 && mt == 0);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int co = (2 * chalf + nt) * 8 + 2 * tq + (r & 1);
+              const float v = acc[mt][nt][r];
+              const float c = v >= 0.f ? v : kWideSlope * v;
+              const int at = wb_plane(wb_out_plane(s) + co) + pix[mt][r >> 1];
+              sm[at] = c;
+              if (edge) peer[at + halo] = c;
+              if (acts) {
+                acts[(static_cast<size_t>(b) * 4 * kWideGC + (s - 1) * kWideGC + co) * HW +
+                     (row0 + 2 * rp + mt) * kWideSide + gq + 8 * (r >> 1)] = c;
+              }
+            }
+          }
+        }
+        cluster.sync();
+      }
+    }
+    if (partial == nullptr && dx == nullptr) continue;  // both CTAs: only the recompute was asked
+
+    // The walk back, stage 5 to 1.
+
+#pragma unroll 1
+    for (int s = 5; s >= 1; --s) {
+      if (pb) {
+        switch (s) {
+          case 5: wide_wgrad<5>(sm, pb + wb_stage_offset(5), first, warp, gq, tq); break;
+          case 4: wide_wgrad<4>(sm, pb + wb_stage_offset(4), first, warp, gq, tq); break;
+          case 3: wide_wgrad<3>(sm, pb + wb_stage_offset(3), first, warp, gq, tq); break;
+          case 2: wide_wgrad<2>(sm, pb + wb_stage_offset(2), first, warp, gq, tq); break;
+          default: wide_wgrad<1>(sm, pb + wb_stage_offset(1), first, warp, gq, tq); break;
+        }
+        // db_s over the CTA's rows: kThreads / cout threads a channel, a row or
+        // two each, then a butterfly.
+        const int T = kThreads / wb_cout(s);
+        const int co = tid / T;
+        const int rows = kWbRows / T;
+        const float* d =
+            sm + wb_plane(wb_out_plane(s) + co) + (1 + (tid % T) * rows) * kWbPitch + 1;
+        float sum = 0.f;
+        for (int r = 0; r < rows; ++r) {
+#pragma unroll
+          for (int col = 0; col < kWideSide; ++col) sum += d[r * kWbPitch + col];
+        }
+        for (int o = T / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (tid % T == 0) {
+          float* pbias = pb + kWbWeights + (s - 1) * kWideGC + co;
+          *pbias = first ? sum : *pbias + sum;
+        }
+      }
+      if (s > 1) {  // c_{s-1}'s gradient, masked into dy_{s-1} in c_{s-1}'s planes
+        const int j = s - 1;
+        float dc[2][2][4];
+        wide_dgrad<2>(sm, tfrag, j, pix, wb_cin(j) / 8 + 2 * chalf, lane, gq, tq, dc);
+        cluster.sync();  // stage s's wgrad, c_j's last reader, is done in both CTAs
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const bool edge = rank == 0 ? (rp == kWbRows / 2 - 1 && mt == 1) : (rp == 0 && mt == 0);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int ch = wb_cin(j) + 16 * chalf + 8 * nt + 2 * tq + (r & 1);
+              const int at = wb_plane(ch) + pix[mt][r >> 1];
+              const float v = dc[mt][nt][r];
+              const float d = sm[at] > 0.f ? v : kWideSlope * v;
+              sm[at] = d;
+              if (edge) peer[at + halo] = d;
+            }
+          }
+        }
+        cluster.sync();
+      } else if (dx) {  // dx = g + dc[x]
+        float dc[2][4][4];
+        wide_dgrad<4>(sm, tfrag, 0, pix, 4 * chalf, lane, gq, tq, dc);
+        float* dxb = dx + static_cast<size_t>(b) * kWideNF * HW;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int co = 32 * chalf + 8 * nt + 2 * tq + (r & 1);
+              const int px = (row0 + 2 * rp + mt) * kWideSide + gq + 8 * (r >> 1);
+              dxb[co * HW + px] = __ldg(gb + co * HW + px) + dc[mt][nt][r];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The dgrad's B fragments from the packed forward ones, one thread a
+// float4: at the index where pack_drb_weights keeps stage t's fragment for
+// (input chunk n, tap, output chunk k), lane (gq, tq) of the result holds
+// W_t[8k + tq][8n + gq] and W_t[8k + tq + 4][8n + gq], hi then lo, as
+// (hi, hi, lo, lo). Forward lanes (tq, gq & 3) and (tq + 4, gq & 3) of that
+// fragment hold them, hi at component gq >> 2 and lo at 2 + (gq >> 2).
+__global__ void __launch_bounds__(kThreads)
+drb_dgrad_frags_wide(const float4* __restrict__ wfrag, float4* __restrict__ tfrag) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= wb_frag_offset(6)) return;
+  const int lane = i & 31;
+  const int gq = lane >> 2;
+  const bool upper = gq >= 4;
+  const float4* src = wfrag + (i - lane) + 4 * (lane & 3) + (gq & 3);
+  const float4 v0 = __ldg(src);
+  const float4 v1 = __ldg(src + 16);
+  tfrag[i] = make_float4(upper ? v0.y : v0.x, upper ? v1.y : v1.x, upper ? v0.w : v0.z,
+                         upper ? v1.w : v1.z);
+}
+
+// out[j] = sum over slots k = 0 .. slots - 1, in that order, of the
+// partials' entry i (one thread an entry), j = i moved from [tap][co][ci]
+// to OIHW within its stage; the biases keep their place.
+__global__ void __launch_bounds__(kThreads)
+drb_grad_reduce_wide(const float* __restrict__ partial, int slots, float* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= kWbPartial) return;
+  const float* p = partial + i;
+  float sum = 0.f;
+  int k = 0;
+  for (; k + 16 <= slots; k += 16) {
+    float v[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = __ldg(p + static_cast<size_t>(k + q) * kWbPartial);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) sum += v[q];
+  }
+  for (; k < slots; ++k) sum += __ldg(p + static_cast<size_t>(k) * kWbPartial);
+  int j = i;
+  if (i < kWbWeights) {
+    int s = 1;
+    while (i >= wb_stage_offset(s + 1)) ++s;
+    const int cin = wb_cin(s), cout = wb_cout(s);
+    const int e = i - wb_stage_offset(s);
+    const int tap = e / (cout * cin);
+    const int co = (e - tap * cout * cin) / cin;
+    const int ci = e - (tap * cout + co) * cin;
+    j = wb_stage_offset(s) + (co * cin + ci) * 9 + tap;
+  }
+  out[j] = sum;
+}
+
+cudaError_t launch_backward_wide(const float* x, const float* gout, const float* wpack,
+                                 float* tfrag, float* dx, float* partial, float* dparams,
+                                 float* acts, int B, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(drb_backward_kernel_wide,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kWbSmem);
+  if (e != cudaSuccess) return e;
+  const float4* wfrag = reinterpret_cast<const float4*>(wpack);
+  float4* tf = reinterpret_cast<float4*>(tfrag);
+  drb_dgrad_frags_wide<<<(wb_frag_offset(6) + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      wfrag, tf);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int slots = 2 * (B < kWbClusters ? B : kWbClusters);
+  drb_backward_kernel_wide<<<static_cast<unsigned>(slots), kThreads, kWbSmem, stream>>>(
+      x, gout, wfrag, wpack + 4 * wb_frag_offset(6), tf, dx, partial, acts, B);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || partial == nullptr) return e;
+  drb_grad_reduce_wide<<<(kWbPartial + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      partial, slots, dparams);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1737,6 +2259,30 @@ int drb_backward_f32(const void* x, const void* gout, const void* const* params,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The gradients of sum(gout * DRB(x)) for ESRGAN's block in fp32 at 16x16:
+// x, gout (B, 64, 16, 16) contiguous fp32; wpack: pack_drb_weights of the
+// block (the forward's argument), 16-byte aligned; tfrag: 479,232 floats of
+// scratch, 16-byte aligned. dx (B, 64, 16, 16) or null (not wanted);
+// partial (2 min(B, 64) x 239,808 floats of scratch) and dparams (239,808
+// floats: the five weight gradients in OIHW, then the five bias gradients)
+// or both null (not wanted); acts (B, 128, 16, 16), the recomputed c_1 ..
+// c_4, or null. Takes (NF, GC, H, W) = (64, 32, 16, 16) only. Launches
+// drb_dgrad_frags_wide, drb_backward_kernel_wide and, for the parameters,
+// drb_grad_reduce_wide.
+int drb_backward_f32_wide(const void* x, const void* gout, const void* wpack, void* tfrag,
+                          void* dx, void* partial, void* dparams, void* acts, int B, int NF,
+                          int GC, int H, int W, void* stream) {
+  if (B < 1 || B > (1 << 30) || NF != kWideNF || GC != kWideGC || H != kWideSide ||
+      W != kWideSide || (partial == nullptr) != (dparams == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_backward_wide(static_cast<const float*>(x), static_cast<const float*>(gout),
+                              static_cast<const float*>(wpack), static_cast<float*>(tfrag),
+                              static_cast<float*>(dx),
+                              static_cast<float*>(partial), static_cast<float*>(dparams),
+                              static_cast<float*>(acts), B, static_cast<cudaStream_t>(stream));
 }
 
 const char* drb_error_string(int code) {

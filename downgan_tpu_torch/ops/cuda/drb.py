@@ -34,12 +34,14 @@ block at filters 8 and 16 (fp32, bf16) and ESRGAN's at (64, 32) and 16x16
 * :class:`DRBFunction` is the DRB under autograd on the card: its forward
   is the kernel. Its backward is :func:`drb_backward_kernel` (one
   ``drb_backward_kernel`` launch and a fixed-order reduction) for DoWnGAN's
-  block in fp32 at 16x16, and :func:`drb_backward` for every other input:
+  block in fp32 at 16x16, :func:`drb_backward_kernel_wide` (the same for
+  ESRGAN's block, ``drb_backward_kernel_wide``) for that block in fp32 at
+  16x16, and :func:`drb_backward` for every other input:
   it recomputes the block from the saved input with :func:`cudnn_chain`
   (five ``F.conv2d`` in the input's dtype, cuDNN on the card) and
   differentiates that. It is first order only. The JAX package's DRB has no
   backward kernel: its gradients are XLA convolutions;
-* :func:`drb_backward_reference` is the backward kernel's plain twin: the
+* :func:`drb_backward_reference` is the backward kernels' plain twin: the
   recompute, then per stage the mask, the weight and bias sums and the
   shifted-product input gradient, in PyTorch;
 * :func:`drb` is what the generator's blocks call: ``DRBFunction`` when
@@ -139,6 +141,9 @@ def load_library() -> ctypes.CDLL:
                                          + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                                          + [ctypes.c_void_p])
         lib.drb_backward_f32.restype = ctypes.c_int
+        lib.drb_backward_f32_wide.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                              + [ctypes.c_void_p])
+        lib.drb_backward_f32_wide.restype = ctypes.c_int
         lib.drb_error_string.argtypes = [ctypes.c_int]
         lib.drb_error_string.restype = ctypes.c_char_p
         lib.drb_bf16_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -318,8 +323,9 @@ def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
     where ``needs`` says no): the block is recomputed from x with
     :func:`cudnn_chain` and differentiated by autograd. Counted in
     ``drb_backward.recomputes``; ``drb_backward.launches`` counts the calls
-    of :func:`drb_backward_kernel`. Both are process-wide and never reset,
-    as ``drb_forward.launches``."""
+    of :func:`drb_backward_kernel` and :func:`drb_backward_kernel_wide`,
+    ``drb_backward.launches_wide`` those of the second. All are
+    process-wide and never reset, as ``drb_forward.launches``."""
     inputs = [x, *weights, *biases]
     needs = [True] * len(inputs) if needs is None else list(needs)
     with _count_lock:
@@ -333,6 +339,7 @@ def drb_backward(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 drb_backward.launches = 0
+drb_backward.launches_wide = 0
 drb_backward.recomputes = 0
 
 
@@ -469,6 +476,121 @@ def drb_backward_kernel(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return [g if n else None for g, n in zip(grads, needs)]
 
 
+def _wide_backward_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                         biases: Sequence[torch.Tensor], slope: float) -> bool:
+    """Whether this is the wide backward kernel's block, whatever its
+    device: fp32 (B, 64, 16, 16) x, growth 32, slope 0.2 and fp32
+    parameters (:data:`WIDE_BLOCK`)."""
+    f, growth, wide_slope = WIDE_BLOCK
+    return (x.dtype == torch.float32 and x.dim() == 4
+            and tuple(x.shape[1:]) == (f, WIDE_SIDE, WIDE_SIDE)
+            and weights[0].shape[0] == growth and slope == wide_slope
+            and all(t.dtype == torch.float32 for t in (*weights, *biases)))
+
+
+def backward_on_wide_kernel(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                            biases: Sequence[torch.Tensor], slope: float) -> bool:
+    """Whether :class:`DRBFunction` differentiates this block with
+    :func:`drb_backward_kernel_wide` (True): ESRGAN's block (64 filters,
+    growth 32, slope 0.2) on a CUDA fp32 (B, 64, 16, 16) input with fp32
+    parameters. Read off the input alone; no logic shared with
+    :func:`backward_on_kernel`."""
+    return x.device.type == "cuda" and _wide_backward_block(x, weights, biases, slope)
+
+
+#: Floats of a CTA's weight and bias partials in the wide backward: the
+#: five stages' (cin x cout x 9) and the 4 x 32 + 64 biases.
+WIDE_PARTIAL = sum(9 * cin * cout + cout for cin, cout in stage_widths(64, 32))
+#: Most two-CTA clusters a wide backward launch runs (``drb.cu``'s
+#: ``kWbClusters``): cluster c takes samples c, c + 64, .., and each CTA
+#: keeps one slot of partials.
+WIDE_CLUSTERS = 64
+
+
+def drb_backward_kernel_wide(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                             biases: Sequence[torch.Tensor], grad_out: torch.Tensor,
+                             packed: torch.Tensor | None = None,
+                             needs: Sequence[bool] | None = None,
+                             acts: torch.Tensor | None = None) -> list:
+    """:func:`drb_backward` for ESRGAN's block in fp32 at 16x16 on the
+    card, by ``drb_backward_kernel_wide`` (the block recomputed from
+    ``packed``, the forward's :func:`pack_drb_weights` of these parameters,
+    packed here when omitted, and walked back in one launch a block, two
+    CTAs a sample, 3xTF32; ``drb_dgrad_frags_wide`` transposes ``packed``
+    for it first) and ``drb_grad_reduce_wide`` (the weight and bias
+    gradients summed over the CTAs' slots in order): two identical calls
+    agree bit for bit. Returns [dx, dW_1 .. dW_5, db_1 .. db_5], ``None`` where
+    ``needs`` says no; the parameter gradients are views of one buffer,
+    computed when any of them is wanted, from 2 min(B, 64) slots of
+    partials (122.8 MB at B >= 64). ``acts``, a contiguous fp32 (B, 128,
+    16, 16) tensor, receives the recomputed c_1 .. c_4 (for tests).
+    Counted in ``drb_backward.launches`` and ``.launches_wide``."""
+    f, growth, slope = WIDE_BLOCK
+    needs = [True] * 11 if needs is None else list(needs)
+    if not backward_on_wide_kernel(x, weights, biases, slope):
+        raise ValueError(
+            f"the wide DRB backward kernel takes CUDA float32 (B, {f}, {WIDE_SIDE}, "
+            f"{WIDE_SIDE}) with growth {growth}, slope {slope} and float32 parameters, got "
+            f"{tuple(x.shape)} {x.dtype}")
+    b = x.shape[0]
+    x, grad_out = x.contiguous(), grad_out.contiguous()
+    if grad_out.shape != x.shape or grad_out.dtype != x.dtype or grad_out.device != x.device:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} on "
+                         f"{grad_out.device} does not match x {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+    for s, ((cin, cout), wt, bt) in enumerate(zip(stage_widths(f, growth), weights, biases),
+                                              start=1):
+        if (tuple(wt.shape) != (cout, cin, 3, 3) or tuple(bt.shape) != (cout,)
+                or wt.device != x.device or bt.device != x.device):
+            raise ValueError(f"stage {s}: weight {tuple(wt.shape)}, bias {tuple(bt.shape)} are "
+                             f"not ({cout}, {cin}, 3, 3) and ({cout},) on {x.device}")
+    if packed is None:
+        packed = pack_drb_weights(weights, biases)
+    if (packed.device != x.device or packed.dtype != torch.float32
+            or packed.numel() != packed_size(f, growth=growth)
+            or not packed.is_contiguous() or packed.data_ptr() % 16):
+        raise ValueError("packed weights do not match this block; repack with pack_drb_weights")
+    if acts is not None and (acts.shape != (b, 4 * growth, WIDE_SIDE, WIDE_SIDE)
+                             or acts.dtype != torch.float32 or acts.device != x.device
+                             or not acts.is_contiguous()):
+        raise ValueError(f"acts must be a contiguous float32 ({b}, {4 * growth}, {WIDE_SIDE}, "
+                         f"{WIDE_SIDE}) tensor")
+    dx = torch.empty_like(x) if needs[0] else None
+    tfrag = torch.empty(packed.numel() - sum(bt.numel() for bt in biases), device=x.device,
+                        dtype=torch.float32)  # the dgrad's transposed fragments
+    if any(needs[1:]):
+        slots = 2 * min(b, WIDE_CLUSTERS)
+        partial = torch.empty(slots * WIDE_PARTIAL, device=x.device, dtype=torch.float32)
+        flat = torch.empty(WIDE_PARTIAL, device=x.device, dtype=torch.float32)
+    else:
+        partial = flat = None
+    lib = load_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.drb_backward_f32_wide(x.data_ptr(), grad_out.data_ptr(), packed.data_ptr(),
+                                        tfrag.data_ptr(), ptr(dx), ptr(partial), ptr(flat),
+                                        ptr(acts), b, f, growth, WIDE_SIDE, WIDE_SIDE, stream)
+    if err:
+        raise RuntimeError(f"wide DRB backward kernel launch failed: "
+                           f"{lib.drb_error_string(err).decode()} (input {tuple(x.shape)})")
+    with _count_lock:
+        drb_backward.launches += 1
+        drb_backward.launches_wide += 1
+    grads, off = [dx], 0
+    widths = stage_widths(f, growth)
+    for cin, cout in widths:
+        grads.append(None if flat is None else flat[off:off + 9 * cin * cout].view(cout, cin, 3, 3))
+        off += 9 * cin * cout
+    for _, cout in widths:
+        grads.append(None if flat is None else flat[off:off + cout])
+        off += cout
+    return [g if n else None for g, n in zip(grads, needs)]
+
+
 def _needs_grad(x, weights, biases) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or any(t.requires_grad for t in (*weights, *biases)))
@@ -489,9 +611,11 @@ class DRBFunction(torch.autograd.Function):
     """The DRB under autograd on the card: ``apply(x, packed, w1..w5,
     b1..b5, slope)``, in x's dtype (``packed`` for it); any other count of
     arguments raises. The forward launches the kernel (counted in
-    ``drb_forward.launches``) and saves only x and the ten parameters. The
-    backward is :func:`drb_backward_kernel` where
-    :func:`backward_on_kernel` says so (fp32, DoWnGAN's block, 16x16), and
+    ``drb_forward.launches``) and saves only x, ``packed`` and the ten
+    parameters. The backward is :func:`drb_backward_kernel` where
+    :func:`backward_on_kernel` says so (fp32, DoWnGAN's block, 16x16),
+    :func:`drb_backward_kernel_wide` where :func:`backward_on_wide_kernel`
+    does (fp32, ESRGAN's block, 16x16; it recomputes from ``packed``), and
     otherwise :func:`drb_backward`, a cuDNN recompute in the same dtype:
     with bf16 x and fp32 parameters it gives a bf16 gradient of x and fp32
     gradients of the parameters, as autograd through their casts would.
@@ -505,17 +629,20 @@ class DRBFunction(torch.autograd.Function):
             raise TypeError(f"DRBFunction takes w1..w5, b1..b5 and the slope after x and "
                             f"packed: got {len(params)} arguments after them")
         *params, ctx.slope = params
-        ctx.save_for_backward(x, *params)
+        ctx.save_for_backward(x, packed, *params)
         return drb_forward(x, params[:5], params[5:], packed, ctx.slope)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         with annotate("drb.backward"):  # on autograd's device thread
-            x, *params = ctx.saved_tensors
+            x, packed, *params = ctx.saved_tensors
             needs = [ctx.needs_input_grad[0], *ctx.needs_input_grad[2:12]]
             if backward_on_kernel(x, params[:5], params[5:], ctx.slope):
                 grads = drb_backward_kernel(x, params[:5], params[5:], grad_out, needs)
+            elif backward_on_wide_kernel(x, params[:5], params[5:], ctx.slope):
+                grads = drb_backward_kernel_wide(x, params[:5], params[5:], grad_out, packed,
+                                                 needs)
             else:
                 grads = drb_backward(x, params[:5], params[5:], grad_out, needs, ctx.slope)
         return (grads[0], None, *grads[1:], None)

@@ -25,6 +25,7 @@ from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     DRBFunction,
     WIDE_BLOCK,
     backward_on_kernel,
+    backward_on_wide_kernel,
     cudnn_chain,
     drb_backward,
     drb_backward_kernel,
@@ -33,6 +34,7 @@ from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     drb_forward_reference,
     pack_drb_weights,
     packed_size,
+    stage_widths,
     tf32_split,
 )
 from downgan_tpu_torch.training.state import make_optimizer  # noqa: E402
@@ -256,10 +258,10 @@ def init_scale_block(f, seed, device="cpu", requires_grad=True):
     return ws, bs
 
 
-def twin_grads(x, ws, bs, weight):
+def twin_grads(x, ws, bs, weight, slope=SLOPE):
     """Gradients of sum(weight * DRB(x)) by autograd through the twin."""
     leaves = [t.detach().requires_grad_() for t in (x, *ws, *bs)]
-    out = drb_forward_reference(leaves[0], leaves[1:6], leaves[6:])
+    out = drb_forward_reference(leaves[0], leaves[1:6], leaves[6:], slope=slope)
     return torch.autograd.grad((out * weight).sum(), leaves)
 
 
@@ -302,18 +304,29 @@ def test_drb_backward_computes_only_what_is_needed():
         torch.testing.assert_close(g, w, atol=ATOL, rtol=ATOL)
 
 
-@pytest.mark.parametrize("f", [8, 16])
+@pytest.mark.parametrize("f", [8, 16, 64])
 def test_backward_twin_matches_autograd_through_the_twin_in_float64(f):
-    """``drb_backward_reference`` (the backward kernel's arithmetic written
+    """``drb_backward_reference`` (the backward kernels' arithmetic written
     out: recompute, mask, wgrad, bias sums, shifted-product dgrad) against
-    autograd through ``drb_forward_reference``, both in float64."""
-    ws, bs = init_scale_block(f, seed=30 + f, requires_grad=False)
+    autograd through ``drb_forward_reference``, both in float64. F = 8, 16:
+    DoWnGAN's block (growth F, slope 0.01); F = 64: ESRGAN's (growth 32,
+    slope 0.2), the wide backward kernel's."""
+    if f == WIDE_BLOCK[0]:
+        _, growth, slope = WIDE_BLOCK
+        gen = torch.Generator().manual_seed(30 + f)
+        ws = [(torch.rand(cout, cin, 3, 3, generator=gen) * 2 - 1) / (9 * cin) ** 0.5
+              for cin, cout in stage_widths(f, growth)]
+        bs = [(torch.rand(t.shape[0], generator=gen) * 2 - 1) / (9 * t.shape[1]) ** 0.5
+              for t in ws]
+    else:
+        slope = SLOPE
+        ws, bs = init_scale_block(f, seed=30 + f, requires_grad=False)
     ws, bs = [t.double() for t in ws], [t.double() for t in bs]
     rng = torch.Generator().manual_seed(31)
     x = torch.randn(3, f, 16, 16, generator=rng, dtype=torch.float64)
     weight = torch.randn(3, f, 16, 16, generator=rng, dtype=torch.float64)
-    got = drb_backward_reference(x, ws, bs, weight)
-    for g, w in zip(got, twin_grads(x, ws, bs, weight)):
+    got = drb_backward_reference(x, ws, bs, weight, slope=slope)
+    for g, w in zip(got, twin_grads(x, ws, bs, weight, slope)):
         assert g.shape == w.shape
         assert (g - w).abs().max() <= 1e-12 * w.abs().max()
 
@@ -575,8 +588,9 @@ def test_cuda_backward_kernel_is_bit_for_bit_and_computes_only_what_is_needed(cu
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["fp32-16x16", "bf16", "wide", "fp32-12x20"])
 def test_cuda_drb_function_backward_route_is_counted(cuda_device, route):
-    """fp32 DoWnGAN blocks at 16x16 take the backward kernel; bf16, the
-    wide ESRGAN block and other shapes the cuDNN recompute."""
+    """fp32 DoWnGAN blocks at 16x16 take the backward kernel, the fp32
+    wide ESRGAN block at 16x16 the wide backward kernel; bf16 and other
+    shapes the cuDNN recompute."""
     f, h, w, dtype, slope = 16, 16, 16, torch.float32, SLOPE
     if route == "wide":
         f, growth, slope = WIDE_BLOCK
@@ -593,14 +607,16 @@ def test_cuda_drb_function_backward_route_is_counted(cuda_device, route):
             h, w = 12, 20
     x = torch.randn(4, f, h, w, generator=torch.Generator().manual_seed(62)).to(cuda_device, dtype)
     leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
-    before = (drb_backward.launches, drb_backward.recomputes)
+    before = (drb_backward.launches, drb_backward.launches_wide, drb_backward.recomputes)
     out = DRBFunction.apply(leaves[0], pack_drb_weights(ws, bs, dtype), *leaves[1:], slope)
     torch.autograd.grad(out.float().square().sum(), leaves)
     torch.cuda.synchronize()
-    kernel = route == "fp32-16x16"
-    assert backward_on_kernel(x, ws, bs, slope) == kernel
-    assert (drb_backward.launches - before[0], drb_backward.recomputes - before[1]) == (
-        (1, 0) if kernel else (0, 1))
+    wide = route == "wide"
+    kernel = route == "fp32-16x16" or wide
+    assert backward_on_kernel(x, ws, bs, slope) == (route == "fp32-16x16")
+    assert backward_on_wide_kernel(x, ws, bs, slope) == wide
+    assert (drb_backward.launches - before[0], drb_backward.launches_wide - before[1],
+            drb_backward.recomputes - before[2]) == ((1, int(wide), 0) if kernel else (0, 0, 1))
 
 
 @pytest.mark.cuda

@@ -5,10 +5,13 @@ RRDBs, coarse 8 -> fine 64, seeded random weights): the dense block's twin,
 the generator forward, one reference-schedule train step (critic with GP,
 then generator) by losses, gradients and parameter deltas. Also the
 published-width parameter counts, a checkpoint round trip, the paths that
-refuse it, and the wide kernel's frame arithmetic. On a CUDA card only: the
-wide DRB kernel against its twin at B=1, 3 and 128 and from an input 4 bytes
-off alignment, 69 wide launches a generator forward at the published widths,
-and ``DRBFunction``'s backward against autograd through the twin:
+refuse it, the wide kernel's frame arithmetic and the wide backward's
+route. On a CUDA card only: the wide DRB kernel against its twin at B=1, 3
+and 128 and from an input 4 bytes off alignment, 69 wide launches a
+generator forward at the published widths, the wide backward kernel
+against the float64 twin on its own sides at B=1, 3 and 128 and bit for bit
+over calls, 69 wide backward kernels a generator backward, and
+``DRBFunction``'s backward against autograd through the twin:
 
     python -m pytest tests/test_torch_esrgan.py -m cuda --noconftest -q
 """
@@ -31,7 +34,13 @@ from downgan_tpu_torch.models.generator import (  # noqa: E402
 from downgan_tpu_torch.ops.cuda.drb import (  # noqa: E402
     WIDE_BLOCK,
     DRBFunction,
+    _wide_backward_block,
+    backward_on_kernel,
+    backward_on_wide_kernel,
     cudnn_chain,
+    drb_backward,
+    drb_backward_kernel_wide,
+    drb_backward_reference,
     drb_forward,
     drb_forward_reference,
     pack_drb_weights,
@@ -359,6 +368,53 @@ def test_wide_frame_reads_the_zero_padded_window():
     assert plane % 32 == 8 and (guard + 192 * plane) * 4 <= 232_448
 
 
+def test_wide_backward_reads_the_transpose_from_the_packed_fragments():
+    """drb_backward_kernel_wide's dgrad takes its B fragments from the
+    forward's packed weights, transposed by drb_dgrad_frags_wide: lane (gq,
+    tq) of the fragment for stage t's output chunk k and input chunk n at
+    tap takes the float4s of forward lanes (tq, gq & 3) and (tq + 4, gq & 3),
+    component gq >> 2 (hi) and 2 + (gq >> 2) (lo): W_t[8k + tq][8n + gq] and
+    W_t[8k + tq + 4][8n + gq], hi and lo as tf32_split gives them. Its
+    frame: 256 planes of 10 x 18
+    floats at a stride of 184 with a 4-float skew for channels 4-7 of each
+    8, inside the 232,448 B a block may have, and both operand patterns
+    (channel by thread and pixel by lane group, and the transpose) hit 32
+    distinct banks."""
+    f, growth, _ = WIDE_BLOCK
+    ws, bs = block_params(f, seed=25)
+    frag = pack_drb_weights(ws, bs)[:-192].view(-1, 4)
+    lane = torch.arange(32)
+    gq, tq = lane // 4, lane % 4
+    upper = (gq >= 4).long()
+    start = 0
+    for (cin, cout), w in zip(stage_widths(f, growth), ws):
+        ntf = cout // 8
+        hi, lo = tf32_split(w)
+        for n in range(cin // 8):
+            for tap in range(9):
+                for k in range(ntf):
+                    at = start + ((n * 9 + tap) * ntf + k) * 32 + 4 * tq + (gq % 4)
+                    v0, v1 = frag[at], frag[at + 16]
+                    ci = 8 * n + gq
+                    for v, co in ((v0, 8 * k + tq), (v1, 8 * k + tq + 4)):
+                        assert torch.equal(v[lane, upper], hi[co, ci, tap // 3, tap % 3])
+                        assert torch.equal(v[lane, 2 + upper], lo[co, ci, tap // 3, tap % 3])
+        start += 2 * 9 * cin * cout // 4
+    assert start == frag.shape[0]
+
+    stride, pitch, rows = 184, 18, 10
+
+    def plane(c):
+        return c * stride + 4 * ((c >> 2) & 1)
+
+    assert all(plane(c) + rows * pitch <= plane(c + 1) for c in range(255))
+    assert (plane(255) + rows * pitch) <= 256 * stride and 256 * stride * 4 <= 232_448
+    for c0 in range(0, 256, 8):
+        by_thread = {(plane(c0 + int(t)) + int(q)) % 32 for t, q in zip(tq, gq)}
+        by_group = {(plane(c0 + int(q)) + int(t)) % 32 for t, q in zip(tq, gq)}
+        assert len(by_thread) == len(by_group) == 32, c0
+
+
 # ---- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -469,22 +525,135 @@ def test_drb_function_takes_ten_parameters_and_the_slope():
                 DRBFunction.apply(x, packed, *wrong)
 
 
+def test_wide_backward_route_takes_exactly_the_esrgan_block():
+    """The wide backward kernel's block, read off the input: fp32 (B, 64,
+    16, 16), growth 32, slope 0.2, fp32 parameters. bf16, other sides, other
+    slopes, DoWnGAN's growth and other parameter dtypes are refused, and no
+    CPU tensor takes the kernel. The florida predicate refuses the wide
+    block."""
+    f, growth, slope = WIDE_BLOCK
+    ws, bs = block_params(f, seed=21)
+    x = torch.zeros(2, f, 16, 16)
+    assert _wide_backward_block(x, ws, bs, slope)
+    assert _wide_backward_block(torch.zeros(128, f, 16, 16), ws, bs, slope)
+    assert not backward_on_wide_kernel(x, ws, bs, slope)  # a CPU tensor
+    assert not backward_on_kernel(x, ws, bs, slope)
+    for other in (x.bfloat16(), x.double(), torch.zeros(2, f, 8, 16), torch.zeros(2, f, 32, 32),
+                  torch.zeros(2, f, 16, 12), torch.zeros(f, 16, 16)):
+        assert not _wide_backward_block(other, ws, bs, slope), tuple(other.shape)
+    assert not _wide_backward_block(x, ws, bs, 0.01)
+    assert not _wide_backward_block(x, [w.bfloat16() for w in ws], bs, slope)
+    assert not _wide_backward_block(x, ws, [b.double() for b in bs], slope)
+    wd, bd = block_params(f, seed=22, growth=f)  # growth 64
+    assert not _wide_backward_block(x, wd, bd, slope)
+    w8, b8 = block_params(8, seed=23)
+    assert not _wide_backward_block(torch.zeros(2, 8, 16, 16), w8, b8, slope)
+
+
+def wide_backward_case(b, seed, device):
+    """ESRGAN's block at its init scale, x and an output weighting."""
+    f = WIDE_BLOCK[0]
+    ws, bs = block_params(f, seed=seed, device=device)
+    rng = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(b, f, 16, 16, generator=rng).to(device)
+    weight = torch.randn(b, f, 16, 16, generator=rng).to(device)
+    return x, ws, bs, weight
+
+
+# The wide backward kernel against float64, as the florida backward kernel
+# is held (tests/test_torch_drb.py::BACKWARD_KERNEL_TOL): the plain twin in
+# float64 masked on the kernel's own LeakyReLU sides (its recomputed c_s,
+# bit for bit the wide forward kernel's); a pre-activation that float64
+# puts on the other side must lie within 1e-5 of zero. 1e-4 of each
+# gradient's largest entry.
+WIDE_BACKWARD_TOL = 1e-4
+# The recomputed c_1 .. c_4 against float64: c_4 sums 9 x 160 products, each
+# 3xTF32, in fp32; on the H100 up to 2.4e-5 off (24 of 4.2 M elements over
+# 1e-5 at B=128), so 1e-4, atol = rtol. They are the forward kernel's own.
+WIDE_ACTS_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 128])
+def test_cuda_wide_backward_kernel_matches_float64(cuda_device, b):
+    f, growth, slope = WIDE_BLOCK
+    x, ws, bs, weight = wide_backward_case(b, seed=70 + b, device=cuda_device)
+    packed = pack_drb_weights(ws, bs)
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+    before = (drb_backward.launches, drb_backward.launches_wide, drb_backward.recomputes)
+    out = DRBFunction.apply(leaves[0], packed, *leaves[1:], slope)
+    got = torch.autograd.grad((out * weight).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (drb_backward.launches, drb_backward.launches_wide, drb_backward.recomputes) == (
+        before[0] + 1, before[1] + 1, before[2])
+    acts = torch.empty(b, 4 * growth, 16, 16, device=cuda_device)
+    direct = drb_backward_kernel_wide(x, ws, bs, weight, packed, acts=acts)
+    assert all(torch.equal(g, d) for g, d in zip(got, direct))
+    x64, ws64, bs64 = x.double(), [t.double() for t in ws], [t.double() for t in bs]
+    acts64, ys = x64, []
+    for s in range(4):
+        ys.append(F.conv2d(acts64, ws64[s], bs64[s], padding=1))
+        acts64 = torch.cat([acts64, F.leaky_relu(ys[-1], slope)], 1)
+    torch.testing.assert_close(acts.double(), acts64[:, f:], atol=WIDE_ACTS_TOL, rtol=WIDE_ACTS_TOL)
+    sides = [acts[:, s * growth:(s + 1) * growth] > 0 for s in range(4)]
+    flipped = torch.cat([(side != (y > 0)) for side, y in zip(sides, ys)], 1)
+    assert (torch.cat(ys, 1)[flipped].abs() <= 1e-5).all()
+    want = drb_backward_reference(x64, ws64, bs64, weight.double(), slope=slope, sides=sides)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g.double() - w).abs().max() <= WIDE_BACKWARD_TOL * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_wide_backward_kernel_is_bit_for_bit_and_computes_only_what_is_needed(cuda_device):
+    """Two identical calls agree bit for bit (the weight gradients are
+    summed over the CTAs in order, with no atomics); ``needs`` drops dx and
+    the biases, or every parameter, and the rest equals the full call's."""
+    x, ws, bs, weight = wide_backward_case(128, seed=80, device=cuda_device)
+    packed = pack_drb_weights(ws, bs)
+    first = drb_backward_kernel_wide(x, ws, bs, weight, packed)
+    second = drb_backward_kernel_wide(x, ws, bs, weight, packed)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    part = drb_backward_kernel_wide(x, ws, bs, weight, packed, [False] + [True] * 5 + [False] * 5)
+    assert part[0] is None and all(g is None for g in part[6:])
+    assert all(torch.equal(p, q) for p, q in zip(part[1:6], first[1:6]))
+    no_params = drb_backward_kernel_wide(x, ws, bs, weight, None, [True] + [False] * 10)
+    assert torch.equal(no_params[0], first[0]) and all(g is None for g in no_params[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_generator_backward_launches_69_wide_backward_kernels(cuda_device):
+    """ESRGAN at its published widths under autograd: every one of the 69
+    dense blocks differentiates on the wide backward kernel, and none
+    recomputes."""
+    cfg = Config(generator_arch="esrgan", filters=64, num_res_blocks=23)
+    gen = make_generator(cfg, cuda_device)
+    x = torch.randn(8, 7, 16, 16, generator=torch.Generator().manual_seed(24)).to(cuda_device)
+    before = (drb_backward.launches, drb_backward.launches_wide, drb_backward.recomputes)
+    gen(x).square().mean().backward()
+    torch.cuda.synchronize()
+    assert (drb_backward.launches - before[0], drb_backward.launches_wide - before[1],
+            drb_backward.recomputes - before[2]) == (69, 69, 0)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in gen.parameters())
+
+
 @pytest.mark.cuda
 def test_cuda_wide_drb_function_backward_matches_autograd_through_the_twin(cuda_device):
-    """DRBFunction (the wide kernel forward, a cuDNN recompute backward with
-    slope 0.2) at B=128. Against autograd through ``cudnn_chain``, the
-    function its backward differentiates, each gradient within 1e-5 of its
-    norm: a plumbing check (cuDNN's backward may sum in another order from
-    call to call). Against float64 autograd through the twin's function
-    with each LeakyReLU on the side that ``cudnn_chain``'s fp32
-    pre-activation takes (``block_on_sides``), within 1e-4 of its norm:
-    over 33 cases on the H100 such readings are at most 9.1e-6 (the last
-    stage's fp32 wgrad). The sides are the fp32 chain's because in 14 of
-    those cases one or two pre-activations lay within rounding of zero on
-    the other side of the float64 one's; the element's gradient then moves
-    by 0.8 of itself, and the reading on the float64 block's own sides
-    was up to 1.8e-3. A wrong slope, width or order is off by O(1)."""
-    f, _, slope = WIDE_BLOCK
+    """DRBFunction (the wide kernel forward, the wide backward kernel) at
+    B=128, against float64 autograd through the twin's function with each
+    LeakyReLU on the side the kernel's recomputed activation takes
+    (``block_on_sides``), each gradient within 1e-4 of its norm; a wrong
+    slope, width or order is off by O(1). The cuDNN recompute that other
+    blocks take (``drb_backward``, called directly) against autograd
+    through ``cudnn_chain``, the function it differentiates, within 1e-5 of
+    each gradient's norm: a plumbing check (cuDNN's backward may sum in
+    another order from call to call). The sides are a kernel's own because
+    in 14 of 33 cases on the H100 one or two pre-activations lay within
+    rounding of zero on the other side of the float64 one's; the element's
+    gradient then moves by 0.8 of itself, and the reading on the float64
+    block's own sides was up to 1.8e-3."""
+    f, growth, slope = WIDE_BLOCK
     ws, bs = block_params(f, seed=14, device=cuda_device)
     x = torch.randn(128, f, 16, 16, generator=torch.Generator().manual_seed(15)).to(cuda_device)
     weight = torch.randn(128, f, 16, 16,
@@ -495,12 +664,17 @@ def test_cuda_wide_drb_function_backward_matches_autograd_through_the_twin(cuda_
         leaves = [t.detach().to(dtype).requires_grad_() for t in (x, *ws, *bs)]
         return torch.autograd.grad((fn(leaves) * weight.to(dtype)).sum(), leaves)
 
-    sides = chain_sides(x, ws, bs, slope)
-    before = drb_forward.launches_wide
+    before = (drb_forward.launches_wide, drb_backward.launches_wide, drb_backward.recomputes)
     got = grads(lambda v: DRBFunction.apply(v[0], packed, *v[1:], slope))
-    assert drb_forward.launches_wide == before + 1
-    chain = grads(lambda v: cudnn_chain(v[0], v[1:6], v[6:], slope))
+    assert (drb_forward.launches_wide, drb_backward.launches_wide, drb_backward.recomputes) == (
+        before[0] + 1, before[1] + 1, before[2])
+    acts = torch.empty(128, 4 * growth, 16, 16, device=cuda_device)
+    drb_backward_kernel_wide(x, ws, bs, weight, packed, [False] * 11, acts=acts)
+    sides = [acts[:, s * growth:(s + 1) * growth] > 0 for s in range(4)]
     exact = grads(lambda v: block_on_sides(v[0], v[1:6], v[6:], slope, sides), torch.float64)
-    for g, c, e in zip(got, chain, exact):
-        assert float((g - c).norm()) <= 1e-5 * float(c.norm())
+    for g, e in zip(got, exact):
         assert float((g.double() - e).norm()) <= 1e-4 * float(e.norm())
+    recompute = drb_backward(x, ws, bs, weight, slope=slope)
+    chain = grads(lambda v: cudnn_chain(v[0], v[1:6], v[6:], slope))
+    for r, c in zip(recompute, chain):
+        assert float((r - c).norm()) <= 1e-5 * float(c.norm())

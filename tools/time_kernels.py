@@ -19,19 +19,24 @@ off:
   B=128, beside ``cudnn_chain`` at that block;
 * ``drb_backward_kernel`` and its reduction ``drb_grad_reduce`` at B=128,
   one call of ``drb_backward_kernel``, beside ``drb_backward``, the cuDNN
-  recompute that every other block's backward runs.
+  recompute that every other block's backward runs;
+* ``drb_backward_kernel_wide`` and its reduction ``drb_grad_reduce_wide``
+  (ESRGAN's block) at B=128, one call of ``drb_backward_kernel_wide``,
+  beside ``drb_backward`` at that block, the cuDNN recompute it replaced.
 
 The bounds are the benchmark's, and always this checkout's, so that two
 checkouts are timed against one yardstick: ``portbench.flops.
 drb_bound_seconds`` for the florida blocks (the FLOPs at the TF32 or bf16
 peak, or the bytes at the memory rate), ``portbench.reference.esrgan.
 drb_bound_seconds`` for the wide block (three TF32 passes of the FLOPs),
-and for the backward kernel :func:`backward_bound_seconds` (three TF32
+and for the backward kernels :func:`backward_bound_seconds` (three TF32
 passes, no reader in the benchmark yet). Prints one JSON line per kernel,
 with the card's name and power limit. Exits 1 if the backward kernel takes
-more than 0.25 ms a block at B=128 or the wide kernel is not faster than
-its cuDNN chain. To compare two checkouts, run them in turns on one card:
-A, B, B, A.
+more than 0.25 ms a block at B=128, the wide backward kernel more than 1.0
+ms or not less than its recompute, or the wide kernel is not faster than
+its cuDNN chain. A checkout without the wide backward kernel (``--root``)
+gets a line that says so. To compare two checkouts, run them in turns on
+one card: A, B, B, A.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 ITERS = 50
 BACKWARD_MS_LIMIT = 0.25  # the backward kernel's target a block at B=128
+WIDE_BACKWARD_MS_LIMIT = 1.0  # the wide backward kernel's, a block at B=128
 TWIN_TOL = 1e-5  # fp32 cudnn_chain vs the plain twin, as the kernel is held (atol = rtol)
 FLORIDA_SHAPES = [(150, 16, 16, 16), (8, 16, 32, 112), (128, 16, 16, 16)]
 BF16_SHAPES = FLORIDA_SHAPES + [(132, 16, 16, 16)]
@@ -93,17 +99,24 @@ def drb_params(f: int, rng: torch.Generator, device, growth: int | None = None):
     return ws, bs
 
 
-def backward_bound_seconds(batch: int, filters: int, h: int, w: int) -> float:
-    """The least time ``drb_backward_kernel`` and its reduction can take:
+def backward_bound_seconds(batch: int, filters: int, h: int, w: int,
+                           growth: int | None = None) -> float:
+    """The least time a DRB backward kernel and its reduction can take:
     three TF32 passes of the recompute of stages 1-4 and of every stage's
     input and weight gradients (each a forward's FLOPs) at the TF32 peak,
-    or x, the output gradient, dx and the per-sample weight partials (out
-    and in again) at the memory rate, whichever is longer."""
+    or x, the output gradient, dx and the weight partials (out and in
+    again) at the memory rate, whichever is longer. ``growth`` None is
+    DoWnGAN's block (``drb_backward_kernel``, a partial a sample); 32 at 64
+    filters is ESRGAN's (``drb_backward_kernel_wide``, a partial a CTA of
+    min(B, 64) two-CTA clusters): 0.2416 ms at B=128."""
     from portbench import flops
 
-    recompute = sum(2 * 9 * (s * filters) * filters * h * w for s in range(1, 5)) * batch
-    ops = 3 * (recompute + 2 * batch * flops.drb_flops_per_sample(filters, h, w))
-    partials = batch * (135 * filters * filters + 5 * filters) * 4
+    widths = [(filters + (filters if growth is None else growth) * s,
+               filters if growth is None or s == 4 else growth) for s in range(5)]
+    convs = [2 * 9 * cin * cout * h * w for cin, cout in widths]
+    ops = 3 * batch * (sum(convs[:4]) + 2 * sum(convs))
+    slots = batch if growth is None else 2 * min(batch, 64)
+    partials = slots * sum(9 * cin * cout + cout for cin, cout in widths) * 4
     nbytes = 3 * batch * filters * h * w * 4 + 2 * partials
     return max(ops / flops.PEAK_FLOPS["float32"], nbytes / flops.PEAK_BYTES)
 
@@ -198,6 +211,32 @@ def main() -> int:
     if not row["ms"] <= BACKWARD_MS_LIMIT:
         failures.append(f"the DRB backward kernel takes {row['ms']} ms a block at B=128, "
                         f"over {BACKWARD_MS_LIMIT}")
+
+    f, growth, slope = WIDE
+    shape = (TRAIN_BATCH, f, 16, 16)
+    ws, bs = drb_params(f, rng, "cuda", growth)
+    x = torch.randn(*shape, generator=rng).cuda()
+    grad_out = torch.randn(*shape, generator=rng).cuda()
+    head = {"kernel": "drb_backward_kernel_wide+drb_grad_reduce_wide", "dtype": "float32",
+            "block": {"filters": f, "growth": growth, "slope": slope},
+            "yardstick": "drb_backward (cuDNN recompute)",
+            "bound": "tools/time_kernels.py::backward_bound_seconds", **common}
+    recompute_ms = cuda_ms(lambda: drb.drb_backward(x, ws, bs, grad_out, slope=slope))
+    bound = backward_bound_seconds(*shape, growth=growth)
+    if not hasattr(drb, "drb_backward_kernel_wide"):
+        print(json.dumps({**head, "shapes": [], "absent": "this checkout has no wide backward "
+                          "kernel", "yardstick_ms": recompute_ms, "bound_ms": bound * 1e3}),
+              flush=True)
+    else:
+        packed = drb.pack_drb_weights(ws, bs)
+        row = timed(shape, cuda_ms(lambda: drb.drb_backward_kernel_wide(x, ws, bs, grad_out,
+                                                                        packed)),
+                    recompute_ms, bound, limit_ms=WIDE_BACKWARD_MS_LIMIT)
+        print(json.dumps({**head, "shapes": [row]}), flush=True)
+        if not row["ms"] <= WIDE_BACKWARD_MS_LIMIT or not row["ms"] < recompute_ms:
+            failures.append(f"the wide DRB backward kernel takes {row['ms']} ms a block at "
+                            f"B=128, over {WIDE_BACKWARD_MS_LIMIT} or not under its recompute "
+                            f"({recompute_ms} ms)")
 
     for message in failures:
         print(f"time_kernels: {message}", file=sys.stderr)
